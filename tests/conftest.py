@@ -63,6 +63,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running physics validation (still run by "
         "default; deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (maniac_tpu_torch kernels); "
+        "skips without one")
 
 
 def pytest_sessionfinish(session, exitstatus):
