@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke check of the maniac_tpu_torch main path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # the flagship check; under a minute on an H100
+    python3 chip_smoke.py    # about a minute on an H100
 
 Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
 
@@ -22,10 +22,32 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      must match a fresh synthesis (phase-1 bounds). Then both kernels are
      held against their plain versions at the main path's batch (10 block
      steps, at most B/64 replicas diverged; the resync of the result) and
-     timed.
+     timed;
+  4. the per-step kernel against the plain energy core at B=64 on three
+     systems (the flagship; bench.py's `mixed`, two active species with
+     swaps and the split; bench.py's `resv` water box without its
+     reservoir, no split): one step on the same proposals, then 50-step
+     chains on the same uniforms, with phase 2's bounds and, on the
+     matching replicas, the committed amplitudes and E_RECIP within phase
+     1's bounds; the flagship also at B=1, the single chain's shape, with
+     no divergence allowed; both cores timed per step, and on the flagship
+     at B=1024 (phase 3's states);
+  4b. the resync kernel at B=1, driven through mc/driver.resync_amplitudes
+     (the resync every replicated block calls), against its plain version
+     (phase 1's bounds), timed;
+  5. the command line's isotherm sweep on the flagship deck (3 blocks of
+     400 steps, 8 fugacities x 128 replicas = 1024 chains, f32 on the card):
+     exit 0, 8 finite isotherm rows, populations within [0, capacity], more
+     water at 3000 atm than at 1 atm, the step kernel launched once per
+     step;
+  6. the command line's single chain on the same deck (2 blocks of 400
+     steps): exit 0, the completion banner, 3 rows of energy.dat, the step
+     kernel launched 800 times.
 
-Prints one JSON line with the kernels' launch counts on the main path and
-their errors and times (kernel and plain) at the main path's batch, then the card's name and power limit, and as its last line
+Prints one JSON line with the kernels' launch counts on the paths that run
+them (phase 3 for the block and resync kernels, phase 5 for the step
+kernel) and their errors and times (kernel and plain; the step kernel's
+error is the largest amplitude error of phase 4), then the card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 non-zero and no result line is printed. It needs no network and only the
 files of this repository.
@@ -33,7 +55,9 @@ files of this repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -43,10 +67,15 @@ import torch
 
 RESYNC_SRC = "maniac_tpu_torch/kernels/csrc/resync.cu"
 BLOCKG_SRC = "maniac_tpu_torch/kernels/csrc/blockg.cu"
-# phases 1-2: replicas and MC steps of the kernel-vs-plain comparisons
+STEPG_SRC = "maniac_tpu_torch/kernels/csrc/stepg.cu"
+# phases 1-2, 4: replicas and MC steps of the kernel-vs-plain comparisons
 CHECK_REPLICAS, CHECK_STEPS = 64, 50
 # phase 3: the flagship main path
 MAIN_REPLICAS, MAIN_STEPS, MAIN_BLOCKS = 1024, 400, 3
+# phases 5-6: the command line on the flagship deck
+CAPACITY = 192
+ISOTHERM = "1,3,10,30,100,300,1000,3000"
+ISO_REPLICAS, ISO_BLOCKS, CHAIN_BLOCKS = 128, 3, 2
 SEED = 1234
 
 
@@ -88,10 +117,13 @@ def _resync_pair(k, p, e_recip):
 
 def _block_check(name, k, p, max_diverged):
     """Phase-2 bounds on kernel (k) vs plain (p) block outputs; returns
-    max |dpos| over the replicas whose decisions match."""
+    (max |dpos| over the replicas whose decisions match, their mask)."""
     same = ((k.n_mol == p.n_mol).all(dim=1)
             & (k.counters == p.counters).flatten(1).all(dim=1))
     n_div = int((~same).sum())
+    if n_div > max_diverged:
+        raise AssertionError(f"{name}: {n_div} of {same.numel()} replica(s) "
+                             f"diverged (allowed {max_diverged})")
     pos_err = float((k.pos - p.pos)[same].abs().max())
     e_err = float((k.energy - p.energy)[same].abs().max())
     print(f"{name}: {n_div} of {same.numel()} replica(s) diverged (allowed "
@@ -100,7 +132,82 @@ def _block_check(name, k, p, max_diverged):
           f"{int(k.counters[:, 1].sum())}")
     if n_div > max_diverged or not pos_err <= 1e-4 or not e_err <= 5.0:
         raise AssertionError(f"{name}: block kernel disagrees with plain")
-    return pos_err
+    return pos_err, same
+
+
+def _load(make, dev, **kw):
+    """load_system on a fixture written by ``make`` into a temp dir (f32,
+    capacity 192, on ``dev``)."""
+    from maniac_tpu_torch import load_system
+    with tempfile.TemporaryDirectory() as tmp:
+        make(tmp, **kw)
+        return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
+                           f"{tmp}/parameters.inc", capacity=CAPACITY,
+                           dtype=torch.float32, device=dev)
+
+
+def _step_check(name, k, p, max_diverged):
+    """Phase-2 bounds on step-kernel (k) vs plain-core (p) chains, then the
+    amplitudes the kernel committed and E_RECIP of the matching replicas
+    against the plain core's, with phase 1's bounds; returns max |dA|."""
+    from maniac_tpu_torch.system import E_RECIP
+    _, same = _block_check(name, k, p, max_diverged)
+    return _amp_check(f"{name}: amplitudes", k.amp_re[same], k.amp_im[same],
+                      k.energy[same, E_RECIP], p.amp_re[same],
+                      p.amp_im[same], p.energy[same, E_RECIP])
+
+
+def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
+    """Phase 4 on one system: the dispatched step (the step kernel) against
+    the plain energy core, one step then an n_steps chain on the same
+    uniforms; then both cores timed on one proposal. Returns
+    (max |dA|, kernel ms, plain ms)."""
+    from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
+    from maniac_tpu_torch.mc.driver import draw_uniforms, run_steps_u
+    from maniac_tpu_torch.mc.moves import _propose, mc_step_u
+    B = states.B
+    u = draw_uniforms(spec, B, 1, gen)
+    err = _step_check(f"{name}: one step B={B}",
+                      run_steps_u(spec, states, u),
+                      run_steps_u(spec, states, u, core=step_core_plain),
+                      max_diverged)
+    if n_steps:
+        u = draw_uniforms(spec, B, n_steps, gen)
+        err = max(err, _step_check(
+            f"{name}: B={B} x {n_steps} steps", run_steps_u(spec, states, u),
+            run_steps_u(spec, states, u, core=step_core_plain),
+            max_diverged))
+    u1 = draw_uniforms(spec, B, 1, gen)[:, 0]
+    pre = _propose(spec, states, u1)
+    ms = _cuda_ms(lambda: step_core(spec, states, pre), 20)
+    ms_plain = _cuda_ms(lambda: step_core_plain(spec, states, pre), 5)
+    ms_full = _cuda_ms(lambda: mc_step_u(spec, states, u1), 20)
+    ms_full_plain = _cuda_ms(
+        lambda: mc_step_u(spec, states, u1, step_core_plain), 5)
+    print(f"{name}: B={B} per step: step core kernel {ms:.3f} ms, plain "
+          f"{ms_plain:.3f} ms; whole step (proposal, core, bookkeeping) "
+          f"{ms_full:.3f} ms, plain {ms_full_plain:.3f} ms ({label})")
+    return err, ms, ms_plain
+
+
+def _cli(argv, outdir):
+    """maniac_tpu_torch.cli.main with its log on stdout sent to a file;
+    returns (exit code, seconds, log text)."""
+    from maniac_tpu_torch.cli import main as cli_main
+    with open(f"{outdir}.stdout", "w") as f, contextlib.redirect_stdout(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(argv + ["-o", outdir])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    with open(f"{outdir}/log.maniac") as f:
+        log = f.read()
+    return rc, sec, log
+
+
+def _rows(path):
+    with open(path) as f:
+        return [line.split() for line in f if not line.startswith("#")]
 
 
 def main() -> int:
@@ -112,13 +219,15 @@ def main() -> int:
     from maniac_tpu_torch.kernels import build, dispatch_report
     from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.mc.driver import draw_uniforms, resync_amplitudes
     from maniac_tpu_torch.physics.energy import (active_site_mask,
                                                  full_amplitudes,
                                                  recip_energy,
                                                  site_positions)
     from maniac_tpu_torch.system import E_RECIP
-    from maniac_tpu_torch.systems import make_zif_like
+    from maniac_tpu_torch.systems import (make_framework_mixed,
+                                          make_water_box, make_zif_like)
 
     # ---- phase 0: device and build ---------------------------------------
     dev = torch.device("cuda", 0)
@@ -222,8 +331,8 @@ def main() -> int:
     u = draw_uniforms(spec, Bm, 10, gen)
     k_blk = run_block_kernel(spec, states, u)
     p_blk = block_plain(spec, states, u)
-    err_block = _block_check(f"phase 3: block B={Bm} x 10 steps", k_blk,
-                             p_blk, max(1, Bm // 64))
+    err_block, _ = _block_check(f"phase 3: block B={Bm} x 10 steps", k_blk,
+                                p_blk, max(1, Bm // 64))
     ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
     ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
     k_rs = resync_grouped(spec, k_blk)
@@ -237,6 +346,111 @@ def main() -> int:
           f"{ms_resync:.3f} ms, plain {ms_resync_plain:.3f} ms "
           f"({name}, {smi})")
 
+    # ---- phase 4: step kernel vs plain core --------------------------------
+    label = f"{name}, {smi}"
+    systems = [("flagship", spec, sysm.state)]
+    for sname, make, kw in (
+            ("mixed", make_framework_mixed,
+             dict(n_cells=6, a=5.66, n_water=24, n_dimer=12, cutoff=8.5,
+                  tol=1e-5, probs=(0.25, 0.15, 0.4, 0.2))),
+            ("resv water box", make_water_box,
+             dict(n_water=48, L=24.0, cutoff=8.0, tol=1e-5,
+                  probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0))):
+        other = _load(make, dev, **kw)
+        systems.append((sname, other.spec, other.state))
+    err_step = 0.0
+    for sname, sp, st in systems:
+        print(f"phase 4: {sname}: {dispatch_report(sp, dev)}")
+        st = replicate(sp, st, B)
+        err, _, _ = _step_phase(f"phase 4: {sname}", sp, st, gen, 1,
+                                n_check, label)
+        err_step = max(err_step, err)
+    # the single chain's shape (phase 6): B = 1, no divergence allowed
+    err, _, _ = _step_phase("phase 4: flagship", spec,
+                            replicate(spec, sysm.state, 1), gen, 0, n_check,
+                            label)
+    err_step = max(err_step, err)
+    err, ms_step, ms_step_plain = _step_phase(
+        "phase 4: flagship", spec, states, gen, max(1, Bm // 64), 0, label)
+    err_step = max(err_step, err)
+
+    # ---- phase 4b: the resync kernel at B = 1 (a single chain) -------------
+    st1 = block_plain(spec, sysm.state, draw_uniforms(spec, 1, n_check, gen))
+    resync_grouped.launches = 0
+    k_one = resync_amplitudes(spec, st1)
+    launches_one = resync_grouped.launches
+    if launches_one != 1:
+        raise AssertionError(f"phase 4b: resync_amplitudes launched the "
+                             f"kernel {launches_one} times")
+    _amp_check("phase 4b: resync B=1 kernel vs plain",
+                         *_resync_pair(k_one, resync_plain(spec, st1),
+                                       E_RECIP))
+    ms_one = _cuda_ms(lambda: resync_amplitudes(spec, st1), 20)
+    ms_one_plain = _cuda_ms(lambda: resync_plain(spec, st1), 5)
+    print(f"phase 4b: resync B=1: kernel {ms_one:.3f} ms, plain "
+          f"{ms_one_plain:.3f} ms ({label})")
+
+    # ---- phases 5-6: the command line -------------------------------------
+    fugs = [float(f) for f in ISOTHERM.split(",")]
+    with tempfile.TemporaryDirectory() as tmp:
+        iso_deck, chain_deck = f"{tmp}/iso", f"{tmp}/chain"
+        make_zif_like(iso_deck, n_cells=6, a=5.66, n_water=32,
+                      fugacity=30.0, nb_block=ISO_BLOCKS, nb_step=MAIN_STEPS)
+        make_zif_like(chain_deck, n_cells=6, a=5.66, n_water=32,
+                      fugacity=30.0, nb_block=CHAIN_BLOCKS,
+                      nb_step=MAIN_STEPS)
+
+        def files(d):
+            return ["-i", f"{d}/input.maniac", "-d", f"{d}/topology.data",
+                    "-p", f"{d}/parameters.inc", "--capacity",
+                    str(CAPACITY)]
+
+        step_core.launches = 0
+        resync_grouped.launches = 0
+        run_block_kernel.launches = 0
+        rc, sec, log = _cli(files(iso_deck) + [
+            "--isotherm", ISOTHERM, "--replicas", str(ISO_REPLICAS)],
+            f"{tmp}/iso_out")
+        iso_launches = {"stepg": step_core.launches,
+                        "resync": resync_grouped.launches,
+                        "blockg": run_block_kernel.launches}
+        n_iso = len(fugs) * ISO_REPLICAS * ISO_BLOCKS * MAIN_STEPS
+        print(f"phase 5: isotherm exit {rc}, {len(fugs)} x {ISO_REPLICAS} "
+              f"chains x {ISO_BLOCKS * MAIN_STEPS} steps in {sec:.2f} s "
+              f"(load included): {n_iso / sec:.0f} MC steps/s ({label}); "
+              f"launches {iso_launches}")
+        for line in log.splitlines():
+            if "kernel dispatch" in line or "throughput" in line:
+                print(f"phase 5: log: {line.strip()}")
+        rows = _rows(f"{tmp}/iso_out/isotherm.dat")
+        series = _rows(f"{tmp}/iso_out/isotherm_wat.dat")
+        iso_n = [float(r[2]) for r in rows]
+        print(f"phase 5: <N> per fugacity {dict(zip(fugs, iso_n))}")
+        vals = iso_n + [float(v) for r in series for v in r[1:]]
+        if (rc != 0 or len(rows) != len(fugs)
+                or not all(math.isfinite(float(v)) for r in rows
+                           for v in r[1:4])
+                or not all(0.0 <= v <= CAPACITY for v in vals)
+                or not iso_n[-1] > iso_n[0]
+                or iso_launches["stepg"] < ISO_BLOCKS * MAIN_STEPS
+                or iso_launches["resync"] < 1):
+            raise AssertionError("phase 5: the isotherm sweep failed its "
+                                 "checks")
+
+        step_core.launches = 0
+        rc, sec, log = _cli(files(chain_deck), f"{tmp}/chain_out")
+        chain_launches = step_core.launches
+        n_chain = CHAIN_BLOCKS * MAIN_STEPS
+        print(f"phase 6: single chain exit {rc}, {n_chain} steps in "
+              f"{sec:.2f} s (load included): {n_chain / sec:.0f} MC "
+              f"steps/s ({label}); step kernel launches {chain_launches}")
+        energy_rows = _rows(f"{tmp}/chain_out/energy.dat")
+        if (rc != 0 or "Simulation Completed" not in log
+                or len(energy_rows) != CHAIN_BLOCKS + 1
+                or chain_launches != n_chain):
+            raise AssertionError("phase 6: the single chain failed its "
+                                 "checks")
+
     print(json.dumps({"kernels": [
         {"name": "resync_grouped", "route": "cuda", "source": RESYNC_SRC,
          "replaces": "maniac_tpu/kernels/resync.py:178",
@@ -246,6 +460,10 @@ def main() -> int:
          "replaces": "maniac_tpu/kernels/blockg.py:128",
          "launches": launches["blockg"], "max_abs_err": err_block,
          "ms": ms_block, "plain_ms": ms_block_plain},
+        {"name": "step_core", "route": "cuda", "source": STEPG_SRC,
+         "replaces": "maniac_tpu/kernels/stepg.py:65",
+         "launches": iso_launches["stepg"], "max_abs_err": err_step,
+         "ms": ms_step, "plain_ms": ms_step_plain},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

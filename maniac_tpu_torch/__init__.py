@@ -3,8 +3,10 @@
 A port of the JAX package ``maniac_tpu`` (which stays the reference): the
 same flat padded system layout, the same unified MC step over explicit
 uniforms, replicas as a leading batch axis, and hand-written CUDA kernels
-(kernels/csrc) for the whole-block MC step and the per-block amplitude
-resync. Importing the package imports torch, numpy and scipy, never jax.
+(kernels/csrc) for the whole-block MC step, the energy core of a single MC
+step and the per-block amplitude resync. The command line is
+``python -m maniac_tpu_torch.cli``. Importing the package imports torch,
+numpy and scipy, never jax.
 """
 
 from .api import LoadedSystem, load_system                     # noqa: F401

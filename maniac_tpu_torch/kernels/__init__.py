@@ -1,23 +1,29 @@
 """Hand-written CUDA kernels for the hot path, and their dispatch.
 
-Two kernels serve the main path on a CUDA device:
+Three kernels serve the MC paths on a CUDA device:
 
 * ``blockg.run_block_kernel`` (csrc/blockg.cu): a whole block of MC steps
   per replica, the counterpart of maniac_tpu/kernels/blockg.py
   ``_blockg_kernel`` in its one-active-species, framework-split,
-  orthorhombic, no-reservoir form;
+  orthorhombic, no-reservoir form, with one activity for every replica;
+* ``stepg.step_core`` (csrc/stepg.cu): the energy core of one MC step for
+  B replicas given their proposals, the counterpart of
+  maniac_tpu/kernels/stepg.py ``_stepg_kernel``; every f32 block outside
+  the block kernel's gate (several active species, no framework split, a
+  per-replica activity sweep, a single chain) runs its steps through it;
 * ``resync.resync_grouped`` (csrc/resync.cu): the per-block amplitude
-  resynthesis, the counterpart of maniac_tpu/kernels/resync.py
-  ``_resyncg_kernel``.
+  resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
+  ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
 
 Dispatch is split by what it depends on. The spec gates
-(``block_gate_failure``, ``resync_gate_failure``) are the only rule on the
-spec: parallel/replicas.py calls a wrapper for a spec inside its gate and
+(``block_gate_failure``, ``step_gate_failure``, ``resync_gate_failure``)
+are the only rule on the spec: the callers (parallel/replicas.py,
+mc/moves.py, mc/driver.py) call a wrapper for a spec inside its gate and
 the plain path otherwise, and dispatch_report says which. The device is
 decided only in the wrappers: for tensors on the CPU they run their plain
 torch version; for a CUDA tensor they launch the kernel or raise (there is
-no fallback). ``use_block_kernel`` and ``use_resync_kernel`` combine the two
-for a given device.
+no fallback). ``use_block_kernel``, ``use_step_kernel`` and
+``use_resync_kernel`` combine the two for a given device.
 """
 
 from __future__ import annotations
@@ -27,21 +33,24 @@ import torch
 
 def block_gate_failure(spec) -> str | None:
     """First static-spec condition the block kernel does not take, or None
-    (the counterpart of maniac_tpu.kernels.use_blockg)."""
-    if spec.dtype_name != "float32":
-        return f"dtype {spec.dtype_name} (the kernels take float32)"
+    (the counterpart of maniac_tpu.kernels.use_blockg): the step kernel's
+    gate, then one active species, the framework split and one activity
+    table."""
+    failure = step_gate_failure(spec)
+    if failure is not None:
+        return failure
     if spec.n_active != 1:
         return f"{spec.n_active} active species (kernel takes 1)"
     if not spec.fw_split:
         return "framework split off"
-    if spec.is_triclinic:
-        return "triclinic box"
-    if spec.has_reservoir:
-        return "reservoir"
-    if spec.use_table:
-        return "tabulated potentials"
-    # the kernel's static shared-memory tables (csrc/blockg.cu MAXA, MAXR,
-    # JMAX)
+    if spec.type_activity.dim() != 1:
+        return "per-replica activity (the kernel reads one activity table)"
+    return None
+
+
+def _table_limit_failure(spec) -> str | None:
+    """The kernels' static shared-memory tables (csrc/common.cuh MAXA,
+    MAXR, JMAX)."""
     if spec.A_act > 8:
         return f"{spec.A_act} atoms per molecule (kernel takes <= 8)"
     if spec.R > 8:
@@ -49,6 +58,22 @@ def block_gate_failure(spec) -> str | None:
     if max(spec.kmax_xyz + spec.kmax2_xyz) > 31:
         return "k-grid order above 31"
     return None
+
+
+def step_gate_failure(spec) -> str | None:
+    """First static-spec condition the per-step kernel does not take, or
+    None. It takes any number of active species, with the framework split
+    on or off, and a per-replica activity (the proposal, which reads the
+    activity, stays in torch)."""
+    if spec.dtype_name != "float32":
+        return f"dtype {spec.dtype_name} (the kernels take float32)"
+    if spec.is_triclinic:
+        return "triclinic box"
+    if spec.has_reservoir:
+        return "reservoir"
+    if spec.use_table:
+        return "tabulated potentials"
+    return _table_limit_failure(spec)
 
 
 def resync_gate_failure(spec) -> str | None:
@@ -65,6 +90,13 @@ def use_block_kernel(spec, device) -> bool:
             and block_gate_failure(spec) is None)
 
 
+def use_step_kernel(spec, device) -> bool:
+    """True when an MC step's energy core runs in the CUDA per-step
+    kernel."""
+    return (torch.device(device).type == "cuda"
+            and step_gate_failure(spec) is None)
+
+
 def use_resync_kernel(spec, device) -> bool:
     """True when the amplitude resync runs in the CUDA kernel."""
     return (torch.device(device).type == "cuda"
@@ -72,13 +104,16 @@ def use_resync_kernel(spec, device) -> bool:
 
 
 def dispatch_report(spec, device) -> str:
-    """One line naming the implementation of the block and of the resync
-    on ``device``, with the reason when it is the plain path."""
+    """One line naming the implementation of the block, of the MC step
+    inside a block that is not the whole-block kernel, and of the resync on
+    ``device``, with the reason when it is not the kernel."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"kernel dispatch: plain torch path (device {device.type})"
     block = ("CUDA whole-block kernel" if use_block_kernel(spec, device)
-             else f"plain torch path ({block_gate_failure(spec)})")
+             else f"per-step path ({block_gate_failure(spec)})")
+    step = ("CUDA per-step kernel" if use_step_kernel(spec, device)
+            else f"plain torch path ({step_gate_failure(spec)})")
     resync = ("CUDA resync kernel" if use_resync_kernel(spec, device)
               else f"plain torch path ({resync_gate_failure(spec)})")
-    return f"kernel dispatch: block: {block}; resync: {resync}"
+    return f"kernel dispatch: block: {block}; step: {step}; resync: {resync}"

@@ -4,8 +4,9 @@
 run_block_grouped (kernel ``_blockg_kernel``) in its one-active-species,
 framework-split, orthorhombic, no-reservoir form (kernels.block_gate_failure
 is the gate). For a CUDA state it launches csrc/blockg.cu; for a CPU state
-it runs ``block_plain``, a Python loop of mc/moves.py::mc_step_u over the
-same uniforms. Step-size recalibration runs after it, in torch.
+it runs ``block_plain``, a Python loop of mc/moves.py::mc_step_u with the
+plain energy core over the same uniforms. Step-size recalibration runs
+after it, in torch.
 """
 
 from __future__ import annotations
@@ -14,15 +15,16 @@ import torch
 
 from ..constants import COULOMB_K, PROB_CREATE_DELETE, SMALL, TWOPI
 from ..mc.driver import run_steps_u
-from ..mc.moves import N_UNIFORMS
+from ..mc.moves import N_UNIFORMS, _core_plain
 from ..system import SimState, SystemSpec
 from . import block_gate_failure, build
 from .resync import _check
 
 
 def block_plain(spec: SystemSpec, states: SimState, uniforms) -> SimState:
-    """Plain torch version: n_steps of mc_step_u on uniforms (B, n, 21)."""
-    return run_steps_u(spec, states, uniforms)
+    """Plain torch version: n_steps of mc_step_u with the plain energy core
+    on uniforms (B, n, 21)."""
+    return run_steps_u(spec, states, uniforms, core=_core_plain)
 
 
 def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:

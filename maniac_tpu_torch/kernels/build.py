@@ -1,10 +1,11 @@
 """Build the CUDA sources under csrc/ into one shared library and load it.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a
-library with a plain C interface (each kernel has an ``extern "C"``
-launcher that returns its ``cudaError_t``), loaded with ctypes. The build
-runs at first use, goes into ``kernels/_build/`` (git-ignored) and is keyed
-by a hash of the sources and flags, so an unchanged tree reuses it.
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one library
+with a plain C interface (each kernel has an ``extern "C"`` launcher that
+returns its ``cudaError_t``), loaded with ctypes. The build runs at first
+use, goes into ``kernels/_build/`` (git-ignored) and is keyed by a hash of
+the sources and flags, so an unchanged tree reuses it.
 
 No ``--use_fast_math``: expf, sincosf and erfcf must stay at full f32
 accuracy.
@@ -26,8 +27,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+LAUNCHERS = ("resync_launch", "blockg_launch", "stepg_launch")
 
 # last build's wall time in seconds (0.0 when the cached library was used)
 # and the compiler's output (ptxas -v: registers, shared memory, spills)
@@ -64,18 +67,30 @@ def library_path() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, log, proc in zip(cu, logs, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o",
+                os.path.join(tmp, "lib.so"), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        # atomic: a concurrent loader sees all or nothing
+        os.replace(os.path.join(tmp, "lib.so"), so)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
     return so
 
 
@@ -85,7 +100,7 @@ def library() -> ctypes.CDLL:
     Each launcher takes (pointer table, int table, float table, counts,
     stream) and returns a cudaError_t."""
     lib = ctypes.CDLL(str(library_path()))
-    for name in ("resync_launch", "blockg_launch"):
+    for name in LAUNCHERS:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int), ctypes.c_int,

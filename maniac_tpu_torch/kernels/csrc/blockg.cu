@@ -95,13 +95,8 @@ enum BlockFloat {
   BF_COUNT
 };
 
-constexpr int THREADS = 256;
+constexpr int THREADS = STEP_THREADS;
 constexpr int NWARP = THREADS / 32;
-constexpr int MAXA = 8;          // atoms per molecule
-constexpr int MAXF = 2 * MAXA;   // footprint atoms (old | new)
-constexpr int JMAX = 32;         // phase powers j = 0..JMAX-1 per axis
-constexpr int MAXR = 8;          // residue types
-constexpr int NRED = 7;          // reduced partial sums per step
 
 struct Args {
   const float* u;
@@ -190,18 +185,6 @@ __device__ void uniform_rotation(const float* u, float two_pi, float (*R)[3]) {
   R[2][1] = 2 * (y * z + w * x);
   R[2][2] = 1 - 2 * (x * x + y * y);
 }
-
-// Shared per-step footprint: atoms f < A_act are the old side, the rest
-// the new side.
-struct Footprint {
-  float p[MAXF][3];
-  float q[MAXF];
-  int cls[MAXF];
-  int m[MAXF];     // m2: atom present and its side moves
-  float wk[MAXF];  // k-space weight: sign * q * m
-  float wf[MAXF];  // far-field weight: q * m
-  int ex_a, ex_b, n_sites, acc;
-};
 
 // Thread 0: moves.py::_propose for one replica and one uniform row.
 __device__ void propose(const Args& a, int b, int step, const int* nmol,
@@ -329,37 +312,7 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   }
   fp.ex_a = w_old ? mol_slot_old : a.Mtot + 1;
   fp.ex_b = slot_new;
-  // sites to sweep: the frozen prefix, then guest columns up to the live
-  // end of the guest type regions
-  int live_end = a.guest_base;
-  for (int r = 0; r < a.R; ++r)
-    if (a.type_site_base[r] >= a.guest_base)
-      live_end = max(live_end, a.type_site_base[r] + nmol[r] * a.type_A[r]);
-  fp.n_sites = a.S_frozen + (live_end - a.guest_base);
-}
-
-// Complex sum over the footprint atoms in [f0, f1) with weights w of
-// w e^{i(jx tx + jy ty + jz tz)}, accumulated as the JAX package does
-// (d_re = pz_re t_re - pz_im t_im, d_im = pz_re t_im + pz_im t_re).
-__device__ __forceinline__ float2 footprint_mode(
-    float2 (*tab)[3][JMAX], const float* w, int f0, int f1, int jx,
-    int jy, int jz) {
-  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
-  for (int f = f0; f < f1; ++f) {
-    const float wf = w[f];
-    if (wf == 0.f) continue;  // adds exact zeros
-    const float2 px = tab[f][0][jx];
-    const float xr = px.x * wf, xi = px.y * wf;
-    const float2 y = signed_power(tab[f][1], jy);
-    const float2 z = signed_power(tab[f][2], jz);
-    const float tr = xr * y.x - xi * y.y;
-    const float ti = xr * y.y + xi * y.x;
-    a1 += z.x * tr;
-    a2 += z.y * ti;
-    b1 += z.x * ti;
-    b2 += z.y * tr;
-  }
-  return make_float2(a1 - a2, b1 + b2);
+  fp.n_sites = footprint_sites(a, nmol);
 }
 
 __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
@@ -374,8 +327,7 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int S = a.S, M1 = a.Mtot + 1, K = a.JzP * a.JxyP;
-  const int K2 = a.Jz2P * a.Jxy2P, F = 2 * a.A_act;
-  const int Jz = 2 * a.kz + 1, Jz2 = 2 * a.kz2 + 1;
+  const int F = 2 * a.A_act, Jz = 2 * a.kz + 1;
   float* pos = a.pos + (size_t)b * 3 * S;
   float* com = a.com + (size_t)b * 3 * M1;
   float* ampre = a.ampre + (size_t)b * K;
@@ -394,7 +346,6 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
   if (tid < 10) counters[tid] = a.counters_in[10 * b + tid];
   if (tid < 4) extras[tid] = a.extras_in[4 * b + tid];
   const float tstep = a.tstep[b], rstep = a.rstep[b];
-  const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
   const float L[3] = {a.boxl[0], a.boxl[1], a.boxl[2]};
   Proposal pr;
   __syncthreads();
@@ -403,86 +354,11 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
     if (tid == 0) propose(a, b, step, nmol, pos, com, tstep, rstep, pr, fp);
     __syncthreads();
 
-    // phase powers of every footprint atom, up to the larger of the main
-    // and far-field grid orders per axis
-    if (tid < 3 * F) {
-      const int f = tid / 3, ax = tid % 3;
-      const float* h = a.h2pi + 3 * ax;
-      const float th = h[0] * fp.p[f][0] + h[1] * fp.p[f][1]
-                       + h[2] * fp.p[f][2];
-      const int k1 = ax == 0 ? a.kx : ax == 1 ? a.ky : a.kz;
-      const int k2 = ax == 0 ? a.kx2 : ax == 1 ? a.ky2 : a.kz2;
-      phase_powers(th, max(k1, k2), tab[f][ax]);
-    }
+    footprint_phase_tables(a, fp, tab);
     __syncthreads();
 
-    // [lj_old, lj_new, coul_old, coul_new, far_old, far_new, d_recip]
-    float part[NRED] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-
-    // pair pass: frozen prefix, then the live guest columns
-    for (int j = tid; j < fp.n_sites; j += THREADS) {
-      const int s = j < a.S_frozen ? j : a.guest_base + (j - a.S_frozen);
-      if (a.site_midx[s] >= nmol[a.site_type[s]]) continue;  // inactive
-      const int mol = a.site_mol[s];
-      if (mol == fp.ex_a || mol == fp.ex_b) continue;
-      const float x = pos[s], y = pos[S + s], z = pos[2 * S + s];
-      const float qs = a.site_q[s];
-      const bool frozen = s < a.S_frozen;
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        for (int f = side * a.A_act; f < (side + 1) * a.A_act; ++f) {
-          if (!fp.m[f]) continue;
-          float r2 = min_image_r2(x - fp.p[f][0], y - fp.p[f][1],
-                                  z - fp.p[f][2], L);
-          r2 = fmaxf(r2, 1e-18f);
-          const float inv_r2 = 1.f / r2;
-          const float inv_r = sqrtf(inv_r2);
-          const float r = r2 * inv_r;
-          const float eps = a.eps_site[(size_t)fp.cls[f] * S + s];
-          if (eps != 0.f && r2 < cut_sq) {
-            const float sr2 = a.sig2_site[(size_t)fp.cls[f] * S + s] * inv_r2;
-            const float sr6 = sr2 * sr2 * sr2;
-            part[side] += 4.f * eps * (sr6 * sr6 - sr6);
-          }
-          const float qq = fp.q[f] * qs;
-          if (qq == 0.f) continue;
-          if (frozen) {
-            if (r2 < rc2_sq)
-              part[2 + side] += qq * erfcf(a.alpha2 * r) * inv_r;
-          } else if (!a.gg_cut || r2 < a.gg_rcut_sq) {
-            part[2 + side] += qq * erfcf(a.alpha * r) * inv_r;
-          }
-        }
-      }
-    }
-
-    // far field: sum over the alpha2 grid of c2 . d per side
-    for (int m = tid; m < K2; m += THREADS) {
-      const int row = m / a.Jxy2P, col = m - row * a.Jxy2P;
-      const int jx = a.col2_jx[col];
-      if (row >= Jz2 || jx < 0) continue;
-      const float cre = a.c2re[m], cim = a.c2im[m];
-      if (cre == 0.f && cim == 0.f) continue;
-      const int jy = a.col2_jy[col], jz = row - a.kz2;
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const float2 d = footprint_mode(tab, fp.wf, side * a.A_act,
-                                        (side + 1) * a.A_act, jx, jy, jz);
-        part[4 + side] += cre * d.x + cim * d.y;
-      }
-    }
-
-    // k-space: sum_k w_k (2 A.d + |d|^2) over the modes with weight
-    for (int m = tid; m < K; m += THREADS) {
-      const float w = a.kw[m];
-      if (w == 0.f) continue;
-      const int row = m / a.JxyP, col = m - row * a.JxyP;
-      const float2 d = footprint_mode(tab, fp.wk, 0, F, a.col_jx[col],
-                                      a.col_jy[col], row - a.kz);
-      const float ar = ampre[m], ai = ampim[m];
-      part[6] += w * (2.f * (ar * d.x + ai * d.y) + d.x * d.x + d.y * d.y);
-    }
-
+    float part[NRED];
+    footprint_partials(a, fp, tab, nmol, pos, ampre, ampim, L, part);
     block_sum<NRED>(part, scratch, red);
 
     if (tid == 0) {
@@ -498,8 +374,7 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
       const float e_other_new = e_lj1 + e_coul1 + pr.s_new + pr.i_new;
       const float delta_e = (e_other_new + e_recip_new)
                             - (e_other_old + e_recip_old);
-      const float p = pr.pref * expf(-delta_e / a.temp);
-      const float p_acc = (p < 1.f || p != p) ? p : 1.f;  // NaN rejects
+      const float p_acc = p_accept(pr.pref, delta_e, a.temp);
       const bool acc = pr.gate && pr.u_acc <= p_acc;
       const float accf = acc ? 1.f : 0.f;
 

@@ -59,11 +59,13 @@ def draw_uniforms(spec: SystemSpec, B: int, n_steps: int,
                       device=spec.device, dtype=spec.dtype)
 
 
-def run_steps_u(spec: SystemSpec, state: SimState, uniforms) -> SimState:
+def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
+                core=None) -> SimState:
     """n_steps MC steps from explicit uniforms (B, n_steps, 21): a Python
-    loop of mc_step_u (the plain path of the block)."""
+    loop of mc_step_u (the per-step path of a block; ``core`` as in
+    mc_step_u)."""
     for i in range(uniforms.shape[1]):
-        state = mc_step_u(spec, state, uniforms[:, i])
+        state = mc_step_u(spec, state, uniforms[:, i], core)
     return state
 
 
@@ -76,9 +78,24 @@ def run_steps(spec: SystemSpec, state: SimState, n_steps: int,
 
 def block_body(spec: SystemSpec, state: SimState, n_steps: int,
                recalibrate: bool, generator: torch.Generator) -> SimState:
-    """One block on the plain path: n_steps MC steps + recalibration."""
+    """One block on the per-step path: n_steps MC steps + recalibration."""
     state = run_steps(spec, state, n_steps, generator)
     return _recalibrate(state, recalibrate)
+
+
+def run_block(spec: SystemSpec, state: SimState, n_steps: int,
+              recalibrate: bool, generator: torch.Generator) -> SimState:
+    """One block of a single chain (B = 1) on the per-step path: the
+    command line's default mode."""
+    if state.B != 1:
+        raise ValueError(f"run_block runs one chain, got B = {state.B}")
+    return block_body(spec, state, n_steps, recalibrate, generator)
+
+
+def resync(spec: SystemSpec, state: SimState) -> SimState:
+    """Recompute the energy and the structure factors from positions (the
+    command line's per-block refresh of an f32 single chain)."""
+    return initialize_state(spec, state)
 
 
 def resync_amplitudes_body(spec: SystemSpec, state: SimState) -> SimState:
@@ -93,6 +110,18 @@ def resync_amplitudes_body(spec: SystemSpec, state: SimState) -> SimState:
     e[:, E_TOT] += e_recip - e[:, E_RECIP]
     e[:, E_RECIP] = e_recip
     return state.replace(amp_re=amp_re, amp_im=amp_im, energy=e)
+
+
+def resync_amplitudes(spec: SystemSpec, state: SimState) -> SimState:
+    """Re-synthesize the structure factors and E_RECIP of every replica:
+    kernels/resync.py::resync_grouped for a spec inside its gate,
+    resync_amplitudes_body otherwise. At B = 1 (a single chain) this is the
+    counterpart of maniac_tpu/kernels/resync.py::_resync_kernel."""
+    from ..kernels import resync_gate_failure
+    if resync_gate_failure(spec) is not None:
+        return resync_amplitudes_body(spec, state)
+    from ..kernels.resync import resync_grouped
+    return resync_grouped(spec, state)
 
 
 def refresh_reported_energy(spec: SystemSpec, states: SimState) -> SimState:

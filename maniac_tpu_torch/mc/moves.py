@@ -8,8 +8,11 @@ uniforms per replica, laid out exactly as the JAX package draws them, so
 both packages walk the same chain when fed the same uniforms.
 
 Footprints are read with gathers (the JAX package's one-hot matmul reads
-were a TPU layout workaround). This is the plain path; on the card the
-whole block runs in kernels/csrc/blockg.cu instead.
+were a TPU layout workaround). The energy core of a step is ``_core_plain``
+here; for a spec inside kernels.step_gate_failure, mc_step_u runs it through
+kernels/stepg.py::step_core, which launches kernels/csrc/stepg.cu for CUDA
+tensors. On the card, a block inside the whole-block kernel's gate runs in
+kernels/csrc/blockg.cu instead.
 """
 
 from __future__ import annotations
@@ -56,8 +59,10 @@ def _uniform_rotation(u):
 
 def _uint(u, n):
     """floor(u * n) as a uniform int in [0, n), clamped against u*n rounding
-    up to n in f32. u (B,) float, n (B,) int32 or a python int."""
-    n = torch.as_tensor(n, dtype=torch.int32, device=u.device)
+    up to n in f32. u (B,) float, n (B,) int32 or a python int (kept on the
+    host: no copy to the device per step)."""
+    if isinstance(n, int):
+        return torch.clamp((u * n).to(torch.int32), max=n - 1)
     return torch.minimum((u * n.to(u.dtype)).to(torch.int32), n - 1)
 
 
@@ -74,12 +79,23 @@ def _scatter_cols(x, idx, cols, mask):
     return x.scatter(2, idx3, torch.where(mask[:, None, :], cols, cur))
 
 
-def mc_step_u(spec: SystemSpec, states: SimState, u) -> SimState:
+def mc_step_u(spec: SystemSpec, states: SimState, u, core=None) -> SimState:
     """One MC trial per replica from a row of uniforms u (B, 21):
-    proposal, energy core, bookkeeping."""
+    proposal, energy core, bookkeeping. ``core`` None dispatches the energy
+    core (kernels/stepg.py::step_core for a spec inside its gate, else
+    _core_plain); pass _core_plain to pin the plain version."""
     pre = _propose(spec, states, u)
-    core = _core_plain(spec, states, pre)
-    return _bookkeep(spec, states, pre, core)
+    if core is None:
+        core = _dispatch_core(spec)
+    return _bookkeep(spec, states, pre, core(spec, states, pre))
+
+
+def _dispatch_core(spec: SystemSpec):
+    from ..kernels import step_gate_failure
+    if step_gate_failure(spec) is not None:
+        return _core_plain
+    from ..kernels.stepg import step_core
+    return step_core
 
 
 def _propose(spec: SystemSpec, st: SimState, u) -> dict:
@@ -194,10 +210,13 @@ def _propose(spec: SystemSpec, st: SimState, u) -> dict:
     V = spec.volume
     nf = n_new_count.to(u.dtype)
     no = n_old_count.to(u.dtype)
-    pref = torch.where(insert_like,
-                       spec.type_activity[t_new] * V / (nf + 1.0), 1.0)
-    pref = pref * torch.where(remove_like,
-                              no / (spec.type_activity[t_old] * V), 1.0)
+    act = spec.type_activity
+    if act.dim() == 2:  # (B, R): one activity table per replica (a sweep)
+        act_new, act_old = act[rows, t_new], act[rows, t_old]
+    else:
+        act_new, act_old = act[t_new], act[t_old]
+    pref = torch.where(insert_like, act_new * V / (nf + 1.0), 1.0)
+    pref = pref * torch.where(remove_like, no / (act_old * V), 1.0)
     gate = valid & ~cap_blocked
     m2 = torch.stack([mask_old & w_old[:, None], mask_new & w_new[:, None]],
                      dim=1)                                      # (B, 2, A)

@@ -14,8 +14,12 @@ from maniac_tpu_torch import load_system, replicate, run_block_replicated
 from maniac_tpu_torch.kernels import dispatch_report
 from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
 from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-from maniac_tpu_torch.mc.driver import draw_uniforms
-from maniac_tpu_torch.systems import make_water_box, make_zif_like
+from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
+from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
+                                        run_steps_u)
+from maniac_tpu_torch.mc.moves import _propose
+from maniac_tpu_torch.systems import (make_mixed_sizes, make_water_box,
+                                      make_zif_like)
 
 pytestmark = pytest.mark.gpu
 
@@ -25,6 +29,10 @@ POS_TOL = 1e-4      # Angstrom
 ENERGY_TOL = 5.0    # Kelvin
 AMP_TOL = 2e-4
 E_RTOL = 2e-6       # E_RECIP ~ 2e5 K summed in f32 over ~6000 modes
+# one proposal's pair energies reach 1e7 K on overlapping insertions (which
+# reject); f32 sums over thousands of sites in another order then differ by
+# some 1e-5 relative
+PROPOSAL_E_RTOL = 1e-4
 
 
 def _device():
@@ -116,16 +124,85 @@ def test_launch_counts_and_refusals(tmp_path):
     u = draw_uniforms(f32.spec, 2, 5, _gen(dev, 4))
     with pytest.raises(ValueError, match="framework split off"):
         run_block_kernel(f32.spec, states, u)
-    # the main path on a spec outside the block kernel's gate: plain block,
-    # kernel resync, and the report says so
-    assert "plain torch path (framework split off)" in dispatch_report(
+    # the main path on a spec outside the block kernel's gate: the per-step
+    # path with the step kernel, the kernel resync, and the report says so
+    assert "per-step path (framework split off)" in dispatch_report(
         f32.spec, dev)
-    nb, nr = run_block_kernel.launches, resync_grouped.launches
+    nb, ns, nr = (run_block_kernel.launches, step_core.launches,
+                  resync_grouped.launches)
     out = run_block_replicated(f32.spec, states, 5, False, True,
                                _gen(dev, 5))
     assert run_block_kernel.launches == nb
+    assert step_core.launches == ns + 5
     assert resync_grouped.launches == nr + 1
     assert int(out.counters[:, 0].sum()) == 10
     f64 = _load(str(tmp_path), dev, 16, dtype=torch.float64)
+    st64 = replicate(f64.spec, f64.state, 2)
     with pytest.raises(ValueError, match="float32"):
-        resync_grouped(f64.spec, replicate(f64.spec, f64.state, 2))
+        resync_grouped(f64.spec, st64)
+    pre = _propose(f64.spec, st64, draw_uniforms(f64.spec, 2, 1,
+                                                 _gen(dev, 6))[:, 0])
+    with pytest.raises(ValueError, match="float32"):
+        step_core(f64.spec, st64, pre)
+
+
+def _zif_small(d):
+    make_zif_like(d, n_cells=4, a=5.66, n_water=10, fugacity=50.0,
+                  cutoff=6.0)
+
+
+def _mixed_sizes(d):
+    make_mixed_sizes(d, n_water=6, n_dimer=6, L=16.0, cutoff=5.0, tol=1e-4,
+                     probs=(0.3, 0.2, 0.3, 0.2))
+
+
+@pytest.mark.parametrize("make", [_zif_small, _mixed_sizes],
+                         ids=["zif", "mixed_sizes"])
+def test_step_kernel_matches_plain(tmp_path, make):
+    """The per-step core on one proposal (the same acceptances, energies
+    within 5 K, positions within 1e-4 A), then 40-step chains of the
+    dispatched step against the plain core on the same uniforms."""
+    dev = _device()
+    make(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16)
+    spec = sysm.spec
+    states = block_plain(spec, replicate(spec, sysm.state, 8),
+                         draw_uniforms(spec, 8, 20, _gen(dev, 7)))
+    pre = _propose(spec, states, draw_uniforms(spec, 8, 1, _gen(dev, 8))
+                   [:, 0])
+    n0 = step_core.launches
+    k = step_core(spec, states, pre)
+    assert step_core.launches == n0 + 1
+    p = step_core_plain(spec, states, pre)
+    assert torch.equal(k["acc"], p["acc"])
+    for name in ("e_lj", "e_coul", "delta_e", "e_recip_new"):
+        torch.testing.assert_close(k[name], p[name], atol=ENERGY_TOL,
+                                   rtol=PROPOSAL_E_RTOL, msg=name)
+    assert float((k["pos"] - p["pos"]).abs().max()) <= POS_TOL
+    torch.testing.assert_close(k["amp_re"], p["amp_re"], rtol=0,
+                               atol=AMP_TOL)
+    u = draw_uniforms(spec, 8, 40, _gen(dev, 9))
+    kc = run_steps_u(spec, states, u)
+    assert step_core.launches == n0 + 41
+    pc = block_plain(spec, states, u)
+    torch.testing.assert_close(kc.n_mol, pc.n_mol, rtol=0, atol=0)
+    torch.testing.assert_close(kc.counters, pc.counters, rtol=0, atol=0)
+    assert float((kc.pos - pc.pos).abs().max()) <= POS_TOL
+    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
+    assert int(kc.counters[:, 1].sum()) > 0
+
+
+def test_resync_single_chain_matches_plain(tmp_path):
+    """driver.resync_amplitudes launches the resync kernel at B = 1."""
+    dev = _device()
+    _zif_small(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16)
+    st = block_plain(sysm.spec, sysm.state,
+                     draw_uniforms(sysm.spec, 1, 30, _gen(dev, 10)))
+    n0 = resync_grouped.launches
+    k = resync_amplitudes(sysm.spec, st)
+    assert resync_grouped.launches == n0 + 1
+    p = resync_plain(sysm.spec, st)
+    torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
+    torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
+    torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)

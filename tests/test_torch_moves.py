@@ -13,7 +13,8 @@ from maniac_tpu.mc.moves import _uint as jax_uint
 from maniac_tpu_torch.mc.driver import drift_report, run_steps_u
 from maniac_tpu_torch.mc.moves import _uint, mc_step_u
 from maniac_tpu_torch.parallel.replicas import replicate
-from maniac_tpu_torch.systems import make_water_box, make_zif_like
+from maniac_tpu_torch.systems import (make_framework_mixed, make_mixed_sizes,
+                                      make_water_box, make_zif_like)
 
 from torch_parity import (F32_ENERGY_TOL, F32_POS_TOL, assert_same_chain,
                           jax_batch, load_both, uniforms)
@@ -31,7 +32,20 @@ def _water(d):
                    probs=(0.25, 0.25, 0.5, 0.0), fugacity=5000.0)
 
 
-@pytest.mark.parametrize("make", [_zif, _water], ids=["zif", "water_gcmc"])
+def _fw_mixed(d):
+    # two active species (water and a dimer) with swaps, no framework split
+    # at this box size
+    make_framework_mixed(d, n_cells=2, a=5.66, n_water=3, n_dimer=3)
+
+
+def _mixed_sizes(d):
+    make_mixed_sizes(d, n_water=6, n_dimer=6, L=16.0, cutoff=6.0, tol=1e-4,
+                     probs=(0.2, 0.1, 0.3, 0.4), fug_w=500.0, fug_d=500.0)
+
+
+@pytest.mark.parametrize("make", [_zif, _water, _fw_mixed, _mixed_sizes],
+                         ids=["zif", "water_gcmc", "framework_mixed",
+                              "mixed_sizes"])
 def test_f64_chain_matches_jax(tmp_path, make):
     """200 steps in f64: identical populations, counters and extras,
     positions within 1e-10 A, and bookkeeping equal to a recompute."""
@@ -43,6 +57,8 @@ def test_f64_chain_matches_jax(tmp_path, make):
     assert_same_chain(jst, pst, pos_tol=1e-10, energy_tol=1e-6)
     c = pst.counters[0].numpy()
     assert c[0, :4].min() > 0 and c[1].sum() > 0  # every move was tried
+    if spec.n_active > 1:
+        assert c[0, 4] > 0                        # and the swap
     rep = drift_report(spec, pst)
     assert rep["drift_K"] <= 1e-6, rep
 

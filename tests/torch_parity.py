@@ -54,19 +54,29 @@ def uniforms(B: int, n_steps: int, seed: int, f32: bool) -> np.ndarray:
                                                else np.float64)
 
 
-def jax_scan(spec, state, u):
-    """JAX mc_step_u scanned over one replica's uniforms (n, 21)."""
+def jax_scan_fn(spec):
+    """A jitted JAX mc_step_u scan over one replica's uniforms (n, 21):
+    (state, u) -> state."""
     def run(st, uu):
         def body(c, row):
             return jax_mc_step_u(spec, c, row), None
         return jax.lax.scan(body, st, uu)[0]
-    return jax.jit(run)(state, jnp.asarray(u))
+    return jax.jit(run)
+
+
+def jax_scan(spec, state, u):
+    """JAX mc_step_u scanned over one replica's uniforms (n, 21)."""
+    return jax_scan_fn(spec)(state, jnp.asarray(u))
 
 
 def jax_batch(spec, state, U):
-    """Run each replica's uniforms through jax_scan; stack to a batched
-    JAX state (leading axis B)."""
-    outs = [jax_scan(spec, state, U[b]) for b in range(U.shape[0])]
+    """Run each replica's uniforms (B, n, 21) through one jitted scan from
+    ``state`` (one state, or a batch with a leading axis B); stack to a
+    batched JAX state."""
+    run = jax_scan_fn(spec)
+    batched = np.ndim(state.pos) == 3
+    outs = [run(jax.tree_util.tree_map(lambda x: x[b], state) if batched
+                else state, jnp.asarray(U[b])) for b in range(U.shape[0])]
     return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *outs)
 
 
