@@ -19,7 +19,8 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      run_block_replicated(400 steps, resync=True), one warm-up block and
      three timed blocks; both kernels must have launched, the state must be
      finite and within capacity, and replica 0's amplitudes and E_RECIP
-     must match a fresh synthesis (phase-1 bounds). Then both kernels are
+     must match a fresh synthesis (phase-1 bounds); one block kernel call
+     of 400 steps is timed beside its bound. Then both kernels are
      held against their plain versions at the main path's batch (10 block
      steps, at most B/64 replicas diverged; the resync of the result) and
      timed;
@@ -42,15 +43,37 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      step;
   6. the command line's single chain on the same deck (2 blocks of 400
      steps): exit 0, the completion banner, 3 rows of energy.dat, the step
-     kernel launched 800 times.
+     kernel launched 800 times;
+  7. reservoir GCMC, bench.py's `resv` (make_water_box(n_water=48, L=24,
+     cutoff=8, tol=1e-5, probs=(0.3, 0.2, 0.5, 0), fugacity=4000) with
+     make_water_reservoir(n_water=96, L=24), capacity 192, f32; no
+     framework split, every type active): the dispatch must name all three
+     kernels; (b) the block kernel's no-split reservoir form against the
+     plain block, B=64 x 50 steps, phase 2's bounds with identical res_n
+     and extras and reservoir rows within 1e-4 A; (c) box + reservoir +
+     dropped molecules conserved exactly on every replica; (d) the resync
+     kernel on that state (phase 1's bounds); (e) the step kernel against
+     the plain core at B=64 (phase 4's bounds) and timed at B=1; (f) the
+     no-split form alone on the same water box without its reservoir,
+     B=64 x 50; (g) the main path, B=1024, one warm-up and three timed
+     blocks of 400 steps with the resync, both kernels' launch counts
+     nonzero, then both kernels held and timed at B=1024; (h) the command
+     line's single chain with -r (2 blocks of 400 steps): exit 0, the
+     banner, reservoir.lammpstrj with 3 frames, 800 step-kernel launches.
 
-Prints one JSON line with the kernels' launch counts on the paths that run
-them (phase 3 for the block and resync kernels, phase 5 for the step
-kernel) and their errors and times (kernel and plain; the step kernel's
-error is the largest amplitude error of phase 4), then the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Any failure raises: the exit code is then
-non-zero and no result line is printed. It needs no network and only the
-files of this repository.
+Prints one JSON line with, per kernel and system, the launch count on the
+main path that runs it (phase 3 for the flagship's block and resync
+kernels, phase 5 for the step kernel, phase 7g and 7h on resv), the
+largest error against the plain version, the times of kernel and plain
+version, and the bound: the least time the card could take for the same
+work, the larger of the bytes the call must move (each input read once,
+each output written once) over 3.35 TB/s and its f32 operations, counted
+from this run's inputs (_step_ops, _resync_ops), over 67 TFLOP/s (one
+H100 SXM at 700 W; TF32 is off by design). No single PyTorch call computes
+any of these functions, so library_ms is null. Then the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}. Any
+failure raises: the exit code is then non-zero and no result line is
+printed. It needs no network and only the files of this repository.
 """
 
 from __future__ import annotations
@@ -77,6 +100,25 @@ CAPACITY = 192
 ISOTHERM = "1,3,10,30,100,300,1000,3000"
 ISO_REPLICAS, ISO_BLOCKS, CHAIN_BLOCKS = 128, 3, 2
 SEED = 1234
+# phase 7: bench.py's resv water box and its reservoir
+RESV_BOX = dict(n_water=48, L=24.0, cutoff=8.0, tol=1e-5,
+                probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0)
+RESV_RESERVOIR = dict(n_water=96, L=24.0)
+
+# ---- bounds: the least time the card could take for a call's work --------
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
+# the tensor cores (TF32 is off by design) and HBM3
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# operations per item, each transcendental (sincos, erfc, sqrt, rint, a
+# division) counted as one: a footprint atom's phase at one k-mode from its
+# three per-axis phase powers, weighted and accumulated (two complex
+# products, a real scale, a complex add); one mode's energy term
+# w (2 A.d + |d|^2), or the far-field c2 . d of both sides; one site pair's
+# minimum-image distance, LJ and erfc(alpha r)/r
+OPS_ATOM_MODE = 16
+OPS_MODE = 8
+OPS_PAIR = 30
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -93,6 +135,123 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the larger of bytes over the
+    memory rate and operations over the f32 peak."""
+    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_ops = ops / F32_OPS_PER_S * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
+                                                           "operations")
+
+
+def _modes(spec):
+    """(k-space modes with a weight, far-field modes with a coefficient)."""
+    k2 = (int(((spec.c2_re != 0) | (spec.c2_im != 0)).sum())
+          if spec.fw_split else 0)
+    return int((spec.k_weights != 0).sum()), k2
+
+
+def _type_rows(spec, n_mol, charged):
+    """(B,) sites (charged ones only, if asked) of the live molecules of
+    the types a footprint is swept against and the resync synthesizes:
+    those above the frozen framework prefix (every type without the
+    split)."""
+    lo = spec.guest_base if spec.fw_split else 0
+    q = spec.site_q.cpu()
+    out = torch.zeros(n_mol.shape[0], dtype=torch.float64,
+                      device=n_mol.device)
+    for r, base in enumerate(spec.site_base_list):
+        if base >= lo:
+            A = spec.A_list[r]
+            per = int((q[base:base + A] != 0).sum()) if charged else A
+            out = out + n_mol[:, r].double() * per
+    return out
+
+
+def _step_ops(spec, atoms_q, atoms, sites) -> float:
+    """Operations of MC steps: per step and replica, the footprint's
+    charged atoms at every k-space and far-field mode, each mode's energy
+    term, and every footprint atom against the live sites (frozen prefix
+    included); atoms_q, atoms (B, n) and sites (B, 1)."""
+    k, k2 = _modes(spec)
+    return float(OPS_ATOM_MODE * (k + k2) * atoms_q.sum()
+                 + OPS_PAIR * (atoms * (sites + spec.S_frozen)).sum()
+                 + OPS_MODE * (k + k2) * atoms.numel())
+
+
+def _block_bound(spec, states, out, u):
+    """Bound of one whole-block call: the move class of every uniform row
+    sets its footprint (both sides for a translation or rotation, one for
+    an insertion or deletion); live sites are the mean of the block's first
+    and last populations."""
+    t = [r for r in range(spec.R) if spec.active_list[r]][0]
+    A = spec.A_list[t]
+    nq = int((spec.type_q_rows[t, :A] != 0).sum())
+    p = spec.p_cum.cpu().tolist()
+    u0 = u[..., 0]
+    sides = torch.where(u0 <= p[1], 2.0, torch.where(u0 <= p[2], 1.0, 0.0))
+    sides = sides.double()
+    sites = 0.5 * (_type_rows(spec, states.n_mol, False)
+                   + _type_rows(spec, out.n_mol, False))[:, None]
+    keys = ["pos", "com", "amp_re", "amp_im", "n_mol", "energy", "counters",
+            "extras"]
+    if spec.has_reservoir:
+        keys += ["res_offset", "res_com", "res_n"]
+    tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
+              spec.eps_site, spec.sig2_site, spec.k_weights]
+    if spec.fw_split:
+        tables += [spec.c2_re, spec.c2_im]
+    nbytes = _nbytes(u, states.trans_step, states.rot_step, *tables,
+                     *[getattr(states, k) for k in keys],
+                     *[getattr(out, k) for k in keys])
+    return _bound(nbytes, _step_ops(spec, sides * nq, sides * A, sites))
+
+
+def _main_block(spec, states, gen):
+    """One block kernel call at the main path's shape (MAIN_STEPS steps for
+    every replica of ``states``): (ms, bound)."""
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.mc.driver import draw_uniforms
+    u = draw_uniforms(spec, states.B, MAIN_STEPS, gen)
+    out = run_block_kernel(spec, states, u)
+    ms = _cuda_ms(lambda: run_block_kernel(spec, states, u), 2)
+    return ms, _block_bound(spec, states, out, u)
+
+
+def _resync_bound(spec, states, out):
+    """Bound of one resync call: every charged live site at every weighted
+    mode, then each mode's |A|^2 term."""
+    k, _ = _modes(spec)
+    ops = float(OPS_ATOM_MODE * k * _type_rows(spec, states.n_mol,
+                                                True).sum()
+                + OPS_MODE * k * states.B)
+    tables = [spec.site_q, spec.k_weights]
+    if spec.fw_split:
+        tables += [spec.fw_amp_re, spec.fw_amp_im]
+    nbytes = _nbytes(states.pos, states.n_mol, states.energy, *tables,
+                     out.amp_re, out.amp_im, out.energy)
+    return _bound(nbytes, ops)
+
+
+def _row(name, src, replaces, launches, err, ms, plain_ms, bound):
+    """One kernel's entry of the kernels line; no single PyTorch call
+    computes any of these functions, so there is no library time."""
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
+def _conserved(st):
+    """Box + reservoir + dropped molecules per replica."""
+    return (st.n_mol[:, :-1].sum(1) + st.res_n[:, :-1].sum(1)
+            + st.extras[:, 1])
 
 
 def _amp_check(name, amp_re, amp_im, e_recip, ref_re, ref_im, ref_e):
@@ -116,34 +275,45 @@ def _resync_pair(k, p, e_recip):
 
 
 def _block_check(name, k, p, max_diverged):
-    """Phase-2 bounds on kernel (k) vs plain (p) block outputs; returns
-    (max |dpos| over the replicas whose decisions match, their mask)."""
+    """Phase-2 bounds on kernel (k) vs plain (p) block outputs: decisions
+    (populations, counters, extras, reservoir counts) identical on all but
+    max_diverged replicas; on the rest positions and reservoir rows within
+    1e-4 A, energies within 5 K. Returns (the largest position or
+    reservoir-row difference there, the matching replicas' mask)."""
     same = ((k.n_mol == p.n_mol).all(dim=1)
-            & (k.counters == p.counters).flatten(1).all(dim=1))
+            & (k.counters == p.counters).flatten(1).all(dim=1)
+            & (k.extras == p.extras).all(dim=1)
+            & (k.res_n == p.res_n).all(dim=1))
     n_div = int((~same).sum())
     if n_div > max_diverged:
         raise AssertionError(f"{name}: {n_div} of {same.numel()} replica(s) "
                              f"diverged (allowed {max_diverged})")
-    pos_err = float((k.pos - p.pos)[same].abs().max())
+    pos_err = max(float((getattr(k, f) - getattr(p, f))[same].abs().max())
+                  for f in ("pos", "com", "res_offset", "res_com"))
     e_err = float((k.energy - p.energy)[same].abs().max())
     print(f"{name}: {n_div} of {same.numel()} replica(s) diverged (allowed "
           f"{max_diverged}); matching replicas max|dpos| {pos_err:.3e} A "
-          f"(bound 1e-4), max|dE| {e_err:.3e} K (bound 5); accepts "
-          f"{int(k.counters[:, 1].sum())}")
+          f"(bound 1e-4; positions, COMs, reservoir rows), max|dE| "
+          f"{e_err:.3e} K (bound 5); accepts {int(k.counters[:, 1].sum())}")
     if n_div > max_diverged or not pos_err <= 1e-4 or not e_err <= 5.0:
         raise AssertionError(f"{name}: block kernel disagrees with plain")
     return pos_err, same
 
 
-def _load(make, dev, **kw):
+def _load(make, dev, reservoir=None, **kw):
     """load_system on a fixture written by ``make`` into a temp dir (f32,
-    capacity 192, on ``dev``)."""
+    capacity 192, on ``dev``), with a make_water_reservoir(**reservoir)
+    reservoir when given."""
     from maniac_tpu_torch import load_system
+    from maniac_tpu_torch.systems import make_water_reservoir
     with tempfile.TemporaryDirectory() as tmp:
         make(tmp, **kw)
+        res = (make_water_reservoir(tmp, **reservoir) if reservoir
+               else None)
         return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
-                           f"{tmp}/parameters.inc", capacity=CAPACITY,
-                           dtype=torch.float32, device=dev)
+                           f"{tmp}/parameters.inc", reservoir_file=res,
+                           capacity=CAPACITY, dtype=torch.float32,
+                           device=dev)
 
 
 def _step_check(name, k, p, max_diverged):
@@ -161,7 +331,7 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
     """Phase 4 on one system: the dispatched step (the step kernel) against
     the plain energy core, one step then an n_steps chain on the same
     uniforms; then both cores timed on one proposal. Returns
-    (max |dA|, kernel ms, plain ms)."""
+    (max |dA|, kernel ms, plain ms, (bound ms, what bounds it))."""
     from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
     from maniac_tpu_torch.mc.driver import draw_uniforms, run_steps_u
     from maniac_tpu_torch.mc.moves import _propose, mc_step_u
@@ -179,6 +349,18 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
             max_diverged))
     u1 = draw_uniforms(spec, B, 1, gen)[:, 0]
     pre = _propose(spec, states, u1)
+    out = step_core(spec, states, pre)
+    q2 = torch.stack([pre["q_old"], pre["q_new"]], dim=1)
+    atoms = pre["m2"].sum((1, 2)).double()[:, None]
+    atoms_q = (pre["m2"] & (q2 != 0)).sum((1, 2)).double()[:, None]
+    sites = _type_rows(spec, states.n_mol, False)[:, None]
+    nbytes = _nbytes(states.pos, states.amp_re, states.amp_im, states.n_mol,
+                     pre["P_old"], pre["P_new"], q2, pre["m2"],
+                     pre["last_cols"], out["pos"], out["amp_re"],
+                     out["amp_im"], spec.site_q, spec.site_type,
+                     spec.site_midx, spec.site_mol, spec.eps_site,
+                     spec.sig2_site, spec.k_weights)
+    bound = _bound(nbytes, _step_ops(spec, atoms_q, atoms, sites))
     ms = _cuda_ms(lambda: step_core(spec, states, pre), 20)
     ms_plain = _cuda_ms(lambda: step_core_plain(spec, states, pre), 5)
     ms_full = _cuda_ms(lambda: mc_step_u(spec, states, u1), 20)
@@ -186,8 +368,9 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
         lambda: mc_step_u(spec, states, u1, step_core_plain), 5)
     print(f"{name}: B={B} per step: step core kernel {ms:.3f} ms, plain "
           f"{ms_plain:.3f} ms; whole step (proposal, core, bookkeeping) "
-          f"{ms_full:.3f} ms, plain {ms_full_plain:.3f} ms ({label})")
-    return err, ms, ms_plain
+          f"{ms_full:.3f} ms, plain {ms_full_plain:.3f} ms; core bound "
+          f"{bound[0]:.4f} ms by {bound[1]} ({label})")
+    return err, ms, ms_plain, bound
 
 
 def _cli(argv, outdir):
@@ -208,6 +391,182 @@ def _cli(argv, outdir):
 def _rows(path):
     with open(path) as f:
         return [line.split() for line in f if not line.startswith("#")]
+
+
+def _resv_phase(dev, gen, label):
+    """Phase 7: reservoir GCMC on bench.py's resv. Returns the kernels
+    line's rows of the block, resync and step kernels on this system."""
+    from maniac_tpu_torch import replicate, run_block_replicated
+    from maniac_tpu_torch.kernels import dispatch_report
+    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.physics.energy import (active_site_mask,
+                                                 full_amplitudes,
+                                                 recip_energy,
+                                                 site_positions)
+    from maniac_tpu_torch.system import E_RECIP
+    from maniac_tpu_torch.systems import make_water_box, make_water_reservoir
+
+    # a. the configuration and its dispatch
+    t0 = time.perf_counter()
+    rv = _load(make_water_box, dev, reservoir=RESV_RESERVOIR, **RESV_BOX)
+    spec = rv.spec
+    report = dispatch_report(spec, dev)
+    print(f"phase 7a: resv S={spec.S} K={spec.K} kmax={spec.kmax_xyz} "
+          f"fw_split={spec.fw_split} N={int(rv.state.n_mol[0, 0])} "
+          f"reservoir {int(rv.state.res_n[0, 0])} of "
+          f"{spec.res_cap_list[0]}; load {time.perf_counter() - t0:.1f} s; "
+          f"{report}")
+    if ("block: CUDA whole-block kernel; step: CUDA per-step kernel; "
+            "resync: CUDA resync kernel") not in report:
+        raise AssertionError("phase 7a: resv is not dispatched to the "
+                             "three kernels")
+
+    # b-c. the reservoir form against the plain block; conservation
+    B, n_check = CHECK_REPLICAS, CHECK_STEPS
+    st = replicate(spec, rv.state, B)
+    u = draw_uniforms(spec, B, n_check, gen)
+    k_blk = run_block_kernel(spec, st, u)
+    p_blk = block_plain(spec, st, u)
+    err_block, _ = _block_check(f"phase 7b: reservoir block B={B} x "
+                                f"{n_check} steps", k_blk, p_blk, 1)
+    for what, out in (("kernel", k_blk), ("plain", p_blk)):
+        if not torch.equal(_conserved(out), _conserved(st)):
+            raise AssertionError(f"phase 7c: the {what} block does not "
+                                 f"conserve box + reservoir + drops")
+    c = k_blk.counters
+    print(f"phase 7c: box + reservoir + drops conserved on all {B} "
+          f"replicas (kernel and plain): {int(_conserved(st)[0])} each; "
+          f"pops {int(c[:, 1, 0].sum())}, pushes {int(c[:, 1, 1].sum())}, "
+          f"drops {int(k_blk.extras[:, 1].sum())}")
+
+    # d. the resync kernel on that state
+    err_resync = _amp_check(
+        f"phase 7d: resync B={B} kernel vs plain",
+        *_resync_pair(resync_grouped(spec, k_blk),
+                      resync_plain(spec, k_blk), E_RECIP))
+
+    # e. the step kernel against the plain core; timed at B = 1 (the single
+    # chain's shape, phase 7h)
+    err_step, _, _, _ = _step_phase("phase 7e: resv", spec, st, gen, 1,
+                                    n_check, label)
+    _, ms_step, ms_step_plain, bound_step = _step_phase(
+        "phase 7e: resv", spec, replicate(spec, rv.state, 1), gen, 0, 0,
+        label)
+
+    # f. the no-split form alone: the same water box without its reservoir
+    wb = _load(make_water_box, dev, **RESV_BOX)
+    stw = replicate(wb.spec, wb.state, B)
+    uw = draw_uniforms(wb.spec, B, n_check, gen)
+    err_nosplit, _ = _block_check(
+        f"phase 7f: no-split block (no reservoir) B={B} x {n_check} steps",
+        run_block_kernel(wb.spec, stw, uw), block_plain(wb.spec, stw, uw), 1)
+
+    # g. the main path
+    Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
+    states = replicate(spec, rv.state, Bm)
+    total0 = _conserved(states)
+    run_block_kernel.launches = 0
+    resync_grouped.launches = 0
+    states = run_block_replicated(spec, states, n_steps, False, True, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MAIN_BLOCKS):
+        states = run_block_replicated(spec, states, n_steps, False, True,
+                                      gen)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"blockg": run_block_kernel.launches,
+                "resync": resync_grouped.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 7g: a kernel never launched: "
+                             f"{launches}")
+    for k, v in vars(states).items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"phase 7g: non-finite values in {k}")
+    n = states.n_mol[:, 0]
+    if (int(n.min()) < 0 or int(n.max()) > spec.cap_list[0]
+            or not torch.equal(_conserved(states), total0)):
+        raise AssertionError("phase 7g: populations outside [0, capacity] "
+                             "or box + reservoir + drops not conserved")
+    ref_re, ref_im = full_amplitudes(
+        spec, site_positions(spec, states)[:1],
+        active_site_mask(spec, states.n_mol[:1]))
+    _amp_check("phase 7g: replica 0 vs fresh synthesis", states.amp_re[:1],
+               states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
+               recip_energy(spec, ref_re, ref_im))
+    rate = Bm * n_steps * MAIN_BLOCKS / elapsed
+    ms_main_block, bound_main = _main_block(spec, states, gen)
+    ms_main_resync = _cuda_ms(lambda: resync_grouped(spec, states), 10)
+    print(f"phase 7g: resv B={Bm} x {n_steps} steps x {MAIN_BLOCKS} blocks "
+          f"in {elapsed:.3f} s: {rate:.0f} MC steps/s ({label}); block "
+          f"kernel ({n_steps} steps) {ms_main_block:.3f} ms, bound "
+          f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
+          f"{ms_main_resync:.3f} ms; mean N {float(n.float().mean()):.2f}, "
+          f"mean reservoir {float(states.res_n[:, 0].float().mean()):.2f}; "
+          f"launches {launches}")
+    # both kernels against their plain versions at the main path's batch
+    u = draw_uniforms(spec, Bm, 10, gen)
+    k_blk = run_block_kernel(spec, states, u)
+    err, _ = _block_check(f"phase 7g: reservoir block B={Bm} x 10 steps",
+                          k_blk, block_plain(spec, states, u),
+                          max(1, Bm // 64))
+    err_block = max(err_block, err, err_nosplit)
+    ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
+    ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
+    bound_block = _block_bound(spec, states, k_blk, u)
+    k_rs = resync_grouped(spec, k_blk)
+    err_resync = max(err_resync, _amp_check(
+        f"phase 7g: resync B={Bm} kernel vs plain",
+        *_resync_pair(k_rs, resync_plain(spec, k_blk), E_RECIP)))
+    ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
+    ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
+    bound_resync = _resync_bound(spec, k_blk, k_rs)
+    print(f"phase 7g: B={Bm}: block kernel {ms_block:.3f} ms, plain "
+          f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.4f} ms by "
+          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
+          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
+          f"by {bound_resync[1]} ({label})")
+
+    # h. the command line's single chain with -r
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = f"{tmp}/resv"
+        make_water_box(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
+                       **RESV_BOX)
+        res = make_water_reservoir(deck, **RESV_RESERVOIR)
+        step_core.launches = 0
+        rc, sec, log = _cli(
+            ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
+             "-p", f"{deck}/parameters.inc", "-r", res, "--capacity",
+             str(CAPACITY)], f"{tmp}/out")
+        chain_launches = step_core.launches
+        n_chain = CHAIN_BLOCKS * MAIN_STEPS
+        with open(f"{tmp}/out/reservoir.lammpstrj") as f:
+            frames = f.read().count("ITEM: TIMESTEP")
+        print(f"phase 7h: single chain with -r exit {rc}, {n_chain} steps "
+              f"in {sec:.2f} s (load included): {n_chain / sec:.0f} MC "
+              f"steps/s ({label}); step kernel launches {chain_launches}; "
+              f"reservoir.lammpstrj frames {frames}")
+        for line in log.splitlines():
+            if "kernel dispatch" in line:
+                print(f"phase 7h: log: {line.strip()}")
+        if (rc != 0 or "Simulation Completed" not in log
+                or frames != CHAIN_BLOCKS + 1 or chain_launches != n_chain):
+            raise AssertionError("phase 7h: the single chain with -r failed "
+                                 "its checks")
+
+    return [
+        _row("resync_grouped/resv", RESYNC_SRC,
+            "maniac_tpu/kernels/resync.py:178", launches["resync"],
+            err_resync, ms_resync, ms_resync_plain, bound_resync),
+        _row("run_block_kernel/resv", BLOCKG_SRC,
+            "maniac_tpu/kernels/blockg.py:128", launches["blockg"],
+            err_block, ms_block, ms_block_plain, bound_block),
+        _row("step_core/resv", STEPG_SRC, "maniac_tpu/kernels/stepg.py:65",
+            chain_launches, err_step, ms_step, ms_step_plain, bound_step),
+    ]
 
 
 def main() -> int:
@@ -324,9 +683,12 @@ def main() -> int:
                states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
                recip_energy(spec, ref_re, ref_im))
     rate = Bm * n_steps * MAIN_BLOCKS / elapsed
+    ms_main, bound_main = _main_block(spec, states, gen)
     print(f"phase 3: B={Bm} x {n_steps} steps x {MAIN_BLOCKS} blocks in "
           f"{elapsed:.3f} s: {rate:.0f} MC steps/s ({name}, {smi}); "
-          f"mean N {float(n.float().mean()):.2f}; launches {launches}")
+          f"mean N {float(n.float().mean()):.2f}; launches {launches}; "
+          f"one block kernel call {ms_main:.3f} ms, bound "
+          f"{bound_main[0]:.3f} ms by {bound_main[1]}")
     # both kernels against their plain versions at the main path's batch
     u = draw_uniforms(spec, Bm, 10, gen)
     k_blk = run_block_kernel(spec, states, u)
@@ -335,16 +697,19 @@ def main() -> int:
                                 p_blk, max(1, Bm // 64))
     ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
     ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
+    bound_block = _block_bound(spec, states, k_blk, u)
     k_rs = resync_grouped(spec, k_blk)
     p_rs = resync_plain(spec, k_blk)
     err_resync = _amp_check(f"phase 3: resync B={Bm} kernel vs plain",
                             *_resync_pair(k_rs, p_rs, E_RECIP))
     ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
     ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
+    bound_resync = _resync_bound(spec, k_blk, k_rs)
     print(f"phase 3: B={Bm}: block kernel {ms_block:.3f} ms, plain "
-          f"{ms_block_plain:.3f} ms (10 steps); resync kernel "
-          f"{ms_resync:.3f} ms, plain {ms_resync_plain:.3f} ms "
-          f"({name}, {smi})")
+          f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.3f} ms by "
+          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
+          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
+          f"by {bound_resync[1]} ({name}, {smi})")
 
     # ---- phase 4: step kernel vs plain core --------------------------------
     label = f"{name}, {smi}"
@@ -362,15 +727,15 @@ def main() -> int:
     for sname, sp, st in systems:
         print(f"phase 4: {sname}: {dispatch_report(sp, dev)}")
         st = replicate(sp, st, B)
-        err, _, _ = _step_phase(f"phase 4: {sname}", sp, st, gen, 1,
-                                n_check, label)
+        err, _, _, _ = _step_phase(f"phase 4: {sname}", sp, st, gen, 1,
+                                   n_check, label)
         err_step = max(err_step, err)
     # the single chain's shape (phase 6): B = 1, no divergence allowed
-    err, _, _ = _step_phase("phase 4: flagship", spec,
-                            replicate(spec, sysm.state, 1), gen, 0, n_check,
-                            label)
+    err, _, _, _ = _step_phase("phase 4: flagship", spec,
+                               replicate(spec, sysm.state, 1), gen, 0,
+                               n_check, label)
     err_step = max(err_step, err)
-    err, ms_step, ms_step_plain = _step_phase(
+    err, ms_step, ms_step_plain, bound_step = _step_phase(
         "phase 4: flagship", spec, states, gen, max(1, Bm // 64), 0, label)
     err_step = max(err_step, err)
 
@@ -387,8 +752,10 @@ def main() -> int:
                                        E_RECIP))
     ms_one = _cuda_ms(lambda: resync_amplitudes(spec, st1), 20)
     ms_one_plain = _cuda_ms(lambda: resync_plain(spec, st1), 5)
+    bound_one = _resync_bound(spec, st1, k_one)
     print(f"phase 4b: resync B=1: kernel {ms_one:.3f} ms, plain "
-          f"{ms_one_plain:.3f} ms ({label})")
+          f"{ms_one_plain:.3f} ms, bound {bound_one[0]:.6f} ms by "
+          f"{bound_one[1]} ({label})")
 
     # ---- phases 5-6: the command line -------------------------------------
     fugs = [float(f) for f in ISOTHERM.split(",")]
@@ -451,19 +818,19 @@ def main() -> int:
             raise AssertionError("phase 6: the single chain failed its "
                                  "checks")
 
+    resv = _resv_phase(dev, gen, label)
+
     print(json.dumps({"kernels": [
-        {"name": "resync_grouped", "route": "cuda", "source": RESYNC_SRC,
-         "replaces": "maniac_tpu/kernels/resync.py:178",
-         "launches": launches["resync"], "max_abs_err": err_resync,
-         "ms": ms_resync, "plain_ms": ms_resync_plain},
-        {"name": "run_block_kernel", "route": "cuda", "source": BLOCKG_SRC,
-         "replaces": "maniac_tpu/kernels/blockg.py:128",
-         "launches": launches["blockg"], "max_abs_err": err_block,
-         "ms": ms_block, "plain_ms": ms_block_plain},
-        {"name": "step_core", "route": "cuda", "source": STEPG_SRC,
-         "replaces": "maniac_tpu/kernels/stepg.py:65",
-         "launches": iso_launches["stepg"], "max_abs_err": err_step,
-         "ms": ms_step, "plain_ms": ms_step_plain},
+        _row("resync_grouped", RESYNC_SRC, "maniac_tpu/kernels/resync.py:178",
+            launches["resync"], err_resync, ms_resync, ms_resync_plain,
+            bound_resync),
+        _row("run_block_kernel", BLOCKG_SRC,
+            "maniac_tpu/kernels/blockg.py:128", launches["blockg"],
+            err_block, ms_block, ms_block_plain, bound_block),
+        _row("step_core", STEPG_SRC, "maniac_tpu/kernels/stepg.py:65",
+            iso_launches["stepg"], err_step, ms_step, ms_step_plain,
+            bound_step),
+        *resv,
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

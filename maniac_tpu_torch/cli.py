@@ -3,7 +3,8 @@
 Usage (reference: src/cli_utils.f90:10-27):
 
     python -m maniac_tpu_torch.cli -i input.maniac -d topology.data
-           -p parameters.inc [-o outputs/] [--platform cpu|cuda]
+           -p parameters.inc [-r reservoir.data] [-o outputs/]
+           [--platform cpu|cuda]
 
 Counterpart of maniac_tpu/cli.py with the same flags and output files:
 
@@ -19,8 +20,11 @@ Counterpart of maniac_tpu/cli.py with the same flags and output files:
     --isotherm F,..  adsorption-isotherm sweep: every fugacity a batch of
                      --replicas chains -> isotherm_<RES>.dat, isotherm.dat
 
-Not ported yet (a logged abort with exit code 1): -r (reservoir),
---widom, --sentinel, --checkpoint and --resume.
+With -r, insertions take their geometry from the reservoir and deletions
+push back into it; reservoir.lammpstrj is written beside the trajectory.
+
+Not ported yet (a logged abort with exit code 1): --widom, --sentinel,
+--checkpoint and --resume.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 from .utils.errors import ManiacError
 from .utils.logger import Logger
 
-_NOT_PORTED = (("reservoir", "-r"), ("widom", "--widom"),
+_NOT_PORTED = (("widom", "--widom"),
                ("sentinel", "--sentinel"), ("checkpoint", "--checkpoint"),
                ("resume", "--resume"))
 
@@ -50,7 +54,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-p", dest="params", required=True,
                    help="pair-coeff include file")
     p.add_argument("-r", dest="reservoir", default=None,
-                   help="reservoir data file (not ported yet)")
+                   help="reservoir data file")
     p.add_argument("-o", dest="outdir", default="outputs/",
                    help="output directory")
     p.add_argument("--replicas", type=int, default=1)
@@ -129,9 +133,12 @@ def _run(args, outdir: str, logger) -> int:
                         (args.params, "Parameter")):
         if not os.path.exists(path):
             logger.abort(f"{label} file not found: {path}", 1)
+    if args.reservoir and not os.path.exists(args.reservoir):
+        logger.abort(f"Reservoir file not found: {args.reservoir}", 1)
 
     t0 = time.time()
     sysm = load_system(args.input, args.data, args.params,
+                       reservoir_file=args.reservoir,
                        capacity=args.capacity, dtype=dtype, device=device,
                        logger=logger)
     deck, spec, state = sysm.deck, sysm.spec, sysm.state
@@ -147,9 +154,16 @@ def _run(args, outdir: str, logger) -> int:
     if replicated:
         state = replicate(spec, state, args.replicas)
     writer = OutputWriter(outdir, deck, sysm.parsed, logger)
+
+    def res_snap():
+        return (snapshot(spec, state, reservoir=True) if spec.has_reservoir
+                else None)
+
+    res_box = sysm.reservoir.box if sysm.reservoir else None
     logger.banner("Started Monte Carlo Loop")
     snap0 = snapshot(spec, state)
-    writer.update_files(snap0, 0, append=False)
+    writer.update_files(snap0, 0, append=False, reservoir_snap=res_snap(),
+                        reservoir_box=res_box)
     if args.profile > 0:
         writer.write_profile(snap0, 0, args.profile, args.profile_axis)
 
@@ -174,7 +188,8 @@ def _run(args, outdir: str, logger) -> int:
         total_steps += deck.nb_step * args.replicas
         snap = snapshot(spec, state)
         writer.print_status(snap, block)
-        writer.update_files(snap, block, append=True)
+        writer.update_files(snap, block, append=True,
+                            reservoir_snap=res_snap(), reservoir_box=res_box)
         if replicated:
             mean_n, std_n, mean_e, std_e = gather_replica_stats(
                 state, spec.R, E_TOT)

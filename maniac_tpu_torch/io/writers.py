@@ -4,6 +4,7 @@ Formats mirror the reference so downstream tooling and the black-box tests
 keep working (reference: src/write_utils.f90):
 
 * ``trajectory.lammpstrj`` - LAMMPS dump; one frame per block
+* ``reservoir.lammpstrj`` - the reservoir's frames, with ``-r``
 * ``energy.dat`` - 7 columns, kcal/mol
 * ``number_<RES>.dat`` - per active species population series
 * ``moves.dat`` - trial/accepted counts per move type
@@ -11,8 +12,8 @@ keep working (reference: src/write_utils.f90):
 
 Counterpart of maniac_tpu/io/writers.py, line for line the same formats;
 ``snapshot`` reads one replica of a batched torch state to the host. Not
-ported yet: the reservoir trajectory and the Widom table (their command
-line options, ``-r`` and ``--widom``, are not ported).
+ported yet: the Widom table (its command line option ``--widom`` is not
+ported).
 
 Documented divergences:
 * The reference writes the current *input* nb_block as every frame's
@@ -54,25 +55,37 @@ class HostSnapshot:
     rot_step: float
 
 
-def snapshot(spec, state, replica: int = 0) -> HostSnapshot:
+def snapshot(spec, state, replica: int = 0,
+             reservoir: bool = False) -> HostSnapshot:
     """Pull one replica of a batched state to the host, unpacked per
-    residue type."""
+    residue type; ``reservoir=True`` unpacks the reservoir instead."""
     def get(x):
         return x[replica].detach().cpu().numpy()
 
-    com_flat, pos_flat = get(state.com).T, get(state.pos).T
-    n_mol = get(state.n_mol)[: spec.R]
+    if reservoir:
+        com_flat, off_flat = get(state.res_com), get(state.res_offset)
+        n_mol = get(state.res_n)[: spec.R]
+        caps = spec.res_cap_list
+    else:
+        com_flat, off_flat = get(state.com).T, get(state.pos).T
+        n_mol = get(state.n_mol)[: spec.R]
+        caps = spec.cap_list
     coms, offs = [], []
     mol_base = 0
+    site_base = 0
     for r in range(spec.R):
-        cap, A = spec.cap_list[r], spec.A_list[r]
+        cap, A = caps[r], spec.A_list[r]
         n = int(n_mol[r])
-        # per-type site bases are 128-aligned
-        site_base = spec.site_base_list[r]
+        if not reservoir:
+            # primary layout: per-type site bases are 128-aligned
+            site_base = spec.site_base_list[r]
         coms.append(com_flat[mol_base:mol_base + n])
-        rows = pos_flat[site_base:site_base + n * A].reshape(n, A, 3)
-        offs.append(rows - coms[-1][:, None, :])
+        rows = off_flat[site_base:site_base + n * A].reshape(n, A, 3)
+        if not reservoir:   # the primary stores absolute site positions
+            rows = rows - coms[-1][:, None, :]
+        offs.append(rows)
         mol_base += cap
+        site_base += cap * A
     return HostSnapshot(n_mol=n_mol, com=coms, offset=offs,
                         energy=get(state.energy),
                         counters=get(state.counters),
@@ -314,8 +327,13 @@ class OutputWriter:
                         atom_offset += res.nb_atoms
 
     def update_files(self, snap: HostSnapshot, block: int,
-                     append: bool) -> None:
+                     append: bool, reservoir_snap: HostSnapshot | None = None,
+                     reservoir_box: Box | None = None) -> None:
         self.write_trajectory(snap, block, append)
+        if reservoir_snap is not None:
+            self.write_trajectory(reservoir_snap, block, append,
+                                  filename="reservoir.lammpstrj",
+                                  box=reservoir_box)
         self.write_energy_and_count(snap, block)
         self.write_topology(snap)
 

@@ -4,13 +4,14 @@ Three kernels serve the MC paths on a CUDA device:
 
 * ``blockg.run_block_kernel`` (csrc/blockg.cu): a whole block of MC steps
   per replica, the counterpart of maniac_tpu/kernels/blockg.py
-  ``_blockg_kernel`` in its one-active-species, framework-split,
-  orthorhombic, no-reservoir form, with one activity for every replica;
+  ``_blockg_kernel`` in its one-active-species, orthorhombic forms: with
+  the framework split, or without it when every type is active, each with
+  or without a reservoir, and one activity for every replica;
 * ``stepg.step_core`` (csrc/stepg.cu): the energy core of one MC step for
   B replicas given their proposals, the counterpart of
   maniac_tpu/kernels/stepg.py ``_stepg_kernel``; every f32 block outside
-  the block kernel's gate (several active species, no framework split, a
-  per-replica activity sweep, a single chain) runs its steps through it;
+  the block kernel's gate (several active species, a per-replica activity
+  sweep, a single chain) runs its steps through it;
 * ``resync.resync_grouped`` (csrc/resync.cu): the per-block amplitude
   resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
   ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
@@ -34,15 +35,15 @@ import torch
 def block_gate_failure(spec) -> str | None:
     """First static-spec condition the block kernel does not take, or None
     (the counterpart of maniac_tpu.kernels.use_blockg): the step kernel's
-    gate, then one active species, the framework split and one activity
-    table."""
+    gate, then one active species, the framework split or every type
+    active, and one activity table. A reservoir is taken."""
     failure = step_gate_failure(spec)
     if failure is not None:
         return failure
     if spec.n_active != 1:
         return f"{spec.n_active} active species (kernel takes 1)"
-    if not spec.fw_split:
-        return "framework split off"
+    if not spec.fw_split and spec.R != spec.n_active:
+        return "framework split off with inactive types"
     if spec.type_activity.dim() != 1:
         return "per-replica activity (the kernel reads one activity table)"
     return None
@@ -63,14 +64,12 @@ def _table_limit_failure(spec) -> str | None:
 def step_gate_failure(spec) -> str | None:
     """First static-spec condition the per-step kernel does not take, or
     None. It takes any number of active species, with the framework split
-    on or off, and a per-replica activity (the proposal, which reads the
-    activity, stays in torch)."""
+    on or off, a per-replica activity and a reservoir (the proposal and the
+    reservoir bookkeeping, which read them, stay in torch)."""
     if spec.dtype_name != "float32":
         return f"dtype {spec.dtype_name} (the kernels take float32)"
     if spec.is_triclinic:
         return "triclinic box"
-    if spec.has_reservoir:
-        return "reservoir"
     if spec.use_table:
         return "tabulated potentials"
     return _table_limit_failure(spec)
@@ -101,6 +100,17 @@ def use_resync_kernel(spec, device) -> bool:
     """True when the amplitude resync runs in the CUDA kernel."""
     return (torch.device(device).type == "cuda"
             and resync_gate_failure(spec) is None)
+
+
+def split_args(spec):
+    """The framework-split arguments of the footprint kernels (blockg.cu,
+    stepg.cu): ([S_frozen, guest_base], (kx2, ky2, kz2), (Jz2P, Jxy2P),
+    fw_d0). Without the split: no frozen prefix and an empty far-field
+    grid, so every live site takes erfc(alpha r)/r (physics/energy.py)."""
+    if spec.fw_split:
+        return ([spec.S_frozen, spec.guest_base], spec.kmax2_xyz,
+                spec.amp2_shape, spec.host_scalars["fw_d0"])
+    return [0, 0], (0, 0, 0), (1, 0), 0.0
 
 
 def dispatch_report(spec, device) -> str:

@@ -2,11 +2,12 @@
 
 ``run_block_kernel`` replaces maniac_tpu/kernels/blockg.py::
 run_block_grouped (kernel ``_blockg_kernel``) in its one-active-species,
-framework-split, orthorhombic, no-reservoir form (kernels.block_gate_failure
-is the gate). For a CUDA state it launches csrc/blockg.cu; for a CPU state
-it runs ``block_plain``, a Python loop of mc/moves.py::mc_step_u with the
-plain energy core over the same uniforms. Step-size recalibration runs
-after it, in torch.
+orthorhombic forms: framework split, or no split with every type active,
+each with or without a reservoir (kernels.block_gate_failure is the gate).
+For a CUDA state it launches csrc/blockg.cu; for a CPU state it runs
+``block_plain``, a Python loop of mc/moves.py::mc_step_u with the plain
+energy core (and the reservoir moves) over the same uniforms. Step-size
+recalibration runs after it, in torch.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..constants import COULOMB_K, PROB_CREATE_DELETE, SMALL, TWOPI
 from ..mc.driver import run_steps_u
 from ..mc.moves import N_UNIFORMS, _core_plain
 from ..system import SimState, SystemSpec
-from . import block_gate_failure, build
+from . import block_gate_failure, build, split_args
 from .resync import _check
 
 
@@ -52,9 +53,19 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     _check("extras", states.extras, (B, 4), i32, dev)
     _check("trans_step", states.trans_step, (B,), f32, dev)
     _check("rot_step", states.rot_step, (B,), f32, dev)
+    Sres, Mres1 = states.res_offset.shape[1], states.res_com.shape[1]
+    _check("res_offset", states.res_offset, (B, Sres, 3), f32, dev)
+    _check("res_com", states.res_com, (B, Mres1, 3), f32, dev)
+    _check("res_n", states.res_n, (B, spec.R + 1), i32, dev)
     out = {k: torch.empty_like(getattr(states, k))
            for k in ("pos", "com", "amp_re", "amp_im", "n_mol", "energy",
                      "counters", "extras")}
+    # the kernel writes the reservoir only when there is one; otherwise the
+    # (tiny, unread) dummies pass through as they are
+    res_keys = ("res_offset", "res_com", "res_n")
+    res_out = {k: (torch.empty_like(getattr(states, k))
+                   if spec.has_reservoir else getattr(states, k))
+               for k in res_keys}
     tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
               spec.eps_site, spec.sig2_site, spec.type_A, spec.type_cap,
               spec.type_site_base, spec.type_mol_base, spec.type_activity,
@@ -64,7 +75,9 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
               spec.H, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
               spec.k_col_jy, spec.c2_re, spec.c2_im, spec.k2_col_jx,
               spec.k2_col_jy]
-    for t in tables:
+    res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
+                  spec.res_cap, spec.res_H]
+    for t in tables + res_tables:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("spec tables must be contiguous on the state's "
                              "device")
@@ -73,22 +86,22 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
            states.trans_step, states.rot_step]
     outs = [out[k] for k in ("pos", "com", "amp_re", "amp_im", "n_mol",
                              "energy", "counters", "extras")]
-    ptrs = [t.data_ptr() for t in ins + outs + tables]
+    ptrs = [t.data_ptr() for t in ins + outs + tables
+            + [getattr(states, k) for k in res_keys]
+            + [res_out[k] for k in res_keys] + res_tables]
     kx, ky, kz = spec.kmax_xyz
-    kx2, ky2, kz2 = spec.kmax2_xyz
-    Jz2P, Jxy2P = spec.amp2_shape
-    t_act = [r for r in range(spec.R) if spec.active_list[r]][0]
-    ints = [B, n_steps, spec.S, spec.S_frozen, spec.guest_base, spec.R,
-            spec.Mtot, spec.A_act, t_act, JzP, JxyP, kx, ky, kz, Jz2P,
-            Jxy2P, kx2, ky2, kz2, int(spec.gg_cut)]
     sc = spec.host_scalars
+    fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
+    t_act = [r for r in range(spec.R) if spec.active_list[r]][0]
+    ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act, t_act,
+            JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2,
+            int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
-              sc["fw_d0"], COULOMB_K, TWOPI, PROB_CREATE_DELETE,
-              SMALL * SMALL]
+              fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL]
     build.launch("blockg_launch", ptrs, ints, floats)
     run_block_kernel.launches += 1
-    return states.replace(**out)
+    return states.replace(**out, **res_out)
 
 
 run_block_kernel.launches = 0

@@ -1,32 +1,48 @@
 // A whole block of MC steps per replica, state resident across steps.
 //
 // Replaces maniac_tpu/kernels/blockg.py::_blockg_kernel (launcher
-// run_block_grouped) in its one-active-species, framework-split,
-// orthorhombic, no-reservoir form. Each step is exactly
-// maniac_tpu/mc/moves.py::mc_step_u on one row of 21 uniforms:
-// proposal (_propose), guest pairs (LJ + erfc(alpha r)/r cut at gg_rcut),
-// framework pairs (LJ + erfc(alpha2 r)/r cut at rcut2), the far-field grid
-// term, the k-space delta, the Metropolis test and the commits with
-// compaction on deletion (_core_xla, _bookkeep).
+// run_block_grouped) in its one-active-species, orthorhombic forms:
+//   * framework split: a frozen framework prefix (LJ + erfc(alpha2 r)/r cut
+//     at rcut2) plus the far-field alpha2 grid, guests take LJ +
+//     erfc(alpha r)/r cut at gg_rcut;
+//   * no split (every type active, e.g. a water box): no frozen prefix and
+//     an empty far-field grid, so the pair pass covers every live site
+//     with LJ + erfc(alpha r)/r (cut at gg_rcut when gg_cut), as
+//     physics/energy.py;
+//   * either of them with a reservoir (-r): an insertion copies a random
+//     reservoir molecule's offsets as they are (no rotation), an accepted
+//     insertion pops it, an accepted deletion pushes the removed molecule
+//     back (or drops it when the reservoir is full, counted in extras[1]).
+// Each step is exactly maniac_tpu/mc/moves.py::mc_step_u on one row of 21
+// uniforms: proposal (_propose), pair passes, the far-field grid term, the
+// k-space delta, the Metropolis test and the commits with compaction on
+// deletion (_core_xla, _bookkeep, _update_reservoir).
 //
 // Bound on the H100: arithmetic, and the step chain. Per step and replica
 // the far-field contraction (footprint charges x the 48 x 1152 alpha2 grid)
-// and the k-space delta (x 9216 modes) dominate; the pair passes cover
-// 2160 framework sites and the live guests. Steps are sequential within a
-// replica, so the parallelism is replicas (one CTA each, B = 1024 CTAs)
-// times the threads of a CTA within a step.
+// and the k-space delta (x 9216 modes) dominate the split form; the pair
+// passes cover 2160 framework sites and the live guests. Without the split
+// there is no far-field term and the pair pass covers every live site
+// instead of the guests only. The reservoir adds no work to the bound: a
+// few dozen bytes a step (at most 8 offset rows and one COM read and
+// written by one thread). Steps are sequential within a replica, so the
+// parallelism is replicas (one CTA each, B = 1024 CTAs) times the threads
+// of a CTA within a step.
 // Design: one CTA per replica runs all n_steps; thread 0 makes the
 // proposal from its uniform row (a transcription of _propose, f32 as in
 // the JAX package) and publishes the old/new footprints (<= 2 x 8 atoms)
 // in shared memory; all threads build the footprint phase-power tables,
 // then sweep the framework and live guest sites, the far-field grid and
 // the k-space modes with per-thread partial sums and one block reduction;
-// thread 0 decides and commits positions, COMs, populations, energies and
-// counters; on acceptance every thread recomputes the delta of its own
-// modes and adds it to the amplitudes (no 74 KB delta buffer). Framework
-// pairs loop over all frozen sites with minimum image, as the oracle does
-// (blockg's ghost-sorted windows were a TPU layout). erfc is libdevice
-// erfcf (common.cuh). Speed (shared-memory state, tensor-core contractions,
+// thread 0 decides and commits positions, COMs, populations, energies,
+// counters and the reservoir rows; on acceptance every thread recomputes
+// the delta of its own modes and adds it to the amplitudes (no 74 KB delta
+// buffer). The reservoir offsets and COMs are copied in-to-out at the
+// start and updated in device memory; the replica's reservoir counts live
+// in shared memory beside its populations. Framework pairs loop over all
+// frozen sites with minimum image, as the oracle does (blockg's
+// ghost-sorted windows were a TPU layout). erfc is libdevice erfcf
+// (common.cuh). Speed (shared-memory state, tensor-core contractions,
 // window culling) is later work.
 #include <algorithm>
 
@@ -82,12 +98,23 @@ enum BlockPtr {
   BP_C2IM,
   BP_COL2_JX,      // (Jxy2P,) i32, -1 = pad
   BP_COL2_JY,
+  BP_RES_OFF_IN,   // (B, Sres, 3) f32 reservoir site offsets
+  BP_RES_COM_IN,   // (B, Mres+1, 3) f32 reservoir COMs
+  BP_RES_N_IN,     // (B, R+1) i32 reservoir populations
+  BP_RES_OFF,      // outputs, same shapes (not written without a reservoir)
+  BP_RES_COM,
+  BP_RES_N,
+  BP_RES_SITE_BASE,  // (R,) i32
+  BP_RES_MOL_BASE,   // (R,) i32
+  BP_RES_CAP,        // (R,) i32
+  BP_RES_H,          // (3, 3) f32 reservoir cell vectors
   BP_COUNT
 };
 enum BlockInt {
   BI_B, BI_NSTEPS, BI_S, BI_S_FROZEN, BI_GUEST_BASE, BI_R, BI_MTOT,
   BI_A_ACT, BI_T_ACT, BI_JZP, BI_JXYP, BI_KX, BI_KY, BI_KZ, BI_JZ2P,
-  BI_JXY2P, BI_KX2, BI_KY2, BI_KZ2, BI_GG_CUT, BI_COUNT
+  BI_JXY2P, BI_KX2, BI_KY2, BI_KZ2, BI_GG_CUT, BI_HAS_RES, BI_SRES,
+  BI_MRES1, BI_COUNT
 };
 enum BlockFloat {
   BF_ALPHA, BF_ALPHA2, BF_CUTOFF, BF_RCUT2, BF_GG_RCUT_SQ, BF_TEMP,
@@ -117,8 +144,13 @@ struct Args {
   const float* h2pi; const float* kw; const int* col_jx; const int* col_jy;
   const float* c2re; const float* c2im; const int* col2_jx;
   const int* col2_jy;
+  const float* res_off_in; const float* res_com_in; const int* res_n_in;
+  float* res_off; float* res_com; int* res_n;
+  const int* res_site_base; const int* res_mol_base; const int* res_cap;
+  const float* res_H;
   int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, t_act;
   int JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2, gg_cut;
+  int has_res, Sres, Mres1;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi, prob_cd, small_sq;
 };
@@ -127,10 +159,13 @@ struct Args {
 struct Proposal {
   float P_new[MAXA][3];
   float last[MAXA][3];
+  float off_old[MAXA][3];  // the old molecule's offsets (a reservoir push)
   float com_new[3], com_last[3];
+  float res_pos[3];        // a push's COM in the reservoir box
   float u_acc, pref, i_old, i_new, s_old, s_new, sw[2];
   int move, valid, cap_blocked, gate, insert_like, remove_like, w_new;
   int t, A, mol_slot_old, slot_new, site_start_old, site_start_new;
+  int res_pick;
 };
 
 __device__ __forceinline__ int uint_draw(float u, int n) {
@@ -186,9 +221,11 @@ __device__ void uniform_rotation(const float* u, float two_pi, float (*R)[3]) {
   R[2][2] = 1 - 2 * (x * x + y * y);
 }
 
-// Thread 0: moves.py::_propose for one replica and one uniform row.
+// Thread 0: moves.py::_propose for one replica and one uniform row
+// (res_off and res_n are this replica's reservoir, unread without one).
 __device__ void propose(const Args& a, int b, int step, const int* nmol,
-                        const float* pos, const float* com, float tstep,
+                        const float* pos, const float* com,
+                        const float* res_off, const int* res_n, float tstep,
                         float rstep, Proposal& pr, Footprint& fp) {
   float u[21];
   const float* ur = a.u + ((size_t)b * a.n_steps + step) * 21;
@@ -212,9 +249,11 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   const int m_old = uint_draw(u[13], max(n_old, 1));
   const int A = a.type_A[t];
   const int cap = a.type_cap[t];
+  // an empty reservoir blocks insertions (counted invalid, not blocked)
   const bool valid = (is_create ? true
                       : is_rot ? (n_old > 0 && A > 1) : n_old > 0)
-                     && !dead_draw;
+                     && !dead_draw
+                     && (!a.has_res || !insert_like || res_n[t] > 0);
   const bool cap_blocked = insert_like && n_old >= cap;
 
   const int mol_slot_old = a.type_mol_base[t] + m_old;
@@ -226,6 +265,12 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   const int start_last = a.type_site_base[t] + last_idx * A;
   const int slot_last = a.type_mol_base[t] + last_idx;
 
+  // insertion geometry: a random reservoir molecule's offsets as they are
+  // (its rotation is the identity), else the template, uniformly rotated
+  pr.res_pick = a.has_res ? uint_draw(u[14], max(res_n[t], 1)) : 0;
+  const float* src = a.has_res
+      ? res_off + (size_t)(a.res_site_base[t] + pr.res_pick * A) * 3
+      : a.templ + (size_t)t * A_act * 3;
   float P_old[MAXA][3], off_src[MAXA][3], com_old[3];
   for (int i = 0; i < 3; ++i) {
     com_old[i] = com[i * M1 + mol_slot_old];
@@ -236,14 +281,19 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
     for (int i = 0; i < 3; ++i) {
       P_old[k][i] = pos[i * S + site_start_old + k];
       pr.last[k][i] = pos[i * S + start_last + k];
-      off_src[k][i] = insert_like ? a.templ[(t * A_act + k) * 3 + i]
-                                  : P_old[k][i] - com_old[i];
+      pr.off_old[k][i] = P_old[k][i] - com_old[i];
+      off_src[k][i] = insert_like ? src[k * 3 + i] : pr.off_old[k][i];
     }
   }
   float Rm[3][3];
   const float theta = is_rot ? (u[9] - 0.5f) * rstep : 0.f;
-  if (insert_like) uniform_rotation(u + 15, a.two_pi, Rm);
+  if (insert_like && !a.has_res) uniform_rotation(u + 15, a.two_pi, Rm);
   else axis_rotation(uint_draw(u[10], 3), theta, Rm);
+  // a push's COM: res_H (u[18:21] - 0.5), centred, no lower bound added
+  for (int i = 0; i < 3; ++i)
+    pr.res_pos[i] = a.res_H[3 * i] * (u[18] - 0.5f)
+                    + a.res_H[3 * i + 1] * (u[19] - 0.5f)
+                    + a.res_H[3 * i + 2] * (u[20] - 0.5f);
 
   for (int i = 0; i < 3; ++i) {
     float c;
@@ -315,12 +365,60 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   fp.n_sites = footprint_sites(a, nmol);
 }
 
-__global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
+// Thread 0: moves.py::_update_reservoir after the decision. Pop on an
+// accepted insertion (the type's last reservoir molecule fills the picked
+// slot), push on an accepted removal (the removed offsets and res_pos into
+// slot res_n, or a drop counted in extras[1] when the reservoir is full).
+// Both read the reservoir as it was before the step; push rows are written
+// first, then pop rows, so pop wins where both write (they never coincide
+// with one active species; the order is the JAX package's).
+__device__ void commit_reservoir(const Args& a, const Proposal& pr, bool acc,
+                                 float* res_off, float* res_com, int* res_n,
+                                 int* extras) {
+  const int t = pr.t, A = pr.A;
+  const bool do_pop = acc && pr.insert_like;
+  const bool full = res_n[t] >= a.res_cap[t];
+  const bool do_push = acc && pr.remove_like && !full;
+  const int last = max(res_n[t] - 1, 0);
+  const int last_start = a.res_site_base[t] + last * A;
+  const int last_slot = a.res_mol_base[t] + last;
+  float pop_rows[MAXA][3], pop_com[3];
+  if (do_pop) {
+    for (int k = 0; k < A; ++k)
+      for (int i = 0; i < 3; ++i)
+        pop_rows[k][i] = res_off[(last_start + k) * 3 + i];
+    for (int i = 0; i < 3; ++i) pop_com[i] = res_com[last_slot * 3 + i];
+  }
+  if (do_push) {
+    const int push_idx = min(res_n[t], a.res_cap[t] - 1);
+    const int push_start = a.res_site_base[t] + push_idx * A;
+    const int push_slot = a.res_mol_base[t] + push_idx;
+    for (int k = 0; k < A; ++k)
+      for (int i = 0; i < 3; ++i)
+        res_off[(push_start + k) * 3 + i] = pr.off_old[k][i];
+    for (int i = 0; i < 3; ++i) res_com[push_slot * 3 + i] = pr.res_pos[i];
+  }
+  if (do_pop) {
+    const int pop_start = a.res_site_base[t] + pr.res_pick * A;
+    const int pop_slot = a.res_mol_base[t] + pr.res_pick;
+    for (int k = 0; k < A; ++k)
+      for (int i = 0; i < 3; ++i)
+        res_off[(pop_start + k) * 3 + i] = pop_rows[k][i];
+    for (int i = 0; i < 3; ++i) res_com[pop_slot * 3 + i] = pop_com[i];
+  }
+  res_n[t] += (do_push ? 1 : 0) - (do_pop ? 1 : 0);
+  extras[1] += acc && pr.remove_like && full;
+}
+
+// At most 64 registers a thread, so that four CTAs share an SM (B = 1024
+// replicas then take two waves, not three).
+__global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   __shared__ Footprint fp;
   __shared__ float2 tab[MAXF][3][JMAX];
   __shared__ float scratch[NWARP * NRED];
   __shared__ float red[NRED];
   __shared__ int nmol[MAXR + 1];
+  __shared__ int res_n[MAXR + 1];
   __shared__ float energy[6];
   __shared__ int counters[10];
   __shared__ int extras[4];
@@ -332,7 +430,16 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
   float* com = a.com + (size_t)b * 3 * M1;
   float* ampre = a.ampre + (size_t)b * K;
   float* ampim = a.ampim + (size_t)b * K;
+  float* res_off = a.res_off + (size_t)b * 3 * a.Sres;
+  float* res_com = a.res_com + (size_t)b * 3 * a.Mres1;
 
+  if (a.has_res) {
+    for (int i = tid; i < 3 * a.Sres; i += THREADS)
+      res_off[i] = a.res_off_in[(size_t)b * 3 * a.Sres + i];
+    for (int i = tid; i < 3 * a.Mres1; i += THREADS)
+      res_com[i] = a.res_com_in[(size_t)b * 3 * a.Mres1 + i];
+    if (tid <= a.R) res_n[tid] = a.res_n_in[b * (a.R + 1) + tid];
+  }
   for (int i = tid; i < 3 * S; i += THREADS)
     pos[i] = a.pos_in[(size_t)b * 3 * S + i];
   for (int i = tid; i < 3 * M1; i += THREADS)
@@ -351,7 +458,9 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
   __syncthreads();
 
   for (int step = 0; step < a.n_steps; ++step) {
-    if (tid == 0) propose(a, b, step, nmol, pos, com, tstep, rstep, pr, fp);
+    if (tid == 0)
+      propose(a, b, step, nmol, pos, com, res_off, res_n, tstep, rstep, pr,
+              fp);
     __syncthreads();
 
     footprint_phase_tables(a, fp, tab);
@@ -394,6 +503,8 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
         for (int i = 0; i < 3; ++i)
           com[i * M1 + pr.slot_new] = pr.com_new[i];
       }
+      if (a.has_res) commit_reservoir(a, pr, acc, res_off, res_com, res_n,
+                                      extras);
       nmol[pr.t] += (acc && pr.insert_like) - (acc && pr.remove_like);
       energy[0] += acc ? e_recip_new - e_recip_old : 0.f;
       energy[1] += accf * (e_lj1 - e_lj0);
@@ -423,6 +534,7 @@ __global__ void __launch_bounds__(THREADS) blockg_kernel(Args a) {
   }
 
   if (tid <= a.R) a.nmol[b * (a.R + 1) + tid] = nmol[tid];
+  if (a.has_res && tid <= a.R) a.res_n[b * (a.R + 1) + tid] = res_n[tid];
   if (tid < 6) a.energy[6 * b + tid] = energy[tid];
   if (tid < 10) a.counters[10 * b + tid] = counters[tid];
   if (tid < 4) a.extras[4 * b + tid] = extras[tid];
@@ -483,6 +595,16 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.c2im = static_cast<const float*>(ptrs[BP_C2IM]);
   a.col2_jx = static_cast<const int*>(ptrs[BP_COL2_JX]);
   a.col2_jy = static_cast<const int*>(ptrs[BP_COL2_JY]);
+  a.res_off_in = static_cast<const float*>(ptrs[BP_RES_OFF_IN]);
+  a.res_com_in = static_cast<const float*>(ptrs[BP_RES_COM_IN]);
+  a.res_n_in = static_cast<const int*>(ptrs[BP_RES_N_IN]);
+  a.res_off = static_cast<float*>(ptrs[BP_RES_OFF]);
+  a.res_com = static_cast<float*>(ptrs[BP_RES_COM]);
+  a.res_n = static_cast<int*>(ptrs[BP_RES_N]);
+  a.res_site_base = static_cast<const int*>(ptrs[BP_RES_SITE_BASE]);
+  a.res_mol_base = static_cast<const int*>(ptrs[BP_RES_MOL_BASE]);
+  a.res_cap = static_cast<const int*>(ptrs[BP_RES_CAP]);
+  a.res_H = static_cast<const float*>(ptrs[BP_RES_H]);
   a.B = ints[BI_B];
   a.n_steps = ints[BI_NSTEPS];
   a.S = ints[BI_S];
@@ -503,6 +625,9 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.ky2 = ints[BI_KY2];
   a.kz2 = ints[BI_KZ2];
   a.gg_cut = ints[BI_GG_CUT];
+  a.has_res = ints[BI_HAS_RES];
+  a.Sres = ints[BI_SRES];
+  a.Mres1 = ints[BI_MRES1];
   a.alpha = fl[BF_ALPHA];
   a.alpha2 = fl[BF_ALPHA2];
   a.cutoff = fl[BF_CUTOFF];

@@ -17,7 +17,7 @@ import torch
 from ..constants import COULOMB_K, TWOPI
 from ..mc.moves import _core_plain
 from ..system import SimState, SystemSpec
-from . import build, step_gate_failure
+from . import build, split_args, step_gate_failure
 from .resync import _check
 
 step_core_plain = _core_plain
@@ -82,15 +82,7 @@ def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
             + tables]
     kx, ky, kz = spec.kmax_xyz
     sc = spec.host_scalars
-    if spec.fw_split:
-        kx2, ky2, kz2 = spec.kmax2_xyz
-        Jz2P, Jxy2P = spec.amp2_shape
-        fw = [spec.S_frozen, spec.guest_base]
-        fw_d0 = sc["fw_d0"]
-    else:  # no frozen prefix and an empty far-field grid
-        kx2 = ky2 = kz2 = Jxy2P = 0
-        Jz2P = 1
-        fw, fw_d0 = [0, 0], 0.0
+    fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
     ints = [B, spec.S, *fw, spec.R, A, JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P,
             kx2, ky2, kz2, int(spec.gg_cut)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],

@@ -8,11 +8,13 @@ uniforms per replica, laid out exactly as the JAX package draws them, so
 both packages walk the same chain when fed the same uniforms.
 
 Footprints are read with gathers (the JAX package's one-hot matmul reads
-were a TPU layout workaround). The energy core of a step is ``_core_plain``
-here; for a spec inside kernels.step_gate_failure, mc_step_u runs it through
-kernels/stepg.py::step_core, which launches kernels/csrc/stepg.cu for CUDA
-tensors. On the card, a block inside the whole-block kernel's gate runs in
-kernels/csrc/blockg.cu instead.
+were a TPU layout workaround). With a reservoir (``-r``) an insertion takes
+a random reservoir molecule's geometry as it is, and _update_reservoir pops
+and pushes reservoir molecules after the bookkeeping. The energy core of a
+step is ``_core_plain`` here; for a spec inside kernels.step_gate_failure,
+mc_step_u runs it through kernels/stepg.py::step_core, which launches
+kernels/csrc/stepg.cu for CUDA tensors. On the card, a block inside the
+whole-block kernel's gate runs in kernels/csrc/blockg.cu instead.
 """
 
 from __future__ import annotations
@@ -71,6 +73,19 @@ def _gather_cols(x, idx):
     return torch.gather(x, 2, idx.long()[:, None, :].expand(-1, 3, -1))
 
 
+def _gather_rows(x, idx):
+    """x (B, N, 3), idx (B, A) -> (B, A, 3): rows idx of each replica."""
+    return torch.gather(x, 1, idx.long()[:, :, None].expand(-1, -1, 3))
+
+
+def _scatter_rows(x, idx, rows, mask):
+    """Write rows (B, A, 3) into x (B, N, 3) at rows idx (B, A) where
+    mask (B, A); returns a new tensor."""
+    idx3 = idx.long()[:, :, None].expand(-1, -1, 3)
+    cur = torch.gather(x, 1, idx3)
+    return x.scatter(1, idx3, torch.where(mask[:, :, None], rows, cur))
+
+
 def _scatter_cols(x, idx, cols, mask):
     """Write cols (B, 3, A) into x (B, 3, N) at columns idx (B, A) where
     mask (B, A); returns a new tensor."""
@@ -87,7 +102,12 @@ def mc_step_u(spec: SystemSpec, states: SimState, u, core=None) -> SimState:
     pre = _propose(spec, states, u)
     if core is None:
         core = _dispatch_core(spec)
-    return _bookkeep(spec, states, pre, core(spec, states, pre))
+    core_out = core(spec, states, pre)
+    new = _bookkeep(spec, states, pre, core_out)
+    if spec.has_reservoir:
+        new = _update_reservoir(spec, states, new, pre, core_out["acc"],
+                                u[:, 18:21])
+    return new
 
 
 def _dispatch_core(spec: SystemSpec):
@@ -101,8 +121,6 @@ def _dispatch_core(spec: SystemSpec):
 def _propose(spec: SystemSpec, st: SimState, u) -> dict:
     """Move/type/molecule draws, footprint reads, proposal geometry,
     intra/self terms and the acceptance prefactor (moves.py::_propose)."""
-    if spec.has_reservoir:
-        raise NotImplementedError("reservoir moves are not ported yet")
     dev = u.device
     B = u.shape[0]
     u_move, u_cd, u_acc = u[:, 0], u[:, 1], u[:, 2]
@@ -151,6 +169,10 @@ def _propose(spec: SystemSpec, st: SimState, u) -> dict:
     valid = torch.where(is_create, True,
                         torch.where(is_rot, (n_old_count > 0) & (A_old > 1),
                                     n_old_count > 0)) & ~dead_draw
+    if spec.has_reservoir:
+        # an empty reservoir blocks insertions of that species
+        res_n_new = st.res_n[rows, t_new]
+        valid = valid & (~insert_like | (res_n_new > 0))
     cap_new = spec.type_cap[t_new]
     cap_blocked = insert_like & (n_new_count >= cap_new)
 
@@ -181,14 +203,23 @@ def _propose(spec: SystemSpec, st: SimState, u) -> dict:
     cls_new = spec.type_cls_rows[t_new]
     mask_new = a_iota[None, :] < A_new[:, None]
 
-    # insertion geometry: the type's rigid template with a uniform random
-    # orientation; translation/rotation move the molecule's own offsets
-    off_src = torch.where(insert_like[:, None, None],
-                          spec.type_template_off[t_new], off_old)
+    # insertion geometry: a random reservoir molecule used as it is (-r),
+    # else the type's rigid template with a uniform random orientation;
+    # translation/rotation move the molecule's own offsets
     theta = torch.where(is_rot, (u_angle - 0.5) * st.rot_step, 0.0)
-    Rm = torch.where(insert_like[:, None, None],
-                     _uniform_rotation(u[:, 15:18]),
-                     _axis_rotation(axis, theta))
+    if spec.has_reservoir:
+        res_pick = _uint(u[:, 14], torch.clamp(res_n_new, min=1))
+        res_src = spec.res_type_site_base[t_new] + res_pick * A_new
+        res_rows = _gather_rows(st.res_offset, res_src[:, None] + a_iota)
+        off_src = torch.where(insert_like[:, None, None], res_rows, off_old)
+        Rm = _axis_rotation(axis, theta)
+    else:
+        res_pick = torch.zeros_like(m_old)
+        off_src = torch.where(insert_like[:, None, None],
+                              spec.type_template_off[t_new], off_old)
+        Rm = torch.where(insert_like[:, None, None],
+                         _uniform_rotation(u[:, 15:18]),
+                         _axis_rotation(axis, theta))
     new_off = off_src @ Rm.transpose(1, 2)
 
     com_trans = wrap_into_box(com_old + u_disp * st.trans_step[:, None], spec)
@@ -229,7 +260,8 @@ def _propose(spec: SystemSpec, st: SimState, u) -> dict:
         ex_a=ex_a, ex_b=ex_b, P_old=P_old, P_new=P_new, q_old=q_old,
         q_new=q_new, cls_old=cls_old, cls_new=cls_new, m2=m2,
         last_cols=last_cols, com_new=com_new, com_last=com_last,
-        i_old=i_old, i_new=i_new, s_old=s_old, s_new=s_new,
+        off_old=off_old, res_pick=res_pick, i_old=i_old, i_new=i_new,
+        s_old=s_old, s_new=s_new,
         e_recip_old=st.energy[:, E_RECIP], pref=pref)
 
 
@@ -317,3 +349,61 @@ def _bookkeep(spec: SystemSpec, st: SimState, pre: dict,
     return st.replace(com=com, pos=core["pos"], n_mol=n_mol,
                       amp_re=core["amp_re"], amp_im=core["amp_im"],
                       energy=energy, counters=counters, extras=extras)
+
+
+def _update_reservoir(spec: SystemSpec, old: SimState, st: SimState,
+                      pre: dict, acc, u3) -> SimState:
+    """Reservoir bookkeeping on accepted insertions/deletions/swaps
+    (moves.py::_update_reservoir; reference: src/create_molecule.f90:117-129
+    pop-on-insert, src/delete_molecule.f90:148-166 push-on-delete).
+
+    Pop: the sampled reservoir molecule is replaced by the reservoir's last
+    molecule of its type. Push: the removed molecule's offsets are stored
+    at a random centred position of the reservoir box, res_H (u3 - 0.5). A
+    full reservoir drops the pushed molecule and counts it in extras[:, 1].
+    Push rows are written first, then pop rows: pop wins where both write,
+    and both read the reservoir as it was before the step."""
+    B = acc.shape[0]
+    rows = torch.arange(B, device=acc.device)
+    a_iota = torch.arange(spec.A_act, device=acc.device, dtype=torch.int32)
+    t_old, t_new = pre["t_old"], pre["t_new"]
+    A_old, A_new = pre["A_old"], pre["A_new"]
+    res_n = old.res_n
+
+    do_pop = acc & pre["insert_like"]
+    n_pop = res_n[rows, t_new]
+    last = torch.clamp(n_pop - 1, min=0)
+    pop_slot = spec.res_type_mol_base[t_new] + pre["res_pick"]
+    last_slot = spec.res_type_mol_base[t_new] + last
+    pop_start = spec.res_type_site_base[t_new] + pre["res_pick"] * A_new
+    last_start = spec.res_type_site_base[t_new] + last * A_new
+    last_rows = _gather_rows(old.res_offset, last_start[:, None] + a_iota)
+    last_com = _gather_rows(old.res_com, last_slot[:, None])
+
+    n_push = res_n[rows, t_old]
+    cap_old = spec.res_cap[t_old]
+    full = n_push >= cap_old
+    do_push = acc & pre["remove_like"] & ~full
+    push_idx = torch.minimum(n_push, cap_old - 1)
+    push_slot = spec.res_type_mol_base[t_old] + push_idx
+    push_start = spec.res_type_site_base[t_old] + push_idx * A_old
+    res_pos = (u3 - 0.5) @ spec.res_H.T                          # (B, 3)
+
+    in_push = do_push[:, None] & (a_iota[None, :] < A_old[:, None])
+    in_pop = do_pop[:, None] & (a_iota[None, :] < A_new[:, None])
+    res_off = _scatter_rows(old.res_offset, push_start[:, None] + a_iota,
+                            pre["off_old"], in_push)
+    res_off = _scatter_rows(res_off, pop_start[:, None] + a_iota, last_rows,
+                            in_pop)
+    res_com = _scatter_rows(old.res_com, push_slot[:, None],
+                            res_pos[:, None, :], do_push[:, None])
+    res_com = _scatter_rows(res_com, pop_slot[:, None], last_com,
+                            do_pop[:, None])
+
+    res_n = res_n.clone()
+    res_n[rows, t_new] -= do_pop.to(torch.int32)
+    res_n[rows, t_old] += do_push.to(torch.int32)
+    extras = st.extras.clone()
+    extras[:, 1] += (acc & pre["remove_like"] & full).to(torch.int32)
+    return st.replace(res_com=res_com, res_offset=res_off, res_n=res_n,
+                      extras=extras)

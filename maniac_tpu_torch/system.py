@@ -13,7 +13,9 @@ Differences from the JAX data model:
   ``torch.Generator``.
 * The spec keeps only the tables the port reads. The TPU layouts (ghost-
   sorted framework windows, 8-row LJ slabs, row selectors) and the
-  reservoir, triclinic-image and tabulated-potential tables are not built.
+  triclinic-image and tabulated-potential tables are not built. The
+  reservoir tables and state are the JAX package's, with the same minimal
+  dummies (one slot per type) when there is no reservoir.
 * Dense-grid column index tables (``k_col_jx``/``k_col_jy`` and the far-
   grid ``k2_col_*``) are derived from the 0/1 selectors ``ex_sel``/
   ``ey_sel``: the port reads phase powers by index instead of expanding
@@ -48,7 +50,7 @@ _META_FIELDS = (
     "Mtot", "K", "box_kind", "is_triclinic", "dtype_name", "has_reservoir",
     "kmax_xyz", "amp_shape", "fw_split", "S_frozen", "guest_base",
     "kmax2_xyz", "amp2_shape", "site_base_list", "use_table", "gg_cut",
-    "gg_rcut")
+    "gg_rcut", "res_cap_list")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -117,6 +119,13 @@ class SystemSpec:
     fw_d0: torch.Tensor
     fw_amp_re: torch.Tensor       # (JzP, JxyP)
     fw_amp_im: torch.Tensor
+    # reservoir layout (flat per-type slots, as the primary's; one slot per
+    # type when there is no reservoir)
+    res_type_site_base: torch.Tensor  # (R,) int32
+    res_type_mol_base: torch.Tensor   # (R,) int32
+    res_cap: torch.Tensor             # (R,) int32
+    res_H: torch.Tensor               # (3,3) reservoir cell vectors
+    res_bounds_lo: torch.Tensor       # (3,)
     # --- static metadata ---
     R: int
     A_list: tuple
@@ -142,6 +151,7 @@ class SystemSpec:
     use_table: bool
     gg_cut: bool
     gg_rcut: float
+    res_cap_list: tuple
 
     @property
     def dtype(self) -> torch.dtype:
@@ -174,6 +184,9 @@ class SimState:
     extras: torch.Tensor      # (B, 4) int32: overflow rejections, ...
     trans_step: torch.Tensor  # (B,)
     rot_step: torch.Tensor    # (B,)
+    res_com: torch.Tensor     # (B, Mres+1, 3) reservoir molecule COMs
+    res_offset: torch.Tensor  # (B, Sres, 3) reservoir site offsets
+    res_n: torch.Tensor       # (B, R+1) int32 reservoir populations
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
@@ -257,8 +270,8 @@ def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
     """JAX SystemSpec/SimState leaves (numpy arrays and meta values keyed by
     field name) -> the port's (SystemSpec, SimState) on ``device``.
 
-    Leaves the port does not keep (TPU window tables, the PRNG key, the
-    reservoir arrays) are ignored; a single-chain state gains B = 1."""
+    Leaves the port does not keep (TPU window tables, the PRNG key) are
+    ignored; a single-chain state gains B = 1."""
     spec = _spec_from_leaves(spec_arrays)
     state = _state_from_arrays(state_arrays)
     return to_device(spec, device, dtype), to_device(state, device, dtype)
@@ -283,8 +296,6 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     """Host-side (float64) system assembly; same layout and values as
     maniac_tpu/system.py::build_spec_and_state. The state has B = 1 and
     zero energies/amplitudes (driver.initialize_state fills them)."""
-    if reservoir is not None:
-        raise NotImplementedError("reservoir systems are not ported yet")
     if bool(getattr(deck, "use_table", False)):
         raise NotImplementedError("tabulated potentials are not ported yet")
     R = deck.n_residue_types
@@ -376,17 +387,31 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         type_cls_rows[r, :A] = np.arange(class_base[r], class_base[r] + A)
 
     # rigid-geometry insertion templates: first molecule of the initial
-    # configuration (collapsed all-zero template when there is none)
+    # configuration, else first reservoir molecule (collapsed all-zero
+    # template when there is neither)
     template_off = np.zeros((R, A_act, 3))
     for r in range(R):
         A = min(A_list[r], A_act)
         if parsed.n_mol[r] > 0:
             template_off[r, :A] = parsed.site_offset[r][0][:A]
+        elif reservoir is not None and reservoir.n_mol[r] > 0:
+            template_off[r, :A] = reservoir.site_offset[r][0][:A]
 
     active_ids = np.asarray([r for r in range(R) if active[r]], dtype=np.int32)
     p = deck.proba
     p_cum = np.cumsum([p.translation, p.rotation, p.insertion_deletion, p.swap])
     box = parsed.box
+
+    # ---- reservoir -------------------------------------------------------
+    has_res = reservoir is not None
+    res_cap_list = tuple(
+        (_default_capacity(reservoir.n_mol[r], capacity) if active[r] else 1)
+        for r in range(R)) if has_res else tuple(1 for _ in range(R))
+    (res_com, res_offset, res_n, res_site_base,
+     res_mol_base) = _build_reservoir_arrays(
+        reservoir, A_list, res_cap_list, R, A_act)
+    res_H = reservoir.box.matrix if has_res else box.matrix
+    res_lo = reservoir.box.bounds[:, 0] if has_res else box.bounds[:, 0]
 
     eps_site = eps_cls[:, site_cls]       # (C+1, S)
     sig_site = sig_cls[:, site_cls]
@@ -406,9 +431,11 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         A = A_list[r]
         mol_rad = max(mol_rad, float(np.max(
             np.linalg.norm(template_off[r, :A], axis=1), initial=0.0)))
-        if parsed.n_mol[r]:
-            offs = np.asarray(parsed.site_offset[r])
-            mol_rad = max(mol_rad, float(np.max(np.linalg.norm(offs, axis=-1))))
+        for src_sys in (parsed, reservoir):
+            if src_sys is not None and src_sys.n_mol[r]:
+                offs = np.asarray(src_sys.site_offset[r])
+                mol_rad = max(mol_rad, float(
+                    np.max(np.linalg.norm(offs, axis=-1))))
     fw_mode = getattr(deck, "framework_split", "auto")
     from .physics.fwsplit import build_fwsplit
     fws = build_fwsplit(
@@ -467,16 +494,19 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         type_activity=activity, type_self_energy=self_e,
         type_template_off=template_off, type_q_rows=type_q_rows,
         type_cls_rows=type_cls_rows, active_type_ids=active_ids,
-        p_cum=p_cum, **fw)
+        p_cum=p_cum, res_type_site_base=res_site_base,
+        res_type_mol_base=res_mol_base, res_cap=np.asarray(res_cap_list),
+        res_H=res_H, res_bounds_lo=res_lo, **fw)
     meta = dict(
         R=R, A_list=A_list, cap_list=cap_list, active_list=tuple(active),
         A_act=A_act, n_active=len(active_ids), S=S, Mtot=Mtot, K=K,
         box_kind=box.kind, is_triclinic=box.is_triclinic,
-        dtype_name="float64", has_reservoir=False,
+        dtype_name="float64", has_reservoir=has_res,
         kmax_xyz=tuple(int(k) for k in ewald.kmax),
         amp_shape=tuple(ewald.grid2_shape), fw_split=bool(fws.enabled),
         site_base_list=tuple(base_list), use_table=False,
-        gg_cut=bool(gg_cut), gg_rcut=float(gg_rcut), **fw_meta)
+        gg_cut=bool(gg_cut), gg_rcut=float(gg_rcut),
+        res_cap_list=res_cap_list, **fw_meta)
     spec = _spec_from_leaves({**arrays, **meta})
 
     n_mol0 = np.zeros(R + 1, dtype=np.int32)
@@ -487,5 +517,35 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         energy=np.zeros(6), counters=np.zeros((2, N_MOVE_TYPES), np.int32),
         extras=np.zeros(4, np.int32),
         trans_step=np.float64(deck.translation_step),
-        rot_step=np.float64(deck.rotation_step_angle)))
+        rot_step=np.float64(deck.rotation_step_angle),
+        res_com=res_com, res_offset=res_offset, res_n=res_n))
     return spec, state
+
+
+def _build_reservoir_arrays(reservoir: ParsedSystem | None, A_list,
+                            res_cap_list, R, A_act):
+    """Flat reservoir layout (maniac_tpu/system.py::_build_reservoir_arrays):
+    per type res_cap_list[r] molecule slots of A_list[r] site offsets, plus
+    A_act pad rows and one pad COM."""
+    Mres = sum(res_cap_list)
+    Sres = sum(res_cap_list[r] * A_list[r] for r in range(R)) + A_act
+    com = np.zeros((Mres + 1, 3))
+    off = np.zeros((Sres, 3))
+    n = np.zeros(R + 1, dtype=np.int32)
+    site_base = np.zeros(R, dtype=np.int32)
+    mol_base = np.zeros(R, dtype=np.int32)
+    s = 0
+    m = 0
+    for r in range(R):
+        site_base[r] = s
+        mol_base[r] = m
+        A = A_list[r]
+        for mi in range(res_cap_list[r]):
+            if reservoir is not None and mi < reservoir.n_mol[r]:
+                com[m] = reservoir.mol_com[r][mi]
+                off[s:s + A] = reservoir.site_offset[r][mi]
+            m += 1
+            s += A
+        if reservoir is not None:
+            n[r] = reservoir.n_mol[r]
+    return com, off, n, site_base, mol_base

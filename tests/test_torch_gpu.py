@@ -19,7 +19,7 @@ from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                         run_steps_u)
 from maniac_tpu_torch.mc.moves import _propose
 from maniac_tpu_torch.systems import (make_mixed_sizes, make_water_box,
-                                      make_zif_like)
+                                      make_water_reservoir, make_zif_like)
 
 pytestmark = pytest.mark.gpu
 
@@ -41,10 +41,10 @@ def _device():
     return torch.device("cuda")
 
 
-def _load(outdir, dev, capacity, dtype=torch.float32):
+def _load(outdir, dev, capacity, dtype=torch.float32, reservoir=None):
     return load_system(f"{outdir}/input.maniac", f"{outdir}/topology.data",
-                       f"{outdir}/parameters.inc", capacity=capacity,
-                       dtype=dtype, device=dev)
+                       f"{outdir}/parameters.inc", reservoir_file=reservoir,
+                       capacity=capacity, dtype=dtype, device=dev)
 
 
 def _gen(dev, seed):
@@ -62,6 +62,9 @@ def _assert_block_parity(spec, states, u):
     assert float((k.pos - p.pos).abs().max()) <= POS_TOL
     assert float((k.com - p.com).abs().max()) <= POS_TOL
     assert float((k.energy - p.energy).abs().max()) <= ENERGY_TOL
+    torch.testing.assert_close(k.res_n, p.res_n, rtol=0, atol=0)
+    assert float((k.res_offset - p.res_offset).abs().max()) <= POS_TOL
+    assert float((k.res_com - p.res_com).abs().max()) <= POS_TOL
     return k
 
 
@@ -108,10 +111,10 @@ def test_resync_kernel_matches_plain(tmp_path):
 
 def test_launch_counts_and_refusals(tmp_path):
     """Each wrapper counts one launch per call on CUDA tensors, and raises
-    (no fallback) for a spec outside its kernel; a water box (no framework
-    split) runs the plain block and the resync kernel."""
+    (no fallback) for a spec outside its kernel; two active species run the
+    per-step path with the step kernel and the resync kernel."""
     dev = _device()
-    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4)
+    _mixed_sizes(str(tmp_path))
     f32 = _load(str(tmp_path), dev, 16)
     states = replicate(f32.spec, f32.state, 2)
     n0 = resync_grouped.launches
@@ -122,11 +125,11 @@ def test_launch_counts_and_refusals(tmp_path):
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
     u = draw_uniforms(f32.spec, 2, 5, _gen(dev, 4))
-    with pytest.raises(ValueError, match="framework split off"):
+    with pytest.raises(ValueError, match="2 active species"):
         run_block_kernel(f32.spec, states, u)
     # the main path on a spec outside the block kernel's gate: the per-step
     # path with the step kernel, the kernel resync, and the report says so
-    assert "per-step path (framework split off)" in dispatch_report(
+    assert "per-step path (2 active species" in dispatch_report(
         f32.spec, dev)
     nb, ns, nr = (run_block_kernel.launches, step_core.launches,
                   resync_grouped.launches)
@@ -144,6 +147,63 @@ def test_launch_counts_and_refusals(tmp_path):
                                                  _gen(dev, 6))[:, 0])
     with pytest.raises(ValueError, match="float32"):
         step_core(f64.spec, st64, pre)
+
+
+def _water(d, **kw):
+    # the tests/test_reservoir.py fixture; its reservoir path is returned
+    make_water_box(d, n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.2, 0.2, 0.6, 0.0), fugacity=2000.0, **kw)
+    return make_water_reservoir(d, n_water=12)
+
+
+@pytest.mark.parametrize("with_reservoir", [False, True],
+                         ids=["no_split", "reservoir"])
+def test_block_kernel_water_forms_match_plain(tmp_path, with_reservoir):
+    """The block kernel's no-split form (a water box, every type active)
+    and its reservoir form against the plain block: the same decisions,
+    reservoir counts and extras; positions and reservoir rows within
+    1e-4 A; box + reservoir + dropped molecules conserved."""
+    dev = _device()
+    res = _water(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16,
+                 reservoir=res if with_reservoir else None)
+    spec = sysm.spec
+    assert not spec.fw_split and spec.has_reservoir == with_reservoir
+    assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
+    states = replicate(spec, sysm.state, 8)
+    u = draw_uniforms(spec, 8, 60, _gen(dev, 11))
+    n0 = run_block_kernel.launches
+    k = _assert_block_parity(spec, states, u)
+    assert run_block_kernel.launches == n0 + 1
+    acc = k.counters[:, 1].sum(0)
+    assert int(acc[0]) > 0 and int(acc[1]) > 0    # insertions and deletions
+    if with_reservoir:
+        total = (k.n_mol[:, 0] + k.res_n[:, 0] + k.extras[:, 1])
+        assert torch.equal(total, states.n_mol[:, 0] + states.res_n[:, 0])
+        assert not torch.equal(k.res_n, states.res_n)
+
+
+def test_step_kernel_reservoir_matches_plain(tmp_path):
+    """The per-step kernel on the reservoir fixture: 40-step chains of the
+    dispatched step against the plain core on the same uniforms."""
+    dev = _device()
+    res = _water(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16, reservoir=res)
+    spec = sysm.spec
+    assert "step: CUDA per-step kernel" in dispatch_report(spec, dev)
+    states = replicate(spec, sysm.state, 8)
+    u = draw_uniforms(spec, 8, 40, _gen(dev, 12))
+    n0 = step_core.launches
+    kc = run_steps_u(spec, states, u)
+    assert step_core.launches == n0 + 40
+    pc = block_plain(spec, states, u)
+    for name in ("n_mol", "res_n", "counters", "extras"):
+        torch.testing.assert_close(getattr(kc, name), getattr(pc, name),
+                                   rtol=0, atol=0, msg=name)
+    for name in ("pos", "res_offset", "res_com"):
+        assert float((getattr(kc, name) - getattr(pc, name)).abs().max()) \
+            <= POS_TOL, name
+    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
 
 
 def _zif_small(d):

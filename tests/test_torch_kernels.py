@@ -169,7 +169,8 @@ def test_recalibrate_matches_jax(zif32):
 
 def test_dispatch_gate(zif32, tmp_path):
     """Kernels only for CUDA devices and specs inside the gate; the CPU
-    always takes the plain path, and the report says which and why."""
+    always takes the plain path, and the report says which and why. A water
+    box (no framework split, every type active) is inside the block gate."""
     _, spec32, _ = zif32
     spec64 = to_device(spec32, "cpu", torch.float64)
     assert not use_block_kernel(spec32, "cpu")
@@ -184,5 +185,6 @@ def test_dispatch_gate(zif32, tmp_path):
     water = tmp_path / "water"
     make_water_box(str(water), n_water=8, L=14.0, cutoff=5.0, tol=1e-4)
     _, spec_w, _ = load_both(str(water), capacity=16, f32=True)
-    assert not spec_w.fw_split and not use_block_kernel(spec_w, "cuda")
-    assert "framework split off" in dispatch_report(spec_w, "cuda")
+    assert not spec_w.fw_split and use_block_kernel(spec_w, "cuda")
+    assert "CUDA whole-block kernel" in dispatch_report(spec_w, "cuda")
+    assert not use_block_kernel(spec_w, "cpu")

@@ -60,7 +60,8 @@ def test_load_system_matches_jax(tmp_path, make):
     initial energies and amplitudes) within 1e-12."""
     make(str(tmp_path))
     _, spec_j, state_j = load_both(str(tmp_path), capacity=16)
-    sysm = maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16)
+    sysm = maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16,
+                                        device="cpu")
     for obj_p, obj_j in ((sysm.spec, spec_j), (sysm.state, state_j)):
         for (name, a), (_, b) in zip(tensor_fields(obj_p),
                                      tensor_fields(obj_j)):
@@ -82,7 +83,8 @@ def test_load_system_matches_jax(tmp_path, make):
 
 def test_to_device_casts_floats_only(tmp_path):
     _water(str(tmp_path))
-    sysm = maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16)
+    sysm = maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16,
+                                        device="cpu")
     spec32 = to_device(sysm.spec, "cpu", torch.float32)
     assert spec32.dtype == torch.float32
     for name, t in tensor_fields(spec32):
@@ -94,3 +96,16 @@ def test_to_device_casts_floats_only(tmp_path):
     st32 = to_device(sysm.state, "cpu", torch.float32)
     assert st32.pos.shape == (1, 3, sysm.spec.S)
     assert st32.n_mol.dtype == torch.int32
+
+
+def test_load_system_defaults_to_cuda(tmp_path):
+    """load_system runs on the card unless the caller asks for the CPU: with
+    no device given and no card it raises, and never runs on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _water(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        maniac_tpu_torch.load_system(*files(str(tmp_path)), capacity=16,
+                                     device="cuda:0")

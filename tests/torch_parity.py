@@ -37,12 +37,13 @@ def jax_leaves(obj) -> dict:
     return out
 
 
-def load_both(outdir, *, capacity=None, f32=False):
-    """(JAX LoadedSystem, port (spec, state) carried over from it)."""
+def load_both(outdir, *, capacity=None, f32=False, reservoir=None):
+    """(JAX LoadedSystem, port (spec, state) carried over from it);
+    ``reservoir`` is the path of a reservoir data file."""
     jdt, tdt = (jnp.float32, torch.float32) if f32 else (jnp.float64,
                                                         torch.float64)
-    sysm = maniac_tpu.load_system(*files(outdir), capacity=capacity,
-                                  dtype=jdt)
+    sysm = maniac_tpu.load_system(*files(outdir), reservoir_file=reservoir,
+                                  capacity=capacity, dtype=jdt)
     spec, state = from_numpy(jax_leaves(sysm.spec), jax_leaves(sysm.state),
                              device="cpu", dtype=tdt)
     return sysm, spec, state
