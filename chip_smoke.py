@@ -60,20 +60,37 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      nonzero, then both kernels held and timed at B=1024; (h) the command
      line's single chain with -r (2 blocks of 400 steps): exit 0, the
      banner, reservoir.lammpstrj with 3 frames, 800 step-kernel launches.
+  8. bench.py's `mixed` (make_framework_mixed(n_cells=6, a=5.66,
+     n_water=24, n_dimer=12, cutoff=8.5, tol=1e-5, probs=(0.25, 0.15, 0.4,
+     0.2)), capacity 192, f32: a framework with the split and two active
+     species with swaps): (a) the dispatch must name the whole-block
+     kernel; (b) the block kernel's two-species form against the plain
+     block, B=64 x 50 steps, phase 2's bounds, swaps tried; (c) the main
+     path as phase 3 (B=1024, one warm-up and three timed blocks of 400
+     steps with the resync); (d) both kernels held and timed at B=1024;
+  9. bench.py's `tricl` (make_triclinic_water(n_water=24, L=22, tilt=(2.0,
+     1.2, 0.8), cutoff=7, tol=1e-5, probs=(0.3, 0.2, 0.5, 0),
+     fugacity=4000), capacity 192, f32: a triclinic box, no framework):
+     (a)-(d) as phase 8 for the block kernel's triclinic form; (e) the step
+     kernel against the plain core at B=64 (one step, then 50 steps) and at
+     B=1 with no divergence allowed, timed at B=1; (f) the command line's
+     single chain on a tricl deck (2 blocks of 400 steps): exit 0, the
+     banner, 3 rows of energy.dat, 800 step-kernel launches.
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
-kernels, phase 5 for the step kernel, phase 7g and 7h on resv), the
-largest error against the plain version, the times of kernel and plain
-version, and the bound: the least time the card could take for the same
-work, the larger of the bytes the call must move (each input read once,
-each output written once) over 3.35 TB/s and its f32 operations, counted
-from this run's inputs (_step_ops, _resync_ops), over 67 TFLOP/s (one
-H100 SXM at 700 W; TF32 is off by design). No single PyTorch call computes
-any of these functions, so library_ms is null. Then the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Any
-failure raises: the exit code is then non-zero and no result line is
-printed. It needs no network and only the files of this repository.
+kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
+and 9c, 9f on mixed and tricl), the largest error against the plain
+version, the times of kernel and plain version, and the bound: the least
+time the card could take for the same work, the larger of the bytes the
+call must move (each input read once, each output written once) over
+3.35 TB/s and its f32 operations, counted from this run's inputs
+(_step_ops, _resync_bound), over 67 TFLOP/s (one H100 SXM at 700 W; TF32
+is off by design). No single PyTorch call computes any of these
+functions, so library_ms is null. Then the card's name and power limit,
+and as its last line {"ok": true, "device": {...}}. Any failure raises:
+the exit code is then non-zero and no result line is printed. It needs no
+network and only the files of this repository.
 """
 
 from __future__ import annotations
@@ -104,6 +121,11 @@ SEED = 1234
 RESV_BOX = dict(n_water=48, L=24.0, cutoff=8.0, tol=1e-5,
                 probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0)
 RESV_RESERVOIR = dict(n_water=96, L=24.0)
+# phases 8-9: bench.py's mixed and tricl systems
+MIXED_SYSTEM = dict(n_cells=6, a=5.66, n_water=24, n_dimer=12, cutoff=8.5,
+                    tol=1e-5, probs=(0.25, 0.15, 0.4, 0.2))
+TRICL_BOX = dict(n_water=24, L=22.0, tilt=(2.0, 1.2, 0.8), cutoff=7.0,
+                 tol=1e-5, probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0)
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -115,10 +137,16 @@ HBM_BYTES_PER_S = 3.35e12
 # three per-axis phase powers, weighted and accumulated (two complex
 # products, a real scale, a complex add); one mode's energy term
 # w (2 A.d + |d|^2), or the far-field c2 . d of both sides; one site pair's
-# minimum-image distance, LJ and erfc(alpha r)/r
+# LJ and erfc(alpha r)/r with its minimum-image distance, of which the
+# orthorhombic image (a division, a rint and a multiply-add per axis) is
+# OPS_MIN_IMAGE; a triclinic box instead tries 27 image shifts at
+# OPS_IMAGE each (three adds, a product and two multiply-adds, a min)
 OPS_ATOM_MODE = 16
 OPS_MODE = 8
 OPS_PAIR = 30
+OPS_MIN_IMAGE = 9
+OPS_IMAGE = 7
+N_IMAGES = 27
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -174,29 +202,46 @@ def _type_rows(spec, n_mol, charged):
     return out
 
 
-def _step_ops(spec, atoms_q, atoms, sites) -> float:
-    """Operations of MC steps: per step and replica, the footprint's
-    charged atoms at every k-space and far-field mode, each mode's energy
-    term, and every footprint atom against the live sites (frozen prefix
-    included); atoms_q, atoms (B, n) and sites (B, 1)."""
+def _step_ops(spec, atoms_q, atoms, sites, rows) -> float:
+    """Operations of MC steps: the footprint's charged atoms at every
+    k-space and far-field mode, each mode's energy term once per proposal
+    that needs energies (rows of them), and every footprint atom against
+    the live sites (frozen prefix included) with the box's minimum image;
+    atoms_q, atoms and sites (B, 1) per replica."""
     k, k2 = _modes(spec)
+    pair = OPS_PAIR + (N_IMAGES * OPS_IMAGE - OPS_MIN_IMAGE
+                       if spec.is_triclinic else 0)
     return float(OPS_ATOM_MODE * (k + k2) * atoms_q.sum()
-                 + OPS_PAIR * (atoms * (sites + spec.S_frozen)).sum()
-                 + OPS_MODE * (k + k2) * atoms.numel())
+                 + pair * (atoms * (sites + spec.S_frozen)).sum()
+                 + OPS_MODE * (k + k2) * rows)
 
 
 def _block_bound(spec, states, out, u):
-    """Bound of one whole-block call: the move class of every uniform row
-    sets its footprint (both sides for a translation or rotation, one for
-    an insertion or deletion); live sites are the mean of the block's first
-    and last populations."""
-    t = [r for r in range(spec.R) if spec.active_list[r]][0]
-    A = spec.A_list[t]
-    nq = int((spec.type_q_rows[t, :A] != 0).sum())
-    p = spec.p_cum.cpu().tolist()
-    u0 = u[..., 0]
-    sides = torch.where(u0 <= p[1], 2.0, torch.where(u0 <= p[2], 1.0, 0.0))
-    sides = sides.double()
+    """Bound of one whole-block call. Only valid trials need energies: each
+    move class's valid trials (the counters' growth over the call) set the
+    footprint, both sides of a translation or rotation, one side of an
+    insertion or deletion, the old and the new type's molecule of a swap.
+    The counters do not split trials by type, so each side takes the
+    smallest active type's atoms (a swap the two smallest types'), and the
+    bound stays a lower one; trials blocked by the capacity need no
+    energies either and come off the swaps first, then the insertions.
+    Live sites are the mean of the block's first and last populations."""
+    from maniac_tpu_torch.constants import (TYPE_CREATION, TYPE_DELETION,
+                                            TYPE_ROTATION, TYPE_SWAP,
+                                            TYPE_TRANSLATION)
+    ids = spec.active_type_ids.long()
+    n = (out.counters[:, 0] - states.counters[:, 0]).double()
+    blocked = (out.extras[:, 0] - states.extras[:, 0]).double()
+    swaps = torch.clamp(n[:, TYPE_SWAP] - blocked, min=0)
+    creates = n[:, TYPE_CREATION] - torch.clamp(
+        blocked - n[:, TYPE_SWAP], min=0)
+    one_side = 2 * (n[:, TYPE_TRANSLATION] + n[:, TYPE_ROTATION]) \
+        + creates + n[:, TYPE_DELETION]
+
+    def atoms(per_type):
+        least = per_type[ids].double().sort().values
+        second = least[1] if len(least) > 1 else least[0]
+        return (one_side * least[0] + swaps * (least[0] + second))[:, None]
     sites = 0.5 * (_type_rows(spec, states.n_mol, False)
                    + _type_rows(spec, out.n_mol, False))[:, None]
     keys = ["pos", "com", "amp_re", "amp_im", "n_mol", "energy", "counters",
@@ -210,7 +255,10 @@ def _block_bound(spec, states, out, u):
     nbytes = _nbytes(u, states.trans_step, states.rot_step, *tables,
                      *[getattr(states, k) for k in keys],
                      *[getattr(out, k) for k in keys])
-    return _bound(nbytes, _step_ops(spec, sides * nq, sides * A, sites))
+    ops = _step_ops(spec, atoms((spec.type_q_rows != 0).sum(1)),
+                    atoms(spec.type_A), sites,
+                    float(n.sum() - blocked.sum()))
+    return _bound(nbytes, ops)
 
 
 def _main_block(spec, states, gen):
@@ -222,6 +270,101 @@ def _main_block(spec, states, gen):
     out = run_block_kernel(spec, states, u)
     ms = _cuda_ms(lambda: run_block_kernel(spec, states, u), 2)
     return ms, _block_bound(spec, states, out, u)
+
+
+def _main_path(tag, spec, state, gen, label):
+    """The main path on one system: replicate(B=1024) ->
+    run_block_replicated(400 steps, resync=True), one warm-up and
+    MAIN_BLOCKS timed blocks, with the launch counts set to 0 just before;
+    both kernels must have launched, the state must be finite, every
+    population within [0, capacity], box + reservoir + drops conserved (with
+    a reservoir), and replica 0's amplitudes and E_RECIP must match a fresh
+    synthesis (phase 1's bounds); one block kernel call of 400 steps is
+    timed beside its bound. Then both kernels are held against their plain
+    versions at the main path's batch (10 block steps, at most B/64
+    replicas diverged; the resync of the result) and timed. Returns (the
+    states, the numbers of the kernels line)."""
+    from maniac_tpu_torch import replicate, run_block_replicated
+    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.physics.energy import (active_site_mask,
+                                                 full_amplitudes,
+                                                 recip_energy,
+                                                 site_positions)
+    from maniac_tpu_torch.system import E_RECIP
+    Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
+    states = replicate(spec, state, Bm)
+    total0 = _conserved(states)
+    run_block_kernel.launches = 0
+    resync_grouped.launches = 0
+    states = run_block_replicated(spec, states, n_steps, False, True, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MAIN_BLOCKS):
+        states = run_block_replicated(spec, states, n_steps, False, True,
+                                      gen)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"blockg": run_block_kernel.launches,
+                "resync": resync_grouped.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"{tag}: a kernel never launched: {launches}")
+    for k, v in vars(states).items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{tag}: non-finite values in {k}")
+    n = states.n_mol[:, :spec.R]
+    caps = torch.tensor(spec.cap_list, device=n.device)
+    if int(n.min()) < 0 or bool((n > caps).any()):
+        raise AssertionError(f"{tag}: population outside [0, capacity]")
+    if spec.has_reservoir and not torch.equal(_conserved(states), total0):
+        raise AssertionError(f"{tag}: box + reservoir + drops not conserved")
+    ref_re, ref_im = full_amplitudes(
+        spec, site_positions(spec, states)[:1],
+        active_site_mask(spec, states.n_mol[:1]))
+    _amp_check(f"{tag}: replica 0 vs fresh synthesis", states.amp_re[:1],
+               states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
+               recip_energy(spec, ref_re, ref_im))
+    rate = Bm * n_steps * MAIN_BLOCKS / elapsed
+    ms_main, bound_main = _main_block(spec, states, gen)
+    ms_main_resync = _cuda_ms(lambda: resync_grouped(spec, states), 10)
+    mean_n = {r: round(float(n[:, r].float().mean()), 2)
+              for r in range(spec.R) if spec.active_list[r]}
+    extra = (f", mean reservoir "
+             f"{float(states.res_n[:, :spec.R].sum(1).float().mean()):.2f}"
+             if spec.has_reservoir else "")
+    print(f"{tag}: B={Bm} x {n_steps} steps x {MAIN_BLOCKS} blocks in "
+          f"{elapsed:.3f} s: {rate:.0f} MC steps/s ({label}); mean N by "
+          f"type {mean_n}{extra}; launches {launches}; one block "
+          f"kernel call ({n_steps} steps) {ms_main:.3f} ms, bound "
+          f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
+          f"{ms_main_resync:.3f} ms")
+    # both kernels against their plain versions at the main path's batch
+    u = draw_uniforms(spec, Bm, 10, gen)
+    k_blk = run_block_kernel(spec, states, u)
+    err_block, _ = _block_check(f"{tag}: block B={Bm} x 10 steps", k_blk,
+                                block_plain(spec, states, u),
+                                max(1, Bm // 64))
+    ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
+    ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
+    bound_block = _block_bound(spec, states, k_blk, u)
+    k_rs = resync_grouped(spec, k_blk)
+    err_resync = _amp_check(f"{tag}: resync B={Bm} kernel vs plain",
+                            *_resync_pair(k_rs, resync_plain(spec, k_blk),
+                                          E_RECIP))
+    ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
+    ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
+    bound_resync = _resync_bound(spec, k_blk, k_rs)
+    print(f"{tag}: B={Bm}: block kernel {ms_block:.3f} ms, plain "
+          f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.4f} ms by "
+          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
+          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
+          f"by {bound_resync[1]} ({label})")
+    return states, dict(
+        launches=launches, err_block=err_block, ms_block=ms_block,
+        ms_block_plain=ms_block_plain, bound_block=bound_block,
+        err_resync=err_resync, ms_resync=ms_resync,
+        ms_resync_plain=ms_resync_plain, bound_resync=bound_resync)
 
 
 def _resync_bound(spec, states, out):
@@ -351,8 +494,10 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
     pre = _propose(spec, states, u1)
     out = step_core(spec, states, pre)
     q2 = torch.stack([pre["q_old"], pre["q_new"]], dim=1)
-    atoms = pre["m2"].sum((1, 2)).double()[:, None]
-    atoms_q = (pre["m2"] & (q2 != 0)).sum((1, 2)).double()[:, None]
+    # only the proposals through the gate need energies
+    m2 = pre["m2"] & pre["gate"][:, None, None]
+    atoms = m2.sum((1, 2)).double()[:, None]
+    atoms_q = (m2 & (q2 != 0)).sum((1, 2)).double()[:, None]
     sites = _type_rows(spec, states.n_mol, False)[:, None]
     nbytes = _nbytes(states.pos, states.amp_re, states.amp_im, states.n_mol,
                      pre["P_old"], pre["P_new"], q2, pre["m2"],
@@ -360,7 +505,8 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
                      out["amp_im"], spec.site_q, spec.site_type,
                      spec.site_midx, spec.site_mol, spec.eps_site,
                      spec.sig2_site, spec.k_weights)
-    bound = _bound(nbytes, _step_ops(spec, atoms_q, atoms, sites))
+    bound = _bound(nbytes, _step_ops(spec, atoms_q, atoms, sites,
+                                     float(pre["gate"].sum())))
     ms = _cuda_ms(lambda: step_core(spec, states, pre), 20)
     ms_plain = _cuda_ms(lambda: step_core_plain(spec, states, pre), 5)
     ms_full = _cuda_ms(lambda: mc_step_u(spec, states, u1), 20)
@@ -396,16 +542,12 @@ def _rows(path):
 def _resv_phase(dev, gen, label):
     """Phase 7: reservoir GCMC on bench.py's resv. Returns the kernels
     line's rows of the block, resync and step kernels on this system."""
-    from maniac_tpu_torch import replicate, run_block_replicated
+    from maniac_tpu_torch import replicate
     from maniac_tpu_torch.kernels import dispatch_report
     from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
     from maniac_tpu_torch.kernels.stepg import step_core
     from maniac_tpu_torch.mc.driver import draw_uniforms
-    from maniac_tpu_torch.physics.energy import (active_site_mask,
-                                                 full_amplitudes,
-                                                 recip_energy,
-                                                 site_positions)
     from maniac_tpu_torch.system import E_RECIP
     from maniac_tpu_torch.systems import make_water_box, make_water_reservoir
 
@@ -464,71 +606,8 @@ def _resv_phase(dev, gen, label):
         f"phase 7f: no-split block (no reservoir) B={B} x {n_check} steps",
         run_block_kernel(wb.spec, stw, uw), block_plain(wb.spec, stw, uw), 1)
 
-    # g. the main path
-    Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
-    states = replicate(spec, rv.state, Bm)
-    total0 = _conserved(states)
-    run_block_kernel.launches = 0
-    resync_grouped.launches = 0
-    states = run_block_replicated(spec, states, n_steps, False, True, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(MAIN_BLOCKS):
-        states = run_block_replicated(spec, states, n_steps, False, True,
-                                      gen)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {"blockg": run_block_kernel.launches,
-                "resync": resync_grouped.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"phase 7g: a kernel never launched: "
-                             f"{launches}")
-    for k, v in vars(states).items():
-        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"phase 7g: non-finite values in {k}")
-    n = states.n_mol[:, 0]
-    if (int(n.min()) < 0 or int(n.max()) > spec.cap_list[0]
-            or not torch.equal(_conserved(states), total0)):
-        raise AssertionError("phase 7g: populations outside [0, capacity] "
-                             "or box + reservoir + drops not conserved")
-    ref_re, ref_im = full_amplitudes(
-        spec, site_positions(spec, states)[:1],
-        active_site_mask(spec, states.n_mol[:1]))
-    _amp_check("phase 7g: replica 0 vs fresh synthesis", states.amp_re[:1],
-               states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
-               recip_energy(spec, ref_re, ref_im))
-    rate = Bm * n_steps * MAIN_BLOCKS / elapsed
-    ms_main_block, bound_main = _main_block(spec, states, gen)
-    ms_main_resync = _cuda_ms(lambda: resync_grouped(spec, states), 10)
-    print(f"phase 7g: resv B={Bm} x {n_steps} steps x {MAIN_BLOCKS} blocks "
-          f"in {elapsed:.3f} s: {rate:.0f} MC steps/s ({label}); block "
-          f"kernel ({n_steps} steps) {ms_main_block:.3f} ms, bound "
-          f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
-          f"{ms_main_resync:.3f} ms; mean N {float(n.float().mean()):.2f}, "
-          f"mean reservoir {float(states.res_n[:, 0].float().mean()):.2f}; "
-          f"launches {launches}")
-    # both kernels against their plain versions at the main path's batch
-    u = draw_uniforms(spec, Bm, 10, gen)
-    k_blk = run_block_kernel(spec, states, u)
-    err, _ = _block_check(f"phase 7g: reservoir block B={Bm} x 10 steps",
-                          k_blk, block_plain(spec, states, u),
-                          max(1, Bm // 64))
-    err_block = max(err_block, err, err_nosplit)
-    ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
-    ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
-    bound_block = _block_bound(spec, states, k_blk, u)
-    k_rs = resync_grouped(spec, k_blk)
-    err_resync = max(err_resync, _amp_check(
-        f"phase 7g: resync B={Bm} kernel vs plain",
-        *_resync_pair(k_rs, resync_plain(spec, k_blk), E_RECIP)))
-    ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
-    ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
-    bound_resync = _resync_bound(spec, k_blk, k_rs)
-    print(f"phase 7g: B={Bm}: block kernel {ms_block:.3f} ms, plain "
-          f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.4f} ms by "
-          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
-          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
-          f"by {bound_resync[1]} ({label})")
+    # g. the main path, then both kernels held and timed at its batch
+    _, main = _main_path("phase 7g: resv", spec, rv.state, gen, label)
 
     # h. the command line's single chain with -r
     with tempfile.TemporaryDirectory() as tmp:
@@ -558,34 +637,124 @@ def _resv_phase(dev, gen, label):
                                  "its checks")
 
     return [
-        _row("resync_grouped/resv", RESYNC_SRC,
-            "maniac_tpu/kernels/resync.py:178", launches["resync"],
-            err_resync, ms_resync, ms_resync_plain, bound_resync),
-        _row("run_block_kernel/resv", BLOCKG_SRC,
-            "maniac_tpu/kernels/blockg.py:128", launches["blockg"],
-            err_block, ms_block, ms_block_plain, bound_block),
+        *_main_rows("resv", main, max(err_block, err_nosplit), err_resync),
         _row("step_core/resv", STEPG_SRC, "maniac_tpu/kernels/stepg.py:65",
             chain_launches, err_step, ms_step, ms_step_plain, bound_step),
     ]
+
+
+def _main_rows(system, main, err_block, err_resync):
+    """The kernels line's rows of the block and resync kernels from a
+    _main_path result (errors: the largest of its own and those given);
+    the flagship's rows (system None) keep the kernels' bare names."""
+    tag = f"/{system}" if system else ""
+    return [
+        _row(f"resync_grouped{tag}", RESYNC_SRC,
+            "maniac_tpu/kernels/resync.py:178", main["launches"]["resync"],
+            max(err_resync, main["err_resync"]), main["ms_resync"],
+            main["ms_resync_plain"], main["bound_resync"]),
+        _row(f"run_block_kernel{tag}", BLOCKG_SRC,
+            "maniac_tpu/kernels/blockg.py:128", main["launches"]["blockg"],
+            max(err_block, main["err_block"]), main["ms_block"],
+            main["ms_block_plain"], main["bound_block"]),
+    ]
+
+
+def _form_phase(tag, system, make, kw, dev, gen, label):
+    """Phases 8 and 9 (a)-(d) on one of bench.py's systems: the dispatch
+    names the whole-block kernel; the block kernel's form for it against
+    the plain block at B=64 x 50 steps (phase 2's bounds; with two active
+    species swaps must have been tried); the main path and both kernels
+    held and timed at its batch (_main_path). Returns (the loaded system,
+    its kernels line rows)."""
+    from maniac_tpu_torch import replicate
+    from maniac_tpu_torch.kernels import dispatch_report
+    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.mc.driver import draw_uniforms
+
+    t0 = time.perf_counter()
+    sysm = _load(make, dev, **kw)
+    spec = sysm.spec
+    report = dispatch_report(spec, dev)
+    print(f"{tag}a: {system} S={spec.S} S_frozen={spec.S_frozen} "
+          f"K={spec.K} kmax={spec.kmax_xyz} active species {spec.n_active} "
+          f"triclinic={spec.is_triclinic} fw_split={spec.fw_split} N="
+          f"{sysm.state.n_mol[0, :spec.R].tolist()}; load "
+          f"{time.perf_counter() - t0:.1f} s; {report}")
+    if "block: CUDA whole-block kernel" not in report:
+        raise AssertionError(f"{tag}a: {system} is not dispatched to the "
+                             f"whole-block kernel")
+
+    B, n_check = CHECK_REPLICAS, CHECK_STEPS
+    st = replicate(spec, sysm.state, B)
+    u = draw_uniforms(spec, B, n_check, gen)
+    k_blk = run_block_kernel(spec, st, u)
+    err_block, _ = _block_check(f"{tag}b: {system} block B={B} x {n_check} "
+                                f"steps", k_blk, block_plain(spec, st, u), 1)
+    swaps = k_blk.counters[:, :, 4].sum(0).tolist()
+    print(f"{tag}b: swap trials {swaps[0]}, accepted {swaps[1]}")
+    if spec.n_active > 1 and swaps[0] < 1:
+        raise AssertionError(f"{tag}b: no swap was tried")
+
+    _, main = _main_path(f"{tag}c-d: {system}", spec, sysm.state, gen, label)
+    return sysm, _main_rows(system, main, err_block, 0.0)
+
+
+def _tricl_step_phase(sysm, dev, gen, label):
+    """Phase 9 (e)-(f): the step kernel on tricl against the plain core at
+    B=64 and, timed, at B=1 with no divergence allowed; the command line's
+    single chain on a tricl deck. Returns its kernels line row."""
+    from maniac_tpu_torch import replicate
+    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.systems import make_triclinic_water
+
+    spec = sysm.spec
+    err, _, _, _ = _step_phase("phase 9e: tricl", spec,
+                               replicate(spec, sysm.state, CHECK_REPLICAS),
+                               gen, 1, CHECK_STEPS, label)
+    err1, ms, ms_plain, bound = _step_phase(
+        "phase 9e: tricl", spec, replicate(spec, sysm.state, 1), gen, 0,
+        CHECK_STEPS, label)
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = f"{tmp}/tricl"
+        make_triclinic_water(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
+                             **TRICL_BOX)
+        step_core.launches = 0
+        rc, sec, log = _cli(
+            ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
+             "-p", f"{deck}/parameters.inc", "--capacity", str(CAPACITY)],
+            f"{tmp}/out")
+        launches = step_core.launches
+        n_chain = CHAIN_BLOCKS * MAIN_STEPS
+        energy_rows = _rows(f"{tmp}/out/energy.dat")
+    print(f"phase 9f: tricl single chain exit {rc}, {n_chain} steps in "
+          f"{sec:.2f} s (load included): {n_chain / sec:.0f} MC steps/s "
+          f"({label}); step kernel launches {launches}")
+    for line in log.splitlines():
+        if "kernel dispatch" in line:
+            print(f"phase 9f: log: {line.strip()}")
+    if (rc != 0 or "Simulation Completed" not in log
+            or len(energy_rows) != CHAIN_BLOCKS + 1 or launches != n_chain):
+        raise AssertionError("phase 9f: the tricl single chain failed its "
+                             "checks")
+    return _row("step_core/tricl", STEPG_SRC,
+                "maniac_tpu/kernels/stepg.py:65", launches, max(err, err1),
+                ms, ms_plain, bound)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from maniac_tpu_torch import (load_system, replicate,
-                                  run_block_replicated)
+    from maniac_tpu_torch import load_system, replicate
     from maniac_tpu_torch.kernels import build, dispatch_report
     from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
     from maniac_tpu_torch.kernels.stepg import step_core
     from maniac_tpu_torch.mc.driver import draw_uniforms, resync_amplitudes
-    from maniac_tpu_torch.physics.energy import (active_site_mask,
-                                                 full_amplitudes,
-                                                 recip_energy,
-                                                 site_positions)
     from maniac_tpu_torch.system import E_RECIP
     from maniac_tpu_torch.systems import (make_framework_mixed,
+                                          make_triclinic_water,
                                           make_water_box, make_zif_like)
 
     # ---- phase 0: device and build ---------------------------------------
@@ -603,7 +772,8 @@ def main() -> int:
     print(f"phase 0: kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.build_seconds:.1f} s)")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers",
+                                   "spill")):
             print(f"phase 0: ptxas: {line.strip()}")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -634,8 +804,8 @@ def main() -> int:
           f"[{int(n.min())}, {int(n.max())}]")
     k_out = resync_grouped(spec, states)
     p_out = resync_plain(spec, states)
-    _amp_check("phase 1: resync kernel vs plain",
-               *_resync_pair(k_out, p_out, E_RECIP))
+    err_rs1 = _amp_check("phase 1: resync kernel vs plain",
+                         *_resync_pair(k_out, p_out, E_RECIP))
     ms_rs = _cuda_ms(lambda: resync_grouped(spec, states), 10)
     ms_rs_plain = _cuda_ms(lambda: resync_plain(spec, states), 3)
     print(f"phase 1: resync B={B}: kernel {ms_rs:.3f} ms, plain "
@@ -646,70 +816,16 @@ def main() -> int:
     u = draw_uniforms(spec, B, n_check, gen)
     k_blk = run_block_kernel(spec, st0, u)
     p_blk = block_plain(spec, st0, u)
-    _block_check(f"phase 2: block B={B} x {n_check} steps", k_blk, p_blk,
-                 1)
+    err_blk2, _ = _block_check(f"phase 2: block B={B} x {n_check} steps",
+                               k_blk, p_blk, 1)
     ms_blk = _cuda_ms(lambda: run_block_kernel(spec, st0, u), 3)
     ms_blk_plain = _cuda_ms(lambda: block_plain(spec, st0, u), 1)
     print(f"phase 2: block kernel {ms_blk:.3f} ms, plain "
           f"{ms_blk_plain:.3f} ms ({name}, {smi})")
 
     # ---- phase 3: the main path ------------------------------------------
-    Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
-    states = replicate(spec, sysm.state, Bm)
-    run_block_kernel.launches = 0
-    resync_grouped.launches = 0
-    states = run_block_replicated(spec, states, n_steps, False, True, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(MAIN_BLOCKS):
-        states = run_block_replicated(spec, states, n_steps, False, True,
-                                      gen)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {"blockg": run_block_kernel.launches,
-                "resync": resync_grouped.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"phase 3: a kernel never launched: {launches}")
-    for k, v in vars(states).items():
-        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"phase 3: non-finite values in {k}")
-    n = states.n_mol[:, 1]
-    if int(n.min()) < 0 or int(n.max()) > spec.cap_list[1]:
-        raise AssertionError("phase 3: population outside [0, capacity]")
-    pos = site_positions(spec, states)[:1]
-    ref_re, ref_im = full_amplitudes(
-        spec, pos, active_site_mask(spec, states.n_mol[:1]))
-    _amp_check("phase 3: replica 0 vs fresh synthesis", states.amp_re[:1],
-               states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
-               recip_energy(spec, ref_re, ref_im))
-    rate = Bm * n_steps * MAIN_BLOCKS / elapsed
-    ms_main, bound_main = _main_block(spec, states, gen)
-    print(f"phase 3: B={Bm} x {n_steps} steps x {MAIN_BLOCKS} blocks in "
-          f"{elapsed:.3f} s: {rate:.0f} MC steps/s ({name}, {smi}); "
-          f"mean N {float(n.float().mean()):.2f}; launches {launches}; "
-          f"one block kernel call {ms_main:.3f} ms, bound "
-          f"{bound_main[0]:.3f} ms by {bound_main[1]}")
-    # both kernels against their plain versions at the main path's batch
-    u = draw_uniforms(spec, Bm, 10, gen)
-    k_blk = run_block_kernel(spec, states, u)
-    p_blk = block_plain(spec, states, u)
-    err_block, _ = _block_check(f"phase 3: block B={Bm} x 10 steps", k_blk,
-                                p_blk, max(1, Bm // 64))
-    ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
-    ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
-    bound_block = _block_bound(spec, states, k_blk, u)
-    k_rs = resync_grouped(spec, k_blk)
-    p_rs = resync_plain(spec, k_blk)
-    err_resync = _amp_check(f"phase 3: resync B={Bm} kernel vs plain",
-                            *_resync_pair(k_rs, p_rs, E_RECIP))
-    ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
-    ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
-    bound_resync = _resync_bound(spec, k_blk, k_rs)
-    print(f"phase 3: B={Bm}: block kernel {ms_block:.3f} ms, plain "
-          f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.3f} ms by "
-          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
-          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
-          f"by {bound_resync[1]} ({name}, {smi})")
+    states, main = _main_path("phase 3: flagship", spec, sysm.state, gen,
+                              f"{name}, {smi}")
 
     # ---- phase 4: step kernel vs plain core --------------------------------
     label = f"{name}, {smi}"
@@ -736,7 +852,8 @@ def main() -> int:
                                n_check, label)
     err_step = max(err_step, err)
     err, ms_step, ms_step_plain, bound_step = _step_phase(
-        "phase 4: flagship", spec, states, gen, max(1, Bm // 64), 0, label)
+        "phase 4: flagship", spec, states, gen,
+        max(1, MAIN_REPLICAS // 64), 0, label)
     err_step = max(err_step, err)
 
     # ---- phase 4b: the resync kernel at B = 1 (a single chain) -------------
@@ -820,17 +937,19 @@ def main() -> int:
 
     resv = _resv_phase(dev, gen, label)
 
+    # ---- phases 8-9: bench.py's mixed and tricl ---------------------------
+    _, mixed = _form_phase("phase 8", "mixed", make_framework_mixed,
+                           MIXED_SYSTEM, dev, gen, label)
+    tricl_sys, tricl = _form_phase("phase 9", "tricl", make_triclinic_water,
+                                   TRICL_BOX, dev, gen, label)
+    tricl_step = _tricl_step_phase(tricl_sys, dev, gen, label)
+
     print(json.dumps({"kernels": [
-        _row("resync_grouped", RESYNC_SRC, "maniac_tpu/kernels/resync.py:178",
-            launches["resync"], err_resync, ms_resync, ms_resync_plain,
-            bound_resync),
-        _row("run_block_kernel", BLOCKG_SRC,
-            "maniac_tpu/kernels/blockg.py:128", launches["blockg"],
-            err_block, ms_block, ms_block_plain, bound_block),
-        _row("step_core", STEPG_SRC, "maniac_tpu/kernels/stepg.py:65",
-            iso_launches["stepg"], err_step, ms_step, ms_step_plain,
-            bound_step),
-        *resv,
+        *_main_rows(None, main, err_blk2, err_rs1),
+        _row("step_core", STEPG_SRC,
+            "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
+            err_step, ms_step, ms_step_plain, bound_step),
+        *resv, *mixed, *tricl, tricl_step,
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -124,14 +124,16 @@ def min_image_delta(delta: np.ndarray, box: Box) -> np.ndarray:
     if box.kind in (CUBIC, ORTHORHOMBIC):
         L = np.diag(box.matrix)
         return np.mod(delta + 0.5 * L, L) - 0.5 * L
-    shifts = _image_shifts(box)  # (27, 3)
+    shifts = image_shifts(box)  # (27, 3)
     trial = delta[..., None, :] + shifts  # (..., 27, 3)
     d2 = np.sum(trial * trial, axis=-1)
     idx = np.argmin(d2, axis=-1)
     return np.take_along_axis(trial, idx[..., None, None], axis=-2)[..., 0, :]
 
 
-def _image_shifts(box: Box) -> np.ndarray:
+def image_shifts(box: Box) -> np.ndarray:
+    """The 27 lattice image shifts (27, 3), grid @ H^T over {-1, 0, 1}^3
+    in the JAX package's order (system.py)."""
     rng = np.array([-1, 0, 1], dtype=np.float64)
     grid = np.stack(np.meshgrid(rng, rng, rng, indexing="ij"), axis=-1).reshape(27, 3)
     return grid @ box.matrix.T

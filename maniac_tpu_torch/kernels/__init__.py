@@ -4,14 +4,17 @@ Three kernels serve the MC paths on a CUDA device:
 
 * ``blockg.run_block_kernel`` (csrc/blockg.cu): a whole block of MC steps
   per replica, the counterpart of maniac_tpu/kernels/blockg.py
-  ``_blockg_kernel`` in its one-active-species, orthorhombic forms: with
-  the framework split, or without it when every type is active, each with
-  or without a reservoir, and one activity for every replica;
+  ``_blockg_kernel`` in all its f32 forms: one or more active species
+  (with the swap move), the framework split or every type active, an
+  orthorhombic or a triclinic box (27-image minimum image; the split is
+  orthorhombic only), each with or without a reservoir, and one activity
+  for every replica;
 * ``stepg.step_core`` (csrc/stepg.cu): the energy core of one MC step for
   B replicas given their proposals, the counterpart of
-  maniac_tpu/kernels/stepg.py ``_stepg_kernel``; every f32 block outside
-  the block kernel's gate (several active species, a per-replica activity
-  sweep, a single chain) runs its steps through it;
+  maniac_tpu/kernels/stepg.py ``_stepg_kernel`` (and, on triclinic boxes,
+  of the XLA core the JAX package runs there); every f32 block outside the
+  block kernel's gate (a per-replica activity sweep, a single chain, an
+  inactive type without the framework split) runs its steps through it;
 * ``resync.resync_grouped`` (csrc/resync.cu): the per-block amplitude
   resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
   ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
@@ -35,13 +38,12 @@ import torch
 def block_gate_failure(spec) -> str | None:
     """First static-spec condition the block kernel does not take, or None
     (the counterpart of maniac_tpu.kernels.use_blockg): the step kernel's
-    gate, then one active species, the framework split or every type
-    active, and one activity table. A reservoir is taken."""
+    gate, then the framework split or every type active, and one activity
+    table. Any number of active species, a triclinic box and a reservoir
+    are taken."""
     failure = step_gate_failure(spec)
     if failure is not None:
         return failure
-    if spec.n_active != 1:
-        return f"{spec.n_active} active species (kernel takes 1)"
     if not spec.fw_split and spec.R != spec.n_active:
         return "framework split off with inactive types"
     if spec.type_activity.dim() != 1:
@@ -64,12 +66,11 @@ def _table_limit_failure(spec) -> str | None:
 def step_gate_failure(spec) -> str | None:
     """First static-spec condition the per-step kernel does not take, or
     None. It takes any number of active species, with the framework split
-    on or off, a per-replica activity and a reservoir (the proposal and the
-    reservoir bookkeeping, which read them, stay in torch)."""
+    on or off, an orthorhombic or a triclinic box, a per-replica activity
+    and a reservoir (the proposal and the reservoir bookkeeping, which read
+    them, stay in torch)."""
     if spec.dtype_name != "float32":
         return f"dtype {spec.dtype_name} (the kernels take float32)"
-    if spec.is_triclinic:
-        return "triclinic box"
     if spec.use_table:
         return "tabulated potentials"
     return _table_limit_failure(spec)

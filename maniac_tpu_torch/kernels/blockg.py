@@ -1,9 +1,10 @@
 """Whole-block MC kernel for B replicas: CUDA kernel and plain version.
 
 ``run_block_kernel`` replaces maniac_tpu/kernels/blockg.py::
-run_block_grouped (kernel ``_blockg_kernel``) in its one-active-species,
-orthorhombic forms: framework split, or no split with every type active,
-each with or without a reservoir (kernels.block_gate_failure is the gate).
+run_block_grouped (kernel ``_blockg_kernel``) in all its f32 forms: one or
+more active species (with the swap move), framework split or no split with
+every type active, an orthorhombic or a triclinic box, each with or
+without a reservoir (kernels.block_gate_failure is the gate).
 For a CUDA state it launches csrc/blockg.cu; for a CPU state it runs
 ``block_plain``, a Python loop of mc/moves.py::mc_step_u with the plain
 energy core (and the reservoir moves) over the same uniforms. Step-size
@@ -77,7 +78,8 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
               spec.k2_col_jy]
     res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
                   spec.res_cap, spec.res_H]
-    for t in tables + res_tables:
+    box_tables = [spec.active_type_ids, spec.Hinv, spec.image_shifts]
+    for t in tables + res_tables + box_tables:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("spec tables must be contiguous on the state's "
                              "device")
@@ -88,14 +90,14 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
                              "energy", "counters", "extras")]
     ptrs = [t.data_ptr() for t in ins + outs + tables
             + [getattr(states, k) for k in res_keys]
-            + [res_out[k] for k in res_keys] + res_tables]
+            + [res_out[k] for k in res_keys] + res_tables + box_tables]
     kx, ky, kz = spec.kmax_xyz
     sc = spec.host_scalars
     fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
-    t_act = [r for r in range(spec.R) if spec.active_list[r]][0]
-    ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act, t_act,
-            JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2,
-            int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1]
+    ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
+            spec.n_active, JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2,
+            int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
+            int(spec.is_triclinic)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL]

@@ -1,7 +1,7 @@
 // A whole block of MC steps per replica, state resident across steps.
 //
 // Replaces maniac_tpu/kernels/blockg.py::_blockg_kernel (launcher
-// run_block_grouped) in its one-active-species, orthorhombic forms:
+// run_block_grouped) in all its f32 forms:
 //   * framework split: a frozen framework prefix (LJ + erfc(alpha2 r)/r cut
 //     at rcut2) plus the far-field alpha2 grid, guests take LJ +
 //     erfc(alpha r)/r cut at gg_rcut;
@@ -9,41 +9,55 @@
 //     an empty far-field grid, so the pair pass covers every live site
 //     with LJ + erfc(alpha r)/r (cut at gg_rcut when gg_cut), as
 //     physics/energy.py;
-//   * either of them with a reservoir (-r): an insertion copies a random
-//     reservoir molecule's offsets as they are (no rotation), an accepted
-//     insertion pops it, an accepted deletion pushes the removed molecule
-//     back (or drops it when the reservoir is full, counted in extras[1]).
+//   * one active species, or several (MULTI): the type draws u[11] and
+//     u[12] pick an old and, for the live swap move, a new type; every
+//     per-type quantity (size, capacity, bases, activity, self energy,
+//     population, charges and LJ classes of the footprint, template) is
+//     taken per side; with one species a swap draw is a dead draw;
+//   * an orthorhombic box, or a triclinic one (TRICLINIC): the minimum
+//     image is the brute-force 27-image search and a translated COM wraps
+//     through fractional coordinates (physics/pbc.py); the framework split
+//     is orthorhombic only, so a triclinic box runs the no-split form;
+//   * any of them with a reservoir (-r): an insertion copies a random
+//     reservoir molecule of the new type as it is (no rotation), an
+//     accepted insertion pops it, an accepted removal pushes the removed
+//     molecule back into its type's reservoir (or drops it when that is
+//     full, counted in extras[1]); a swap does both in one step.
 // Each step is exactly maniac_tpu/mc/moves.py::mc_step_u on one row of 21
 // uniforms: proposal (_propose), pair passes, the far-field grid term, the
 // k-space delta, the Metropolis test and the commits with compaction on
-// deletion (_core_xla, _bookkeep, _update_reservoir).
+// removal (_core_xla, _bookkeep, _update_reservoir).
 //
 // Bound on the H100: arithmetic, and the step chain. Per step and replica
 // the far-field contraction (footprint charges x the 48 x 1152 alpha2 grid)
 // and the k-space delta (x 9216 modes) dominate the split form; the pair
 // passes cover 2160 framework sites and the live guests. Without the split
 // there is no far-field term and the pair pass covers every live site
-// instead of the guests only. The reservoir adds no work to the bound: a
-// few dozen bytes a step (at most 8 offset rows and one COM read and
+// instead of the guests only; on a triclinic box each pair costs 27
+// minimum-image candidates. The reservoir adds no work to the bound: a few
+// dozen bytes a step (at most 2 x 8 offset rows and two COMs read and
 // written by one thread). Steps are sequential within a replica, so the
 // parallelism is replicas (one CTA each, B = 1024 CTAs) times the threads
 // of a CTA within a step.
 // Design: one CTA per replica runs all n_steps; thread 0 makes the
 // proposal from its uniform row (a transcription of _propose, f32 as in
-// the JAX package) and publishes the old/new footprints (<= 2 x 8 atoms)
-// in shared memory; all threads build the footprint phase-power tables,
-// then sweep the framework and live guest sites, the far-field grid and
-// the k-space modes with per-thread partial sums and one block reduction;
-// thread 0 decides and commits positions, COMs, populations, energies,
-// counters and the reservoir rows; on acceptance every thread recomputes
-// the delta of its own modes and adds it to the amplitudes (no 74 KB delta
-// buffer). The reservoir offsets and COMs are copied in-to-out at the
-// start and updated in device memory; the replica's reservoir counts live
-// in shared memory beside its populations. Framework pairs loop over all
-// frozen sites with minimum image, as the oracle does (blockg's
-// ghost-sorted windows were a TPU layout). erfc is libdevice erfcf
-// (common.cuh). Speed (shared-memory state, tensor-core contractions,
-// window culling) is later work.
+// the JAX package) and publishes the old/new footprints (<= 2 x 8 atoms,
+// each atom with its own side's charge and LJ class row) in shared memory;
+// all threads build the footprint phase-power tables, then sweep the
+// framework and live guest sites, the far-field grid and the k-space modes
+// with per-thread partial sums and one block reduction; thread 0 decides
+// and commits positions, COMs, populations, energies, counters and the
+// reservoir rows; on acceptance every thread recomputes the delta of its
+// own modes and adds it to the amplitudes (no 74 KB delta buffer). The
+// reservoir offsets and COMs are copied in-to-out at the start and updated
+// in device memory; the replica's reservoir counts live in shared memory
+// beside its populations; a triclinic box's 27 image shifts are staged in
+// shared memory once. The kernel is a template on <TRICLINIC, MULTI>, so
+// the one-species orthorhombic forms compile to the code without either.
+// Framework pairs loop over all frozen sites with minimum image, as the
+// oracle does (blockg's ghost-sorted windows were a TPU layout). erfc is
+// libdevice erfcf (common.cuh). Speed (shared-memory state, tensor-core
+// contractions, window culling) is later work.
 #include <algorithm>
 
 #include "common.cuh"
@@ -108,13 +122,16 @@ enum BlockPtr {
   BP_RES_MOL_BASE,   // (R,) i32
   BP_RES_CAP,        // (R,) i32
   BP_RES_H,          // (3, 3) f32 reservoir cell vectors
+  BP_ACT_IDS,        // (n_active,) i32 active type ids
+  BP_HINV,           // (3, 3) f32 inverse cell
+  BP_IMG,            // (27, 3) f32 lattice image shifts
   BP_COUNT
 };
 enum BlockInt {
   BI_B, BI_NSTEPS, BI_S, BI_S_FROZEN, BI_GUEST_BASE, BI_R, BI_MTOT,
-  BI_A_ACT, BI_T_ACT, BI_JZP, BI_JXYP, BI_KX, BI_KY, BI_KZ, BI_JZ2P,
+  BI_A_ACT, BI_N_ACTIVE, BI_JZP, BI_JXYP, BI_KX, BI_KY, BI_KZ, BI_JZ2P,
   BI_JXY2P, BI_KX2, BI_KY2, BI_KZ2, BI_GG_CUT, BI_HAS_RES, BI_SRES,
-  BI_MRES1, BI_COUNT
+  BI_MRES1, BI_TRICLINIC, BI_COUNT
 };
 enum BlockFloat {
   BF_ALPHA, BF_ALPHA2, BF_CUTOFF, BF_RCUT2, BF_GG_RCUT_SQ, BF_TEMP,
@@ -148,7 +165,8 @@ struct Args {
   float* res_off; float* res_com; int* res_n;
   const int* res_site_base; const int* res_mol_base; const int* res_cap;
   const float* res_H;
-  int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, t_act;
+  const int* act_ids; const float* Hinv; const float* img;
+  int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, n_active;
   int JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2, gg_cut;
   int has_res, Sres, Mres1;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
@@ -164,7 +182,8 @@ struct Proposal {
   float res_pos[3];        // a push's COM in the reservoir box
   float u_acc, pref, i_old, i_new, s_old, s_new, sw[2];
   int move, valid, cap_blocked, gate, insert_like, remove_like, w_new;
-  int t, A, mol_slot_old, slot_new, site_start_old, site_start_new;
+  int t_old, t_new, A_old, A_new;
+  int mol_slot_old, slot_new, site_start_old, site_start_new;
   int res_pick;
 };
 
@@ -173,14 +192,15 @@ __device__ __forceinline__ int uint_draw(float u, int n) {
   return min(static_cast<int>(u * static_cast<float>(n)), n - 1);
 }
 
-__device__ float intra_energy(const Args& a, float (*P)[3],
-                              const float* q, int A) {
+template <class Image>
+__device__ float intra_energy(const Args& a, const Image& img,
+                              float (*P)[3], const float* q, int A) {
   // sum_{i<j} q_i q_j (erfc(alpha r) - 1) / r, minimum image
   float e = 0.f;
   for (int i = 0; i < A; ++i) {
     for (int j = i + 1; j < A; ++j) {
-      float r2 = min_image_r2(P[j][0] - P[i][0], P[j][1] - P[i][1],
-                              P[j][2] - P[i][2], a.boxl);
+      float r2 = img.r2(P[j][0] - P[i][0], P[j][1] - P[i][1],
+                        P[j][2] - P[i][2]);
       r2 = fmaxf(r2, 1e-18f);
       if (!(r2 > a.small_sq)) continue;
       const float r = sqrtf(r2);
@@ -223,10 +243,15 @@ __device__ void uniform_rotation(const float* u, float two_pi, float (*R)[3]) {
 
 // Thread 0: moves.py::_propose for one replica and one uniform row
 // (res_off and res_n are this replica's reservoir, unread without one).
-__device__ void propose(const Args& a, int b, int step, const int* nmol,
-                        const float* pos, const float* com,
-                        const float* res_off, const int* res_n, float tstep,
-                        float rstep, Proposal& pr, Footprint& fp) {
+// Every per-type quantity is taken per side: t_old is the type of the
+// molecule a translation, rotation, deletion or swap takes out, t_new the
+// type a creation or swap puts in (equal but for a swap).
+template <bool TRICLINIC, bool MULTI>
+__device__ void propose(const Args& a, const MinImage<TRICLINIC>& img,
+                        int b, int step, const int* nmol, const float* pos,
+                        const float* com, const float* res_off,
+                        const int* res_n, float tstep, float rstep,
+                        Proposal& pr, Footprint& fp) {
   float u[21];
   const float* ur = a.u + ((size_t)b * a.n_steps + step) * 21;
   for (int i = 0; i < 21; ++i) u[i] = ur[i];
@@ -235,48 +260,60 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   const bool is_trans = u[0] <= a.p_cum[0];
   const bool is_rot = !is_trans && u[0] <= a.p_cum[1];
   const bool is_indel = !is_trans && !is_rot && u[0] <= a.p_cum[2];
+  // two or more active species: the swap move is live; with one, a swap
+  // draw is dropped (dead draw)
+  const bool is_swap = MULTI && !is_trans && !is_rot && !is_indel;
+  const bool dead_draw = !MULTI && !is_trans && !is_rot && !is_indel;
   const bool is_create = is_indel && u[1] <= a.prob_cd;
   const bool is_delete = is_indel && !is_create;
-  // one active species: no swap; a swap draw is dropped (dead draw)
-  const bool dead_draw = !is_trans && !is_rot && !is_indel;
   pr.move = is_create ? 0 : is_delete ? 1 : is_trans ? 2 : is_rot ? 3 : 4;
-  const bool insert_like = is_create, remove_like = is_delete;
-  const bool w_old = is_trans || is_rot || is_delete;
-  const bool w_new = is_trans || is_rot || is_create;
+  const bool insert_like = is_create || is_swap;
+  const bool remove_like = is_delete || is_swap;
+  const bool w_old = is_trans || is_rot || is_delete || is_swap;
+  const bool w_new = is_trans || is_rot || is_create || is_swap;
 
-  const int t = a.t_act;
-  const int n_old = nmol[t];
+  int t_old = a.act_ids[0], t_new = t_old;
+  if (MULTI) {
+    const int nA = a.n_active;
+    const int i1 = uint_draw(u[11], nA);
+    const int di = 1 + uint_draw(u[12], nA - 1);
+    const int i2 = (i1 + di) % nA;
+    t_old = a.act_ids[i1];
+    t_new = is_swap ? a.act_ids[i2] : t_old;
+  }
+  const int n_old = nmol[t_old], n_new = nmol[t_new];
   const int m_old = uint_draw(u[13], max(n_old, 1));
-  const int A = a.type_A[t];
-  const int cap = a.type_cap[t];
+  const int A_old = a.type_A[t_old], A_new = a.type_A[t_new];
+  const int cap_new = a.type_cap[t_new];
   // an empty reservoir blocks insertions (counted invalid, not blocked)
   const bool valid = (is_create ? true
-                      : is_rot ? (n_old > 0 && A > 1) : n_old > 0)
+                      : is_rot ? (n_old > 0 && A_old > 1) : n_old > 0)
                      && !dead_draw
-                     && (!a.has_res || !insert_like || res_n[t] > 0);
-  const bool cap_blocked = insert_like && n_old >= cap;
+                     && (!a.has_res || !insert_like || res_n[t_new] > 0);
+  const bool cap_blocked = insert_like && n_new >= cap_new;
 
-  const int mol_slot_old = a.type_mol_base[t] + m_old;
-  const int site_start_old = a.type_site_base[t] + m_old * A;
-  const int slot_new = insert_like ? a.type_mol_base[t] + min(n_old, cap - 1)
-                                   : mol_slot_old;
+  const int mol_slot_old = a.type_mol_base[t_old] + m_old;
+  const int site_start_old = a.type_site_base[t_old] + m_old * A_old;
+  const int slot_new = insert_like
+      ? a.type_mol_base[t_new] + min(n_new, cap_new - 1) : mol_slot_old;
   const int site_start_new = a.mol_site_start[slot_new];
   const int last_idx = max(n_old - 1, 0);
-  const int start_last = a.type_site_base[t] + last_idx * A;
-  const int slot_last = a.type_mol_base[t] + last_idx;
+  const int start_last = a.type_site_base[t_old] + last_idx * A_old;
+  const int slot_last = a.type_mol_base[t_old] + last_idx;
 
   // insertion geometry: a random reservoir molecule's offsets as they are
   // (its rotation is the identity), else the template, uniformly rotated
-  pr.res_pick = a.has_res ? uint_draw(u[14], max(res_n[t], 1)) : 0;
+  pr.res_pick = a.has_res ? uint_draw(u[14], max(res_n[t_new], 1)) : 0;
   const float* src = a.has_res
-      ? res_off + (size_t)(a.res_site_base[t] + pr.res_pick * A) * 3
-      : a.templ + (size_t)t * A_act * 3;
+      ? res_off + (size_t)(a.res_site_base[t_new] + pr.res_pick * A_new) * 3
+      : a.templ + (size_t)t_new * A_act * 3;
   float P_old[MAXA][3], off_src[MAXA][3], com_old[3];
   for (int i = 0; i < 3; ++i) {
     com_old[i] = com[i * M1 + mol_slot_old];
     pr.com_last[i] = com[i * M1 + slot_last];
   }
-  const float* tq = a.type_q + t * A_act;
+  const float* tq_old = a.type_q + t_old * A_act;
+  const float* tq_new = a.type_q + t_new * A_act;
   for (int k = 0; k < A_act; ++k) {
     for (int i = 0; i < 3; ++i) {
       P_old[k][i] = pos[i * S + site_start_old + k];
@@ -295,17 +332,39 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
                     + a.res_H[3 * i + 1] * (u[19] - 0.5f)
                     + a.res_H[3 * i + 2] * (u[20] - 0.5f);
 
-  for (int i = 0; i < 3; ++i) {
-    float c;
-    if (is_trans) {  // wrap_into_box: fmod plus L where negative
+  // a translation wraps into the box (physics/pbc.py::wrap_into_box): per
+  // axis fmod plus L where negative; on a triclinic box the same mod 1 on
+  // the fractional coordinates (pos - lo) Hinv^T, then lo + frac H^T
+  float c_tr[3];
+  if (TRICLINIC) {
+    float d[3], frac[3];
+    for (int i = 0; i < 3; ++i)
+      d[i] = com_old[i] + (u[3 + i] - 0.5f) * tstep - a.lo[i];
+    for (int i = 0; i < 3; ++i) {
+      float r = fmodf(d[0] * a.Hinv[3 * i] + d[1] * a.Hinv[3 * i + 1]
+                      + d[2] * a.Hinv[3 * i + 2], 1.f);
+      if (r < 0.f) r += 1.f;
+      frac[i] = r;
+    }
+    for (int i = 0; i < 3; ++i)
+      c_tr[i] = a.lo[i] + (frac[0] * a.H[3 * i] + frac[1] * a.H[3 * i + 1]
+                           + frac[2] * a.H[3 * i + 2]);
+  } else {
+    for (int i = 0; i < 3; ++i) {
       const float x = com_old[i] + (u[3 + i] - 0.5f) * tstep;
       float r = fmodf(x - a.lo[i], a.boxl[i]);
       if (r < 0.f) r += a.boxl[i];
-      c = a.lo[i] + r;
+      c_tr[i] = a.lo[i] + r;
+    }
+  }
+  for (int i = 0; i < 3; ++i) {
+    float c;
+    if (is_trans) {
+      c = c_tr[i];
     } else if (is_create) {
       c = a.lo[i] + (a.H[3 * i] * u[6] + a.H[3 * i + 1] * u[7]
                      + a.H[3 * i + 2] * u[8]);
-    } else {
+    } else {  // rotation, deletion and swap keep the old COM
       c = com_old[i];
     }
     pr.com_new[i] = c;
@@ -316,14 +375,18 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
                        + (off_src[k][0] * Rm[i][0] + off_src[k][1] * Rm[i][1]
                           + off_src[k][2] * Rm[i][2]);
 
-  pr.i_old = (remove_like && valid) ? intra_energy(a, P_old, tq, A) : 0.f;
-  pr.i_new = insert_like ? intra_energy(a, pr.P_new, tq, A) : 0.f;
-  pr.s_old = remove_like ? a.type_self[t] : 0.f;
-  pr.s_new = insert_like ? a.type_self[t] : 0.f;
-  const float act = a.type_activity[t], V = a.volume;
-  float pref = insert_like ? act * V / (static_cast<float>(n_old) + 1.f)
-                           : 1.f;
-  pref = pref * (remove_like ? static_cast<float>(n_old) / (act * V) : 1.f);
+  pr.i_old = (remove_like && valid)
+      ? intra_energy(a, img, P_old, tq_old, A_old) : 0.f;
+  pr.i_new = insert_like ? intra_energy(a, img, pr.P_new, tq_new, A_new)
+                         : 0.f;
+  pr.s_old = remove_like ? a.type_self[t_old] : 0.f;
+  pr.s_new = insert_like ? a.type_self[t_new] : 0.f;
+  const float V = a.volume;
+  float pref = insert_like
+      ? a.type_activity[t_new] * V / (static_cast<float>(n_new) + 1.f) : 1.f;
+  pref = pref * (remove_like
+                 ? static_cast<float>(n_old) / (a.type_activity[t_old] * V)
+                 : 1.f);
 
   pr.u_acc = u[2];
   pr.pref = pref;
@@ -333,21 +396,27 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
   pr.insert_like = insert_like;
   pr.remove_like = remove_like;
   pr.w_new = w_new;
-  pr.t = t;
-  pr.A = A;
+  pr.t_old = t_old;
+  pr.t_new = t_new;
+  pr.A_old = A_old;
+  pr.A_new = A_new;
   pr.mol_slot_old = mol_slot_old;
   pr.slot_new = slot_new;
   pr.site_start_old = site_start_old;
   pr.site_start_new = site_start_new;
 
-  // publish the footprint
-  const int* tc = a.type_cls + t * A_act;
+  // publish the footprint: the old side with t_old's charges and classes,
+  // the new side with t_new's
   pr.sw[0] = pr.sw[1] = 0.f;
   for (int side = 0; side < 2; ++side) {
     const bool w_side = side == 0 ? w_old : w_new;
+    const int A_side = side == 0 ? A_old : A_new;
+    const int t_side = side == 0 ? t_old : t_new;
+    const float* tq = a.type_q + t_side * A_act;
+    const int* tc = a.type_cls + t_side * A_act;
     for (int k = 0; k < A_act; ++k) {
       const int f = side * A_act + k;
-      const bool m = k < A && w_side;
+      const bool m = k < A_side && w_side;
       for (int i = 0; i < 3; ++i)
         fp.p[f][i] = side == 0 ? P_old[k][i] : pr.P_new[k][i];
       fp.q[f] = tq[k];
@@ -366,52 +435,54 @@ __device__ void propose(const Args& a, int b, int step, const int* nmol,
 }
 
 // Thread 0: moves.py::_update_reservoir after the decision. Pop on an
-// accepted insertion (the type's last reservoir molecule fills the picked
-// slot), push on an accepted removal (the removed offsets and res_pos into
-// slot res_n, or a drop counted in extras[1] when the reservoir is full).
-// Both read the reservoir as it was before the step; push rows are written
-// first, then pop rows, so pop wins where both write (they never coincide
-// with one active species; the order is the JAX package's).
+// accepted insertion or swap (t_new's last reservoir molecule fills the
+// picked slot), push on an accepted removal or swap (the removed offsets
+// and res_pos into slot res_n of t_old, or a drop counted in extras[1]
+// when t_old's reservoir is full). Both read the reservoir as it was
+// before the step; push rows are written first, then pop rows, so pop wins
+// where both write (the JAX package's order).
 __device__ void commit_reservoir(const Args& a, const Proposal& pr, bool acc,
                                  float* res_off, float* res_com, int* res_n,
                                  int* extras) {
-  const int t = pr.t, A = pr.A;
+  const int t_old = pr.t_old, t_new = pr.t_new;
   const bool do_pop = acc && pr.insert_like;
-  const bool full = res_n[t] >= a.res_cap[t];
+  const bool full = res_n[t_old] >= a.res_cap[t_old];
   const bool do_push = acc && pr.remove_like && !full;
-  const int last = max(res_n[t] - 1, 0);
-  const int last_start = a.res_site_base[t] + last * A;
-  const int last_slot = a.res_mol_base[t] + last;
+  const int last = max(res_n[t_new] - 1, 0);
+  const int last_start = a.res_site_base[t_new] + last * pr.A_new;
+  const int last_slot = a.res_mol_base[t_new] + last;
   float pop_rows[MAXA][3], pop_com[3];
   if (do_pop) {
-    for (int k = 0; k < A; ++k)
+    for (int k = 0; k < pr.A_new; ++k)
       for (int i = 0; i < 3; ++i)
         pop_rows[k][i] = res_off[(last_start + k) * 3 + i];
     for (int i = 0; i < 3; ++i) pop_com[i] = res_com[last_slot * 3 + i];
   }
   if (do_push) {
-    const int push_idx = min(res_n[t], a.res_cap[t] - 1);
-    const int push_start = a.res_site_base[t] + push_idx * A;
-    const int push_slot = a.res_mol_base[t] + push_idx;
-    for (int k = 0; k < A; ++k)
+    const int push_idx = min(res_n[t_old], a.res_cap[t_old] - 1);
+    const int push_start = a.res_site_base[t_old] + push_idx * pr.A_old;
+    const int push_slot = a.res_mol_base[t_old] + push_idx;
+    for (int k = 0; k < pr.A_old; ++k)
       for (int i = 0; i < 3; ++i)
         res_off[(push_start + k) * 3 + i] = pr.off_old[k][i];
     for (int i = 0; i < 3; ++i) res_com[push_slot * 3 + i] = pr.res_pos[i];
   }
   if (do_pop) {
-    const int pop_start = a.res_site_base[t] + pr.res_pick * A;
-    const int pop_slot = a.res_mol_base[t] + pr.res_pick;
-    for (int k = 0; k < A; ++k)
+    const int pop_start = a.res_site_base[t_new] + pr.res_pick * pr.A_new;
+    const int pop_slot = a.res_mol_base[t_new] + pr.res_pick;
+    for (int k = 0; k < pr.A_new; ++k)
       for (int i = 0; i < 3; ++i)
         res_off[(pop_start + k) * 3 + i] = pop_rows[k][i];
     for (int i = 0; i < 3; ++i) res_com[pop_slot * 3 + i] = pop_com[i];
   }
-  res_n[t] += (do_push ? 1 : 0) - (do_pop ? 1 : 0);
+  res_n[t_new] -= do_pop ? 1 : 0;
+  res_n[t_old] += do_push ? 1 : 0;
   extras[1] += acc && pr.remove_like && full;
 }
 
 // At most 64 registers a thread, so that four CTAs share an SM (B = 1024
 // replicas then take two waves, not three).
+template <bool TRICLINIC, bool MULTI>
 __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   __shared__ Footprint fp;
   __shared__ float2 tab[MAXF][3][JMAX];
@@ -422,6 +493,7 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   __shared__ float energy[6];
   __shared__ int counters[10];
   __shared__ int extras[4];
+  __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int S = a.S, M1 = a.Mtot + 1, K = a.JzP * a.JxyP;
@@ -452,22 +524,24 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   if (tid < 6) energy[tid] = a.energy_in[6 * b + tid];
   if (tid < 10) counters[tid] = a.counters_in[10 * b + tid];
   if (tid < 4) extras[tid] = a.extras_in[4 * b + tid];
+  stage_image_shifts<TRICLINIC>(a.img, shifts);
   const float tstep = a.tstep[b], rstep = a.rstep[b];
   const float L[3] = {a.boxl[0], a.boxl[1], a.boxl[2]};
+  const MinImage<TRICLINIC> img{TRICLINIC ? shifts : L};
   Proposal pr;
   __syncthreads();
 
   for (int step = 0; step < a.n_steps; ++step) {
     if (tid == 0)
-      propose(a, b, step, nmol, pos, com, res_off, res_n, tstep, rstep, pr,
-              fp);
+      propose<TRICLINIC, MULTI>(a, img, b, step, nmol, pos, com, res_off,
+                                res_n, tstep, rstep, pr, fp);
     __syncthreads();
 
     footprint_phase_tables(a, fp, tab);
     __syncthreads();
 
     float part[NRED];
-    footprint_partials(a, fp, tab, nmol, pos, ampre, ampim, L, part);
+    footprint_partials(a, fp, tab, nmol, pos, ampre, ampim, img, part);
     block_sum<NRED>(part, scratch, red);
 
     if (tid == 0) {
@@ -485,19 +559,18 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
                             - (e_other_old + e_recip_old);
       const float p_acc = p_accept(pr.pref, delta_e, a.temp);
       const bool acc = pr.gate && pr.u_acc <= p_acc;
-      const float accf = acc ? 1.f : 0.f;
 
-      // compaction first (the type's last molecule moves into the freed
+      // compaction first (t_old's last molecule moves into the freed
       // slot), then the written molecule: new rows win where both apply
       if (acc && pr.remove_like) {
-        for (int k = 0; k < pr.A; ++k)
+        for (int k = 0; k < pr.A_old; ++k)
           for (int i = 0; i < 3; ++i)
             pos[i * S + pr.site_start_old + k] = pr.last[k][i];
         for (int i = 0; i < 3; ++i)
           com[i * M1 + pr.mol_slot_old] = pr.com_last[i];
       }
       if (acc && pr.w_new) {
-        for (int k = 0; k < pr.A; ++k)
+        for (int k = 0; k < pr.A_new; ++k)
           for (int i = 0; i < 3; ++i)
             pos[i * S + pr.site_start_new + k] = pr.P_new[k][i];
         for (int i = 0; i < 3; ++i)
@@ -505,13 +578,18 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
       }
       if (a.has_res) commit_reservoir(a, pr, acc, res_off, res_com, res_n,
                                       extras);
-      nmol[pr.t] += (acc && pr.insert_like) - (acc && pr.remove_like);
-      energy[0] += acc ? e_recip_new - e_recip_old : 0.f;
-      energy[1] += accf * (e_lj1 - e_lj0);
-      energy[2] += accf * (e_coul1 - e_coul0);
-      energy[3] += accf * (pr.s_new - pr.s_old);
-      energy[4] += accf * (pr.i_new - pr.i_old);
-      energy[5] += accf * delta_e;
+      nmol[pr.t_new] += acc && pr.insert_like;
+      nmol[pr.t_old] -= acc && pr.remove_like;
+      // the deltas of an accepted move only (a select, not a 0/1 product:
+      // a rejected overlap's LJ is inf - inf = NaN, and 0 x NaN = NaN)
+      if (acc) {
+        energy[0] += e_recip_new - e_recip_old;
+        energy[1] += e_lj1 - e_lj0;
+        energy[2] += e_coul1 - e_coul0;
+        energy[3] += pr.s_new - pr.s_old;
+        energy[4] += pr.i_new - pr.i_old;
+        energy[5] += delta_e;
+      }
       counters[pr.move] += pr.valid;
       counters[5 + pr.move] += acc;
       extras[0] += pr.valid && pr.cap_blocked;
@@ -605,6 +683,9 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.res_mol_base = static_cast<const int*>(ptrs[BP_RES_MOL_BASE]);
   a.res_cap = static_cast<const int*>(ptrs[BP_RES_CAP]);
   a.res_H = static_cast<const float*>(ptrs[BP_RES_H]);
+  a.act_ids = static_cast<const int*>(ptrs[BP_ACT_IDS]);
+  a.Hinv = static_cast<const float*>(ptrs[BP_HINV]);
+  a.img = static_cast<const float*>(ptrs[BP_IMG]);
   a.B = ints[BI_B];
   a.n_steps = ints[BI_NSTEPS];
   a.S = ints[BI_S];
@@ -613,7 +694,7 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.R = ints[BI_R];
   a.Mtot = ints[BI_MTOT];
   a.A_act = ints[BI_A_ACT];
-  a.t_act = ints[BI_T_ACT];
+  a.n_active = ints[BI_N_ACTIVE];
   a.JzP = ints[BI_JZP];
   a.JxyP = ints[BI_JXYP];
   a.kx = ints[BI_KX];
@@ -641,9 +722,16 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.prob_cd = fl[BF_PROB_CD];
   a.small_sq = fl[BF_SMALL_SQ];
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
+  const bool tricl = ints[BI_TRICLINIC] != 0, multi = a.n_active >= 2;
   if (a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
-      || kmax >= JMAX || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1)
+      || a.n_active < 1 || a.n_active > a.R || kmax >= JMAX
+      || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1
+      || (tricl && a.S_frozen != 0))
     return MANIAC_ERR_SHAPE;
-  blockg_kernel<<<a.B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  void (*kernel)(Args) = tricl ? (multi ? blockg_kernel<true, true>
+                                        : blockg_kernel<true, false>)
+                               : (multi ? blockg_kernel<false, true>
+                                        : blockg_kernel<false, false>);
+  kernel<<<a.B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

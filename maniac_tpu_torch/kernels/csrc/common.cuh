@@ -52,6 +52,49 @@ __device__ __forceinline__ float min_image_r2(float dx, float dy, float dz,
   return dx * dx + dy * dy + dz * dz;
 }
 
+// The minimum image of the box kind, as a functor the energy core is
+// templated on (physics/pbc.py::min_image_dist2): MinImage<false> holds
+// the three box lengths of an orthorhombic box; MinImage<true> holds the
+// 27 lattice image shifts of a triclinic box (spec.image_shifts, staged in
+// shared memory once per CTA by stage_image_shifts) and takes the brute-
+// force minimum of |d + s|^2 over them, in the order of the table, as
+// maniac_tpu/kernels/blockg.py does. The caller floors r2 at 1e-18 after
+// the minimum.
+constexpr int NIMG = 27;
+
+template <bool TRICLINIC>
+struct MinImage {
+  const float* L;  // (3,) box lengths
+  __device__ __forceinline__ float r2(float dx, float dy, float dz) const {
+    return min_image_r2(dx, dy, dz, L);
+  }
+};
+
+template <>
+struct MinImage<true> {
+  const float* s;  // (27, 3) image shifts, in shared memory
+  __device__ __forceinline__ float r2(float dx, float dy, float dz) const {
+    float best = 0.f;
+    for (int i = 0; i < NIMG; ++i) {
+      const float tx = dx + s[3 * i], ty = dy + s[3 * i + 1];
+      const float tz = dz + s[3 * i + 2];
+      const float r = tx * tx + ty * ty + tz * tz;
+      best = i == 0 ? r : fminf(best, r);
+    }
+    return best;
+  }
+};
+
+// Copy the 27 image shifts into shared memory (triclinic only: the kernels
+// give them room as __shared__ float[TRICLINIC ? 3 * NIMG : 1]; the caller
+// synchronizes before use).
+template <bool TRICLINIC>
+__device__ __forceinline__ void stage_image_shifts(const float* img,
+                                                   float* smem) {
+  if constexpr (TRICLINIC)
+    for (int i = threadIdx.x; i < 3 * NIMG; i += blockDim.x) smem[i] = img[i];
+}
+
 // Sum of NV values over the block; every thread gets the totals in out.
 // scratch holds (blockDim.x / 32) * NV floats. Warp shuffles, then one
 // sequential pass over the warps: the order is fixed run to run.
@@ -158,12 +201,13 @@ __device__ __forceinline__ void footprint_phase_tables(
 // erfc(alpha2 r)/r cut at rcut2 on frozen sites, erfc(alpha r)/r elsewhere,
 // cut at gg_rcut when gg_cut), the far-field grid c2 . d per side (c2 is
 // zero without the framework split), and the k-space sum
-// sum_k w_k (2 A.d + |d|^2). pos, ampre, ampim are this replica's.
-template <class Args>
+// sum_k w_k (2 A.d + |d|^2). pos, ampre, ampim are this replica's; img is
+// the box's minimum image (MinImage).
+template <class Args, class Image>
 __device__ __forceinline__ void footprint_partials(
     const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX],
     const int* nmol, const float* pos, const float* ampre,
-    const float* ampim, const float* L, float (&part)[NRED]) {
+    const float* ampim, const Image& img, float (&part)[NRED]) {
   const int tid = threadIdx.x, S = a.S, F = 2 * a.A_act;
   const int K = a.JzP * a.JxyP, K2 = a.Jz2P * a.Jxy2P;
   const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
@@ -183,8 +227,7 @@ __device__ __forceinline__ void footprint_partials(
     for (int side = 0; side < 2; ++side) {
       for (int f = side * a.A_act; f < (side + 1) * a.A_act; ++f) {
         if (!fp.m[f]) continue;
-        float r2 = min_image_r2(x - fp.p[f][0], y - fp.p[f][1],
-                                z - fp.p[f][2], L);
+        float r2 = img.r2(x - fp.p[f][0], y - fp.p[f][1], z - fp.p[f][2]);
         r2 = fmaxf(r2, 1e-18f);
         const float inv_r2 = 1.f / r2;
         const float inv_r = sqrtf(inv_r2);

@@ -1,12 +1,13 @@
 // The energy core of one MC step for B replicas, given the proposals.
 //
 // Replaces maniac_tpu/kernels/stepg.py::_stepg_kernel (launcher
-// mc_step_core_grouped). The proposal (mc/moves.py::_propose) and the
-// bookkeeping (_bookkeep) stay in torch; this kernel is
-// mc/moves.py::_core_plain: the footprint's pair energies against every
-// live site, the far-field grid term (framework split), the k-space delta,
-// the Metropolis test, and the commits of positions (compaction first,
-// then the written molecule) and amplitudes.
+// mc_step_core_grouped), and on a triclinic box the XLA energy core the JAX
+// package runs there (its stepg takes orthorhombic boxes only). The
+// proposal (mc/moves.py::_propose) and the bookkeeping (_bookkeep) stay in
+// torch; this kernel is mc/moves.py::_core_plain: the footprint's pair
+// energies against every live site, the far-field grid term (framework
+// split), the k-space delta, the Metropolis test, and the commits of
+// positions (compaction first, then the written molecule) and amplitudes.
 //
 // Design: one CTA per replica, one launch per step. Thread 0 publishes the
 // old and new footprints (<= 2 x 8 atoms, any active species: each atom
@@ -19,7 +20,10 @@
 // positions and adds the recomputed delta to each amplitude on acceptance.
 // Without the framework split S_frozen = guest_base = 0, so every live site
 // takes erfc(alpha r)/r (cut at gg_rcut when gg_cut) and the far-field
-// coefficients are zero.
+// coefficients are zero. The kernel is a template on TRICLINIC, the box
+// kind of the shared core's minimum image (common.cuh MinImage): on a
+// triclinic box, which never has the split, every pair takes the minimum
+// over the 27 image shifts, staged in shared memory once per CTA.
 #include <algorithm>
 
 #include "common.cuh"
@@ -59,6 +63,7 @@ enum StepPtr {
   SP_C2IM,
   SP_COL2_JX,      // (Jxy2P,) i32, -1 = pad
   SP_COL2_JY,
+  SP_IMG,          // (27, 3) f32 lattice image shifts
   SP_COUNT
 };
 // per-replica ints and floats of the proposal
@@ -75,7 +80,7 @@ constexpr int NFLAG = 8;
 enum StepInt {
   SI_B, SI_S, SI_S_FROZEN, SI_GUEST_BASE, SI_R, SI_A_ACT, SI_JZP, SI_JXYP,
   SI_KX, SI_KY, SI_KZ, SI_JZ2P, SI_JXY2P, SI_KX2, SI_KY2, SI_KZ2, SI_GG_CUT,
-  SI_COUNT
+  SI_TRICLINIC, SI_COUNT
 };
 enum StepFloat {
   SF_ALPHA, SF_ALPHA2, SF_CUTOFF, SF_RCUT2, SF_GG_RCUT_SQ, SF_TEMP,
@@ -95,13 +100,14 @@ struct Args {
   const float* boxl; const float* h2pi; const float* kw;
   const int* col_jx; const int* col_jy;
   const float* c2re; const float* c2im; const int* col2_jx;
-  const int* col2_jy;
+  const int* col2_jy; const float* img;
   int B, S, S_frozen, guest_base, R, A_act, JzP, JxyP, kx, ky, kz;
   int Jz2P, Jxy2P, kx2, ky2, kz2, gg_cut;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi;
 };
 
+template <bool TRICLINIC>
 __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
   __shared__ Footprint fp;
   __shared__ float2 tab[MAXF][3][JMAX];
@@ -109,6 +115,7 @@ __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
   __shared__ float red[NRED];
   __shared__ int nmol[MAXR + 1];
   __shared__ float sw[2];
+  __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int S = a.S, K = a.JzP * a.JxyP, A_act = a.A_act, F = 2 * A_act;
@@ -120,8 +127,10 @@ __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
   const float* ampim_in = a.ampim_in + (size_t)b * K;
   float* pos = a.pos + (size_t)b * 3 * S;
   const float L[3] = {a.boxl[0], a.boxl[1], a.boxl[2]};
+  const MinImage<TRICLINIC> img{TRICLINIC ? shifts : L};
 
   if (tid <= a.R) nmol[tid] = a.nmol_in[b * (a.R + 1) + tid];
+  stage_image_shifts<TRICLINIC>(a.img, shifts);
   __syncthreads();
   if (tid == 0) {  // publish the footprint
     const float* P = a.P + (size_t)b * F * 3;
@@ -150,7 +159,8 @@ __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
   __syncthreads();
 
   float part[NRED];
-  footprint_partials(a, fp, tab, nmol, pos_in, ampre_in, ampim_in, L, part);
+  footprint_partials(a, fp, tab, nmol, pos_in, ampre_in, ampim_in, img,
+                     part);
   block_sum<NRED>(part, scratch, red);
 
   if (tid == 0) {
@@ -253,6 +263,7 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   a.c2im = static_cast<const float*>(ptrs[SP_C2IM]);
   a.col2_jx = static_cast<const int*>(ptrs[SP_COL2_JX]);
   a.col2_jy = static_cast<const int*>(ptrs[SP_COL2_JY]);
+  a.img = static_cast<const float*>(ptrs[SP_IMG]);
   a.B = ints[SI_B];
   a.S = ints[SI_S];
   a.S_frozen = ints[SI_S_FROZEN];
@@ -281,10 +292,12 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   a.coulomb_k = fl[SF_COULOMB_K];
   a.two_pi = fl[SF_TWO_PI];
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
+  const bool tricl = ints[SI_TRICLINIC] != 0;
   if (a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
-      || kmax >= JMAX || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1)
+      || kmax >= JMAX || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1
+      || (tricl && a.S_frozen != 0))
     return MANIAC_ERR_SHAPE;
-  stepg_kernel<<<a.B, STEP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a);
+  void (*kernel)(Args) = tricl ? stepg_kernel<true> : stepg_kernel<false>;
+  kernel<<<a.B, STEP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 
 ``step_core`` replaces maniac_tpu/kernels/stepg.py::mc_step_core_grouped
 (kernel ``_stepg_kernel``), which mc_step_u runs between the proposal and
-the bookkeeping (kernels.step_gate_failure is the gate). For a CUDA state
+the bookkeeping (kernels.step_gate_failure is the gate); on a triclinic box
+it also takes the core the JAX package leaves to XLA there. For a CUDA state
 it launches csrc/stepg.cu; for a CPU state it runs ``step_core_plain``,
 mc/moves.py::_core_plain. Both take the proposal dict of
 mc/moves.py::_propose and return the dict _bookkeep reads: positions and
-amplitudes after the commit, and per replica acc, accf, e_recip_new,
+amplitudes after the commit, and per replica acc, e_recip_new,
 delta_e, e_lj (B, 2) and e_coul (B, 2).
 """
 
@@ -29,7 +30,7 @@ def _spec_tables(spec: SystemSpec) -> list:
             spec.eps_site, spec.sig2_site, spec.type_A, spec.type_site_base,
             spec.box_diag, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
             spec.k_col_jy, spec.c2_re, spec.c2_im, spec.k2_col_jx,
-            spec.k2_col_jy]
+            spec.k2_col_jy, spec.image_shifts]
 
 
 def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
@@ -84,7 +85,7 @@ def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
     sc = spec.host_scalars
     fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
     ints = [B, spec.S, *fw, spec.R, A, JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P,
-            kx2, ky2, kz2, int(spec.gg_cut)]
+            kx2, ky2, kz2, int(spec.gg_cut), int(spec.is_triclinic)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI]
@@ -92,7 +93,7 @@ def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
     step_core.launches += 1
     acc = flags[:, 0] > 0.5
     return dict(pos=pos, amp_re=amp_re, amp_im=amp_im, acc=acc,
-                accf=flags[:, 0], e_recip_new=flags[:, 1],
+                e_recip_new=flags[:, 1],
                 delta_e=flags[:, 2], e_lj=flags[:, 3:5],
                 e_coul=flags[:, 5:7])
 

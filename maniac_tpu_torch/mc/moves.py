@@ -305,14 +305,14 @@ def _core_plain(spec: SystemSpec, st: SimState, pre: dict) -> dict:
     return dict(pos=pos,
                 amp_re=st.amp_re + accf[:, None, None] * d_re,
                 amp_im=st.amp_im + accf[:, None, None] * d_im,
-                acc=acc, accf=accf, e_recip_new=e_recip_new,
+                acc=acc, e_recip_new=e_recip_new,
                 delta_e=delta_e, e_lj=e_lj, e_coul=e_coul)
 
 
 def _bookkeep(spec: SystemSpec, st: SimState, pre: dict,
               core: dict) -> SimState:
     """COM, population, energy and counter updates (moves.py::_bookkeep)."""
-    acc, accf = core["acc"], core["accf"]
+    acc = core["acc"]
     e_lj, e_coul = core["e_lj"], core["e_coul"]
     insert_like, remove_like = pre["insert_like"], pre["remove_like"]
     B = acc.shape[0]
@@ -329,15 +329,19 @@ def _bookkeep(spec: SystemSpec, st: SimState, pre: dict,
     n_mol[rows, pre["t_new"]] += (acc & insert_like).to(torch.int32)
     n_mol[rows, pre["t_old"]] -= (acc & remove_like).to(torch.int32)
 
+    # the deltas of accepted moves only, selected rather than multiplied by
+    # 0/1: a rejected overlap's LJ is inf - inf = NaN (r2 at its floor), and
+    # 0 x NaN would stay in the running energies (the JAX package
+    # multiplies, moves.py:502-509; only its jitted step comes out finite)
     comp_delta = torch.stack([
-        torch.where(acc, core["e_recip_new"] - st.energy[:, E_RECIP], 0.0),
-        accf * (e_lj[:, 1] - e_lj[:, 0]),
-        accf * (e_coul[:, 1] - e_coul[:, 0]),
-        accf * (pre["s_new"] - pre["s_old"]),
-        accf * (pre["i_new"] - pre["i_old"]),
-        accf * core["delta_e"],
+        core["e_recip_new"] - st.energy[:, E_RECIP],
+        e_lj[:, 1] - e_lj[:, 0],
+        e_coul[:, 1] - e_coul[:, 0],
+        pre["s_new"] - pre["s_old"],
+        pre["i_new"] - pre["i_old"],
+        core["delta_e"],
     ], dim=1)
-    energy = st.energy + comp_delta
+    energy = st.energy + torch.where(acc[:, None], comp_delta, 0.0)
 
     oh_move = (torch.arange(N_MOVE_TYPES, device=acc.device)[None, :]
                == pre["move"][:, None])

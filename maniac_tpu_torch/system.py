@@ -13,9 +13,10 @@ Differences from the JAX data model:
   ``torch.Generator``.
 * The spec keeps only the tables the port reads. The TPU layouts (ghost-
   sorted framework windows, 8-row LJ slabs, row selectors) and the
-  triclinic-image and tabulated-potential tables are not built. The
-  reservoir tables and state are the JAX package's, with the same minimal
-  dummies (one slot per type) when there is no reservoir.
+  tabulated-potential tables are not built. The 27 lattice image shifts
+  of the triclinic minimum image, the reservoir tables and the reservoir
+  state are the JAX package's, with the same minimal dummies (one slot per
+  type) when there is no reservoir.
 * Dense-grid column index tables (``k_col_jx``/``k_col_jy`` and the far-
   grid ``k2_col_*``) are derived from the 0/1 selectors ``ex_sel``/
   ``ey_sel``: the port reads phase powers by index instead of expanding
@@ -37,6 +38,7 @@ import torch
 
 from .constants import ATM_TO_PA, A3_TO_M3, COULOMB_K, ERFC_DECAY, KB_JK, SQRTPI
 from .ewald import EwaldSetup
+from .geometry import image_shifts
 from .io.deck import InputDeck
 from .io.lammps_data import ParsedSystem
 
@@ -65,6 +67,7 @@ class SystemSpec:
     bounds: torch.Tensor        # (3,2)
     box_diag: torch.Tensor      # (3,)
     volume: torch.Tensor        # ()
+    image_shifts: torch.Tensor  # (27,3) lattice image shifts (triclinic)
     # Ewald dense half-space grid (JzP, JxyP): rows signed jz, cols
     # jx*Jy + jy (maniac_tpu/ewald.py); invalid/pad modes carry weight 0
     k_cart: torch.Tensor        # (K,3)
@@ -480,7 +483,8 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     arrays = dict(
         H=box.matrix, Hinv=box.reciprocal, bounds=box.bounds,
         box_diag=np.diag(box.matrix), volume=box.volume,
-        k_cart=ewald.dense_cart, k_weights=ewald.dense_weights,
+        image_shifts=image_shifts(box), k_cart=ewald.dense_cart,
+        k_weights=ewald.dense_weights,
         k_live=ewald.dense_live, ex_sel=ewald.ex_sel, ey_sel=ewald.ey_sel,
         two_pi_Hinv=2.0 * np.pi * box.reciprocal, alpha=ewald.alpha,
         cutoff=ewald.real_space_cutoff, temp_K=temp_K,

@@ -579,6 +579,40 @@ def make_mixed_sizes(outdir, n_water=6, n_dimer=6, L=16.0, seed=13,
                 (4, 4, 0.15, 3.2), (5, 5, 0.1, 3.0)])
     return outdir
 
+
+def make_mixed_reservoir(outdir, n_water=4, n_dimer=4, L=16.0, seed=5):
+    """A two-species reservoir data file (waters and dimers) matching
+    make_mixed_sizes's residue declaration (for the -r flag): a swap then
+    pops one species' reservoir and pushes the other's in one step. Returns
+    the file path."""
+    rng = np.random.default_rng(seed)
+    sites_w, q_w, names_w = water_sites()
+    sites_d = np.array([[0.0, 0.0, -0.6], [0.0, 0.0, 0.6]])
+    q_d = np.array([0.25, -0.25])
+    type_of_w = {"O": 1, "H": 2, "M": 3}
+    n_total = n_water + n_dimer
+    per_axis = max(2, int(math.ceil(n_total ** (1 / 3))))
+    spacing = L / per_axis
+    centers = [-L / 2 + (np.array([i, j, k]) + 0.5) * spacing
+               for i in range(per_axis) for j in range(per_axis)
+               for k in range(per_axis)]
+    atoms = []
+    for m, c in enumerate(centers[:n_total], 1):
+        R = _random_rotation(rng)
+        if m <= n_water:
+            pos = c + sites_w @ R.T
+            atoms += [(m, type_of_w[names_w[a]], q_w[a], *pos[a])
+                      for a in range(4)]
+        else:
+            pos = c + sites_d @ R.T
+            atoms += [(m, 4 + a, q_d[a], *pos[a]) for a in range(2)]
+    masses = {1: MASS["O"], 2: MASS["H"], 3: MASS["M"], 4: MASS["F"],
+              5: MASS["F"]}
+    os.makedirs(outdir, exist_ok=True)
+    path = f"{outdir}/reservoir.data"
+    _write_data(path, L, atoms, masses, 5)
+    return path
+
 def make_slit_pore(outdir, nx=5, ny=5, wall_layers=2, n_water=10,
                    Lxy=12.0, Lz=30.0, seed=19, **deck_kw):
     """Slit pore (analog of the reference run.sh SLIT case,

@@ -14,7 +14,8 @@ import torch
 from maniac_tpu.constants import COULOMB_K
 from maniac_tpu.physics import energy as jen
 from maniac_tpu_torch.physics import energy as pen
-from maniac_tpu_torch.systems import make_nacl, make_water_box, make_zif_like
+from maniac_tpu_torch.systems import (make_nacl, make_triclinic_water,
+                                      make_water_box, make_zif_like)
 
 from torch_parity import load_both
 
@@ -37,8 +38,14 @@ def _zif(d):
                   cutoff=6.0)
 
 
-@pytest.mark.parametrize("make", [_water, _nacl, _zif],
-                         ids=["water", "nacl", "zif_fwsplit"])
+def _tricl(d):
+    # the 27-image minimum image and the triclinic reciprocal lattice
+    make_triclinic_water(d, n_water=8, L=14.0, tilt=(2.0, 1.2, 0.8),
+                         cutoff=5.0, tol=1e-4)
+
+
+@pytest.mark.parametrize("make", [_water, _nacl, _zif, _tricl],
+                         ids=["water", "nacl", "zif_fwsplit", "triclinic"])
 def test_system_energy_matches_jax(tmp_path, make):
     make(str(tmp_path))
     sysm, spec, state = load_both(str(tmp_path), capacity=16)
@@ -50,6 +57,8 @@ def test_system_energy_matches_jax(tmp_path, make):
     np.testing.assert_allclose(im_p[0].numpy(), np.asarray(im_j), atol=1e-10)
     if make is _zif:
         assert spec.fw_split
+    if make is _tricl:
+        assert spec.is_triclinic and abs(float(e_p[0, 2])) > 0.0
     if make is _nacl:
         # absolute anchor: the Madelung constant through the whole Ewald
         # pipeline (tests/test_energy.py)

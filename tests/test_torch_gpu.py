@@ -18,8 +18,12 @@ from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
 from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                         run_steps_u)
 from maniac_tpu_torch.mc.moves import _propose
-from maniac_tpu_torch.systems import (make_mixed_sizes, make_water_box,
-                                      make_water_reservoir, make_zif_like)
+from maniac_tpu_torch.parallel.replicas import (perturb_activity,
+                                                run_block_sweep)
+from maniac_tpu_torch.systems import (make_framework_mixed,
+                                      make_mixed_reservoir, make_mixed_sizes,
+                                      make_water_box, make_water_reservoir,
+                                      make_zif_like, tiny_system)
 
 pytestmark = pytest.mark.gpu
 
@@ -112,6 +116,7 @@ def test_resync_kernel_matches_plain(tmp_path):
 def test_launch_counts_and_refusals(tmp_path):
     """Each wrapper counts one launch per call on CUDA tensors, and raises
     (no fallback) for a spec outside its kernel; two active species run the
+    block kernel, and a per-replica activity (an isotherm sweep) runs the
     per-step path with the step kernel and the resync kernel."""
     dev = _device()
     _mixed_sizes(str(tmp_path))
@@ -124,17 +129,26 @@ def test_launch_counts_and_refusals(tmp_path):
     p = resync_plain(f32.spec, states)
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
-    u = draw_uniforms(f32.spec, 2, 5, _gen(dev, 4))
-    with pytest.raises(ValueError, match="2 active species"):
-        run_block_kernel(f32.spec, states, u)
-    # the main path on a spec outside the block kernel's gate: the per-step
-    # path with the step kernel, the kernel resync, and the report says so
-    assert "per-step path (2 active species" in dispatch_report(
-        f32.spec, dev)
+    assert "block: CUDA whole-block kernel" in dispatch_report(f32.spec, dev)
     nb, ns, nr = (run_block_kernel.launches, step_core.launches,
                   resync_grouped.launches)
     out = run_block_replicated(f32.spec, states, 5, False, True,
                                _gen(dev, 5))
+    assert run_block_kernel.launches == nb + 1
+    assert step_core.launches == ns
+    assert resync_grouped.launches == nr + 1
+    assert int(out.counters[:, 0].sum()) == 10
+    sweep = perturb_activity(f32.spec, f32.spec.type_activity.expand(2, -1))
+    u = draw_uniforms(sweep, 2, 5, _gen(dev, 4))
+    with pytest.raises(ValueError, match="per-replica activity"):
+        run_block_kernel(sweep, states, u)
+    # the main path on a spec outside the block kernel's gate: the per-step
+    # path with the step kernel, the kernel resync, and the report says so
+    assert "per-step path (per-replica activity" in dispatch_report(
+        sweep, dev)
+    nb, ns, nr = (run_block_kernel.launches, step_core.launches,
+                  resync_grouped.launches)
+    out = run_block_sweep(sweep, states, 5, False, True, _gen(dev, 5))
     assert run_block_kernel.launches == nb
     assert step_core.launches == ns + 5
     assert resync_grouped.launches == nr + 1
@@ -183,6 +197,26 @@ def test_block_kernel_water_forms_match_plain(tmp_path, with_reservoir):
         assert not torch.equal(k.res_n, states.res_n)
 
 
+def test_block_kernel_rejected_overlap_keeps_energies_finite(tmp_path):
+    """An insertion onto molecule 0's sites (an LJ term that is not
+    finite) is rejected by the block kernel as by the plain block, and the
+    running energies stay as they were (tests/test_torch_moves.py)."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.25, 0.25, 0.5, 0.0), fugacity=5000.0)
+    sysm = _load(str(tmp_path), dev, 16)
+    spec, state = sysm.spec, sysm.state
+    com0 = state.com[0, :, 0].double()
+    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
+    u = torch.full((1, 1, 21), 0.37, dtype=torch.float32, device=dev)
+    u[0, 0, :3] = torch.tensor([0.7, 0.25, 0.5])   # a creation; u_acc 0.5
+    u[0, 0, 6:9] = frac.float()                    # molecule 0's COM
+    u[0, 0, 15:17] = torch.tensor([0.0, 0.25])     # the identity rotation
+    k = _assert_block_parity(spec, state, u)
+    assert torch.equal(k.energy, state.energy)
+    assert int(k.counters[0, 0, 0]) == 1 and int(k.counters[0, 1, 0]) == 0
+
+
 def test_step_kernel_reservoir_matches_plain(tmp_path):
     """The per-step kernel on the reservoir fixture: 40-step chains of the
     dispatched step against the plain core on the same uniforms."""
@@ -216,8 +250,54 @@ def _mixed_sizes(d):
                      probs=(0.3, 0.2, 0.3, 0.2))
 
 
-@pytest.mark.parametrize("make", [_zif_small, _mixed_sizes],
-                         ids=["zif", "mixed_sizes"])
+def _fw_mixed(d):
+    # framework + two active species with the split (bench.py's mixed shape)
+    make_framework_mixed(d, n_cells=3, a=5.66, n_water=3, n_dimer=3,
+                         cutoff=5.0, tol=1e-4)
+
+
+def _mixed_resv(d):
+    # two species and a reservoir of both (tests/torch_parity.py's fixture)
+    _mixed_sizes(d)
+    return make_mixed_reservoir(d, n_water=4, n_dimer=4, L=16.0)
+
+
+def _tricl(d):
+    tiny_system(d, "tricl")
+
+
+@pytest.mark.parametrize("make", [_fw_mixed, _mixed_sizes, _mixed_resv,
+                                  _tricl],
+                         ids=["fw_mixed", "mixed_sizes", "mixed_resv",
+                              "tricl"])
+def test_block_kernel_forms_match_plain(tmp_path, make):
+    """The block kernel's two-species form (swaps; with the split, without
+    it, and with a reservoir of both species) and its triclinic form
+    against the plain block: phase 2's bounds, swaps tried and accepted
+    where two species are active, box + reservoir + drops conserved."""
+    dev = _device()
+    res = make(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16, reservoir=res)
+    spec = sysm.spec
+    assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
+    states = replicate(spec, sysm.state, 8)
+    u = draw_uniforms(spec, 8, 60, _gen(dev, 13))
+    n0 = run_block_kernel.launches
+    k = _assert_block_parity(spec, states, u)
+    assert run_block_kernel.launches == n0 + 1
+    acc = k.counters[:, 1].sum(0)
+    assert int(acc.sum()) > 0
+    if spec.n_active > 1:
+        assert int(k.counters[:, 0, 4].sum()) > 0 and int(acc[4]) > 0
+    if res is not None:
+        total = (k.n_mol[:, :-1].sum(1) + k.res_n[:, :-1].sum(1)
+                 + k.extras[:, 1])
+        assert torch.equal(total, states.n_mol[:, :-1].sum(1)
+                           + states.res_n[:, :-1].sum(1))
+
+
+@pytest.mark.parametrize("make", [_zif_small, _mixed_sizes, _tricl],
+                         ids=["zif", "mixed_sizes", "tricl"])
 def test_step_kernel_matches_plain(tmp_path, make):
     """The per-step core on one proposal (the same acceptances, energies
     within 5 K, positions within 1e-4 A), then 40-step chains of the

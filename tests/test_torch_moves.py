@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from maniac_tpu.mc.moves import _core_xla as jax_core
+from maniac_tpu.mc.moves import _propose as jax_propose
 from maniac_tpu.mc.moves import _uint as jax_uint
 from maniac_tpu_torch.mc.driver import drift_report, run_steps_u
-from maniac_tpu_torch.mc.moves import _uint, mc_step_u
+from maniac_tpu_torch.mc.moves import _core_plain, _propose, _uint, mc_step_u
 from maniac_tpu_torch.parallel.replicas import replicate
 from maniac_tpu_torch.systems import (make_framework_mixed, make_mixed_sizes,
                                       make_water_box, make_zif_like)
@@ -115,6 +117,39 @@ def test_edge_uniforms_at_move_thresholds(tmp_path):
     trials = pst.counters[0, 0].numpy()
     assert trials[0] > 0 and trials[1] > 0 and trials[2] > 0
     assert trials[3] > 0
+
+
+def test_rejected_overlap_keeps_energies_finite(tmp_path):
+    """An insertion onto an existing molecule (the same sites, so r2 sits at
+    the 1e-18 floor, (sigma^2/r2)^3 overflows f32 and its LJ term is
+    inf - inf = NaN in both packages' cores) is rejected, and the running
+    energies stay as they were, as in JAX's jitted step: the port commits
+    the deltas of accepted moves only (a select; a 0/1 product would keep
+    0 x NaN = NaN, as JAX's _bookkeep does when run op by op). f32; the
+    block kernel's bookkeeping is the same select."""
+    _water(str(tmp_path))
+    sysm, spec, state = load_both(str(tmp_path), capacity=16, f32=True)
+    com0 = state.com[0, :, 0].double()
+    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
+    row = np.full(21, 0.37, np.float32)
+    row[0], row[1], row[2] = 0.7, 0.25, 0.5    # a creation; u_acc 0.5
+    row[6:9] = frac.numpy()                    # molecule 0's COM
+    row[15], row[16] = 0.0, 0.25               # the identity rotation
+    U = row[None, None]
+    pre = _propose(spec, state, torch.from_numpy(U[:, 0]))
+    core = _core_plain(spec, state, pre)
+    assert bool(pre["gate"][0]) and not bool(torch.isfinite(core["e_lj"]).all())
+    jpre = jax_propose(sysm.spec, sysm.state, jnp.asarray(row))
+    jcore = jax_core(sysm.spec, sysm.state, jpre)
+    np.testing.assert_array_equal(np.isfinite(np.asarray(jcore["e_lj"])),
+                                  torch.isfinite(core["e_lj"][0]).numpy())
+    jst = jax_batch(sysm.spec, sysm.state, U)
+    pst = run_steps_u(spec, state, torch.from_numpy(U))
+    assert torch.equal(pst.energy, state.energy)
+    np.testing.assert_array_equal(pst.energy.numpy(), np.asarray(jst.energy))
+    assert int(pst.counters[0, 0, 0]) == 1 and int(pst.counters[0, 1, 0]) == 0
+    np.testing.assert_array_equal(pst.n_mol.numpy(), np.asarray(jst.n_mol))
+    assert torch.equal(pst.pos, state.pos)
 
 
 def test_step_is_batched_over_replicas(tmp_path):

@@ -181,22 +181,29 @@ def test_load_system_with_reservoir_matches_jax(tmp_path):
 
 def test_gates_widened(tmp_path):
     """The block kernel takes a reservoir and the water box without the
-    split (every type active); the step kernel takes the reservoir; two
-    active species stay on the per-step path."""
+    split (every type active); the step kernel takes the reservoir. Two
+    active species take the block kernel where the split covers the
+    framework; with the split off, the framework is an inactive type
+    outside the block gate, and such a system runs the per-step path."""
     res = _resv(str(tmp_path / "resv"))
     _, spec_r, _ = load_both(str(tmp_path / "resv"), capacity=16, f32=True,
                              reservoir=res)
     _, spec_w, _ = load_both(str(tmp_path / "resv"), capacity=16, f32=True)
-    for spec in (spec_r, spec_w):
+    make_framework_mixed(str(tmp_path / "mixed"), n_cells=3, a=5.66,
+                         n_water=3, n_dimer=3, cutoff=5.0, tol=1e-4)
+    _, spec_m, _ = load_both(str(tmp_path / "mixed"), capacity=16, f32=True)
+    assert spec_m.fw_split and spec_m.n_active == 2
+    for spec in (spec_r, spec_w, spec_m):
         rep = dispatch_report(spec, "cuda")
         assert ("block: CUDA whole-block kernel; step: CUDA per-step "
                 "kernel; resync: CUDA resync kernel") in rep, rep
     assert not spec_w.fw_split and spec_w.R == spec_w.n_active
-    make_framework_mixed(str(tmp_path / "mixed"), n_cells=2, a=5.66,
+    make_framework_mixed(str(tmp_path / "small"), n_cells=2, a=5.66,
                          n_water=3, n_dimer=3)
-    _, spec_m, _ = load_both(str(tmp_path / "mixed"), capacity=16, f32=True)
-    rep = dispatch_report(spec_m, "cuda")
-    assert "per-step path (2 active species" in rep
+    _, spec_s, _ = load_both(str(tmp_path / "small"), capacity=16, f32=True)
+    rep = dispatch_report(spec_s, "cuda")
+    assert not spec_s.fw_split
+    assert "per-step path (framework split off with inactive types" in rep
     assert "step: CUDA per-step kernel" in rep
 
 

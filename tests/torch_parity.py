@@ -14,6 +14,7 @@ import torch
 import maniac_tpu
 from maniac_tpu.mc.moves import mc_step_u as jax_mc_step_u
 from maniac_tpu_torch.system import from_numpy
+from maniac_tpu_torch.systems import make_mixed_reservoir, make_mixed_sizes
 
 # tolerances of the f32 parity tests: the bounds tests/test_blockg.py holds
 # the TPU kernel to against the XLA scan (f32 ulp on positions, running
@@ -47,6 +48,15 @@ def load_both(outdir, *, capacity=None, f32=False, reservoir=None):
     spec, state = from_numpy(jax_leaves(sysm.spec), jax_leaves(sysm.state),
                              device="cpu", dtype=tdt)
     return sysm, spec, state
+
+
+def mixed_with_reservoir(outdir) -> str:
+    """Two active species (4-site water, 2-site dimer, no framework) with a
+    reservoir of both: make_mixed_sizes and make_mixed_reservoir, 4 of each
+    in the box and in the reservoir. Returns the reservoir file's path."""
+    make_mixed_sizes(outdir, n_water=4, n_dimer=4, L=16.0, cutoff=5.0,
+                     tol=1e-4, probs=(0.2, 0.1, 0.3, 0.4))
+    return make_mixed_reservoir(outdir, n_water=4, n_dimer=4, L=16.0)
 
 
 def uniforms(B: int, n_steps: int, seed: int, f32: bool) -> np.ndarray:
