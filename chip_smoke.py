@@ -76,6 +76,29 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      B=1 with no divergence allowed, timed at B=1; (f) the command line's
      single chain on a tricl deck (2 blocks of 400 steps): exit 0, the
      banner, 3 rows of energy.dat, 800 step-kernel launches.
+ 10. hardware precision and the sentinel: (a) the one-hot kernel K5 against
+     numpy on the probe's (8, 256) x (256, 8) operands, exactly, timed
+     beside torch.matmul (its library time); (b) the main path of K5,
+     utils/hwprobe.hw_precision_check(blocks=4), returns "pass" and
+     launches K5 and the block kernel; (c) sentinel_check on the flagship
+     (B=64, 50 steps): 0 mismatches against the block's own result and
+     counter mismatches against a state one block further on; (d) the
+     command line with --sentinel 1 on the flagship deck (2 blocks of 400
+     steps), with --replicas 64 (K2 + K1) and as a single chain (K3): exit
+     0 and "sentinel: 2 cross-checked blocks, 0 divergences"; (e) python
+     -m maniac_tpu_torch.tools.precision_probe --blocks 4 prints RESULT:
+     PASS;
+ 11. the micro-benchmarks at the JAX tools' default shapes, each driven
+     through its tool's entry point (main) with the launch counts set to 0
+     just before, then held against its plain version and timed: K6
+     (tools/gpass_bench: cur, noerfc, nowrap, read; G 64, NC 47, FL 2, FQ
+     6, 100 steps; its Coulomb rows alone, FL 0; its LJ rows alone, FQ 0,
+     on gpass_bench.check_inputs: eps and sigma^2 per row, no site within
+     2 A of the footprint) within 1e-5 of the plain version's sum of
+     |terms|; K7
+     (tools/vpu_bench: the nine ops on a (128, 1280) plane, n 512) within
+     1e-4 relative per element; K8 (cpass, cpassT, n 512) within 5e-5
+     relative per element.
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
@@ -87,7 +110,8 @@ call must move (each input read once, each output written once) over
 3.35 TB/s and its f32 operations, counted from this run's inputs
 (_step_ops, _resync_bound), over 67 TFLOP/s (one H100 SXM at 700 W; TF32
 is off by design). No single PyTorch call computes any of these
-functions, so library_ms is null. Then the card's name and power limit,
+functions but K5's (torch.matmul), so library_ms is null on every other
+row. Then the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure raises:
 the exit code is then non-zero and no result line is printed. It needs no
 network and only the files of this repository.
@@ -96,8 +120,10 @@ network and only the files of this repository.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -105,9 +131,15 @@ import time
 
 import torch
 
+from maniac_tpu_torch.tools import card_label
+from maniac_tpu_torch.tools import cuda_ms as _cuda_ms
+
 RESYNC_SRC = "maniac_tpu_torch/kernels/csrc/resync.cu"
 BLOCKG_SRC = "maniac_tpu_torch/kernels/csrc/blockg.cu"
 STEPG_SRC = "maniac_tpu_torch/kernels/csrc/stepg.cu"
+HWPROBE_SRC = "maniac_tpu_torch/kernels/csrc/hwprobe.cu"
+GPASS_SRC = "maniac_tpu_torch/kernels/csrc/gpass.cu"
+VPU_SRC = "maniac_tpu_torch/kernels/csrc/vpu.cu"
 # phases 1-2, 4: replicas and MC steps of the kernel-vs-plain comparisons
 CHECK_REPLICAS, CHECK_STEPS = 64, 50
 # phase 3: the flagship main path
@@ -126,6 +158,11 @@ MIXED_SYSTEM = dict(n_cells=6, a=5.66, n_water=24, n_dimer=12, cutoff=8.5,
                     tol=1e-5, probs=(0.25, 0.15, 0.4, 0.2))
 TRICL_BOX = dict(n_water=24, L=22.0, tilt=(2.0, 1.2, 0.8), cutoff=7.0,
                  tol=1e-5, probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0)
+# phase 10: the command line's sentinel runs
+SENTINEL_REPLICAS = 64
+# phase 11: the micro-benchmarks' bounds against their plain versions are
+# the kernel modules' GPASS_RTOL, VPU_RTOL and CPASS_RTOL
+GPASS_CHECKED = ("cur", "noerfc", "nowrap", "read")
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -147,22 +184,21 @@ OPS_PAIR = 30
 OPS_MIN_IMAGE = 9
 OPS_IMAGE = 7
 N_IMAGES = 27
-
-
-def _cuda_ms(fn, reps: int) -> float:
-    """Mean time of fn() in ms over reps calls after one warm-up call, by
-    CUDA events (for the launch-bound plain versions this includes the
-    device waiting on the host)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+# the micro-benchmarks, by the same count: K7 per element and application
+# (the negation of exp's argument is free); one K8 element per pass: three
+# differences, two wraps (multiply, rint, multiply-add), r2 and its floor,
+# rsqrt, alpha r, the erfc probe (13), three products, the select and the
+# sum; one K6 pair: three differences, the wrap (not with nowrap), r2 and
+# its floor, then LJ (1/r2, sr2, sr6, sr12, difference, 4 eps, select,
+# sum) or Coulomb (rsqrt, alpha r, A&S erfc (15), three products, select,
+# sum; noerfc: rsqrt, two products, select, sum); read: three sums and the
+# accumulation per element and step
+OPS_VPU = dict(fma=2, mul2=2, div=2, rsqrt=2, sqrt=2, exp=1, round=3,
+               cmpsel=3, erfc=14)
+OPS_CPASS = 38
+OPS_GPASS_PAIR, OPS_GPASS_WRAP = 9, 12
+OPS_GPASS_LJ, OPS_GPASS_COUL, OPS_GPASS_NOERFC = 10, 23, 5
+OPS_GPASS_READ = 4
 
 
 def _nbytes(*tensors) -> int:
@@ -382,13 +418,15 @@ def _resync_bound(spec, states, out):
     return _bound(nbytes, ops)
 
 
-def _row(name, src, replaces, launches, err, ms, plain_ms, bound):
-    """One kernel's entry of the kernels line; no single PyTorch call
-    computes any of these functions, so there is no library time."""
+def _row(name, src, replaces, launches, err, ms, plain_ms, bound,
+         library_ms=None):
+    """One kernel's entry of the kernels line; library_ms is the time of
+    the one PyTorch call that computes the same function, where there is
+    one."""
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None}
+            "bound_by": bound[1], "library_ms": library_ms}
 
 
 def _conserved(st):
@@ -742,6 +780,248 @@ def _tricl_step_phase(sysm, dev, gen, label):
                 ms, ms_plain, bound)
 
 
+def _tool_main(main, argv):
+    """A tool's entry point with its stdout captured: (exit code, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def _last(text):
+    lines = text.strip().splitlines()
+    return lines[-1].strip() if lines else "(no output)"
+
+
+def _precision_phase(spec, state, dev, gen, label):
+    """Phase 10: K5, the hardware-precision check, the sentinel on the
+    flagship (spec, state), its command line and the probe tool. Returns
+    K5's row."""
+    import numpy as np
+    from maniac_tpu_torch import replicate, run_block_uniforms
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.hwprobe import (onehot_product,
+                                                  onehot_product_plain)
+    from maniac_tpu_torch.kernels.resync import resync_grouped
+    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.mc.driver import (draw_uniforms, sentinel_check,
+                                            sentinel_passed)
+    from maniac_tpu_torch.systems import make_zif_like
+    from maniac_tpu_torch.utils.hwprobe import (hw_precision_check,
+                                                onehot_operands)
+
+    # a. K5 against numpy, exactly; timed beside torch.matmul
+    x, oh, want = onehot_operands()
+    xt, oht = torch.from_numpy(x).to(dev), torch.from_numpy(oh).to(dev)
+    err = float(np.abs(onehot_product(xt, oht).cpu().numpy() - want).max())
+    ms = _cuda_ms(lambda: onehot_product(xt, oht), 100)
+    ms_plain = _cuda_ms(lambda: onehot_product_plain(xt, oht), 100)
+    ms_lib = _cuda_ms(lambda: torch.matmul(xt, oht), 100)
+    M, K = x.shape
+    bound = _bound(_nbytes(xt, oht) + M * oh.shape[1] * 4,
+                   2.0 * M * K * oh.shape[1])
+    print(f"phase 10a: one-hot kernel max|err| {err:.3e} (bound 0, exact); "
+          f"kernel {ms:.4f} ms, plain {ms_plain:.4f} ms, torch.matmul "
+          f"{ms_lib:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]} "
+          f"({label})")
+    if err != 0.0:
+        raise AssertionError("phase 10a: the one-hot kernel is not exact")
+
+    # b. the main path of K5: the hardware-precision check
+    onehot_product.launches = 0
+    run_block_kernel.launches = 0
+    t0 = time.perf_counter()
+    verdict, detail = hw_precision_check(blocks=4)
+    sec = time.perf_counter() - t0
+    launches = onehot_product.launches
+    print(f"phase 10b: hw_precision_check(blocks=4): {verdict} in "
+          f"{sec:.1f} s; {detail}; launches onehot {launches}, blockg "
+          f"{run_block_kernel.launches}")
+    if verdict != "pass" or launches < 1 or run_block_kernel.launches < 1:
+        raise AssertionError("phase 10b: the hardware-precision check "
+                             "failed")
+
+    # c. the sentinel on the flagship: its own block matches, a block
+    # further on is flagged
+    st = replicate(spec, state, CHECK_REPLICAS)
+    u1 = draw_uniforms(spec, CHECK_REPLICAS, CHECK_STEPS, gen)
+    u2 = draw_uniforms(spec, CHECK_REPLICAS, CHECK_STEPS, gen)
+    post = run_block_uniforms(spec, st, u1, False, True)
+    post2 = run_block_uniforms(spec, post, u2, False, True)
+    same = sentinel_check(spec, st, post, u1, False, resync=True)
+    other = sentinel_check(spec, st, post2, u1, False, resync=True)
+    print(f"phase 10c: sentinel on the flagship block: {same}; against a "
+          f"block further on: {other}")
+    if not sentinel_passed(same) or not other["counter_mismatch"] > 0:
+        raise AssertionError("phase 10c: the sentinel's checks failed")
+
+    # d. the command line with --sentinel 1: replicas (K2 + K1), then a
+    # single chain (K3)
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = f"{tmp}/deck"
+        make_zif_like(deck, n_cells=6, a=5.66, n_water=32, fugacity=30.0,
+                      nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS)
+        files = ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
+                 "-p", f"{deck}/parameters.inc", "--capacity", str(CAPACITY),
+                 "--sentinel", "1"]
+        for tag, extra in (("replicas", ["--replicas",
+                                         str(SENTINEL_REPLICAS)]),
+                           ("single chain", [])):
+            run_block_kernel.launches = 0
+            resync_grouped.launches = 0
+            step_core.launches = 0
+            rc, sec, log = _cli(files + extra, f"{tmp}/out_{len(extra)}")
+            counts = {"blockg": run_block_kernel.launches,
+                      "resync": resync_grouped.launches,
+                      "stepg": step_core.launches}
+            lines = [ln.strip() for ln in log.splitlines()
+                     if "sentinel" in ln.lower()]
+            print(f"phase 10d: --sentinel 1, {tag}: exit {rc} in {sec:.1f} "
+                  f"s; launches {counts}; " + "; ".join(lines))
+            if extra:
+                kernels_ok = (counts["blockg"] >= CHAIN_BLOCKS
+                              and counts["resync"] >= CHAIN_BLOCKS)
+            else:
+                kernels_ok = counts["stepg"] >= CHAIN_BLOCKS * MAIN_STEPS
+            if (rc != 0 or not kernels_ok
+                    or f"sentinel: {CHAIN_BLOCKS} cross-checked blocks, 0 "
+                       f"divergences" not in log):
+                raise AssertionError(f"phase 10d: --sentinel 1 ({tag}) "
+                                     f"failed its checks")
+
+    # e. the probe's command line
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "maniac_tpu_torch.tools.precision_probe",
+         "--blocks", "4"], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    print(f"phase 10e: precision_probe --blocks 4: exit {proc.returncode} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    for line in proc.stdout.splitlines():
+        print(f"phase 10e: {line}")
+    if proc.returncode != 0 or "RESULT: PASS" not in proc.stdout:
+        raise AssertionError(f"phase 10e: the probe failed:\n{proc.stderr}")
+    return _row("onehot_product", HWPROBE_SRC, "maniac_tpu/utils/hwprobe.py:58",
+                launches, err, ms, ms_plain, bound, ms_lib)
+
+
+def _gpass_ops(variant, G, S, fl, fq, n_steps):
+    """Operations of one K6 call (OPS_GPASS_*); ``read``'s function, the
+    inputs' sum times n_steps (FL + FQ), needs one sum of each element."""
+    if variant == "read":
+        return float(G * S * OPS_GPASS_READ)
+    pair = OPS_GPASS_PAIR + (0 if variant == "nowrap" else OPS_GPASS_WRAP)
+    coul = OPS_GPASS_NOERFC if variant == "noerfc" else OPS_GPASS_COUL
+    return float(n_steps * G * S * (fl * (pair + OPS_GPASS_LJ)
+                                    + fq * (pair + coul)))
+
+
+def _elementwise(name, k, p, rtol):
+    """max |k - p|, after checking |k - p| <= rtol |p| on every element."""
+    diff = (k - p).abs()
+    worst = float((diff / p.abs().clamp(min=1e-30)).max())
+    if not bool((diff <= rtol * p.abs()).all()):
+        raise AssertionError(f"{name}: kernel and plain differ by "
+                             f"{worst:.3e} relative (bound {rtol:g})")
+    return float(diff.max()), worst
+
+
+def _microbench_phase(dev, label):
+    """Phase 11: K6, K7 and K8 through their tools, then against their
+    plain versions at the tools' default shapes. Returns their rows."""
+    from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, gpass,
+                                                gpass_plain, gpass_scale)
+    from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
+                                              cpass, cpass_plain, vpu_chain,
+                                              vpu_chain_plain)
+    from maniac_tpu_torch.tools import gpass_bench, vpu_bench
+
+    rows = []
+    # K6
+    G, S, n_steps = gpass_bench.G, gpass_bench.NC * 128, gpass_bench.NSTEP
+    fl, fq = gpass_bench.FL, gpass_bench.FQ
+    ins = gpass_bench.inputs(G, S, fl, dev)
+    # the full pass on the tool's inputs, whose closest pairs' LJ terms
+    # (some 1e15 in all) hide every other term in its bound; so also the
+    # Coulomb rows alone (FL 0), and the LJ rows alone (FQ 0) on inputs
+    # with eps and sigma^2 per row and no site within 2 A of the footprint
+    checks = ((ins, fq), ((*ins[:4], ins[4][:0], ins[5][:0]), fq),
+              (gpass_bench.check_inputs(G, S, fl, 0, n_steps, dev), 0))
+    for v in GPASS_CHECKED:
+        gpass.launches = 0
+        rc, out = _tool_main(gpass_bench.main, [v])
+        launches = gpass.launches
+        diffs = []
+        for args, nq in checks:
+            k = float(gpass(*args, n_steps, nq, v))
+            p = float(gpass_plain(*args, n_steps, nq, v))
+            scale = gpass_scale(*args, n_steps, nq, v)
+            print(f"phase 11: gpass {v} (FL {args[4].shape[0]}, FQ {nq}): "
+                  f"kernel {k:.9e}, plain {p:.9e}, |diff| {abs(k - p):.3e} "
+                  f"(bound {GPASS_RTOL:g} x sum|terms| {scale:.3e})")
+            if not (math.isfinite(k) and abs(k - p) <= GPASS_RTOL * scale):
+                raise AssertionError(f"phase 11: gpass {v} disagrees with "
+                                     f"plain")
+            diffs.append(abs(k - p))
+        ms = _cuda_ms(lambda: gpass(*ins, n_steps, fq, v), 3)
+        ms_plain = _cuda_ms(lambda: gpass_plain(*ins, n_steps, fq, v), 1)
+        bound = _bound(_nbytes(*ins) + 8,
+                       _gpass_ops(v, G, S, fl, fq, n_steps))
+        print(f"phase 11: gpass {v}: tool exit {rc}, {_last(out)}; "
+              f"launches {launches}; kernel {ms:.3f} ms, plain "
+              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({label})")
+        if rc != 0 or launches < 1:
+            raise AssertionError(f"phase 11: gpass {v} failed its checks")
+        rows.append(_row(f"gpass/{v}", GPASS_SRC, "tools/gpass_bench.py:60",
+                         launches, max(diffs), ms, ms_plain, bound))
+    # K7
+    R, C, n = vpu_bench.ROWS, vpu_bench.COLS, vpu_bench.N
+    x = vpu_bench.plane(R, C, dev)
+    for op in VPU_OPS:
+        vpu_chain.launches = 0
+        rc, out = _tool_main(vpu_bench.main, [op])
+        launches = vpu_chain.launches
+        err, rel = _elementwise(f"phase 11: vpu {op}", vpu_chain(x, op, n),
+                                vpu_chain_plain(x, op, n), VPU_RTOL)
+        ms = _cuda_ms(lambda: vpu_chain(x, op, n), 20)
+        ms_plain = _cuda_ms(lambda: vpu_chain_plain(x, op, n), 2)
+        bound = _bound(2 * _nbytes(x), float(n * R * C * OPS_VPU[op]))
+        print(f"phase 11: vpu {op}: tool exit {rc}, {_last(out)}; "
+              f"launches {launches}; max|dx| {err:.3e}, max rel {rel:.3e} "
+              f"(bound {VPU_RTOL:g}); kernel {ms:.4f} ms, plain "
+              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({label})")
+        if rc != 0 or launches < 1:
+            raise AssertionError(f"phase 11: vpu {op} failed its checks")
+        rows.append(_row(f"vpu/{op}", VPU_SRC, "tools/vpu_bench.py:57",
+                         launches, err, ms, ms_plain, bound))
+    # K8
+    cins = vpu_bench.cpass_inputs(R, C, dev)
+    for name in ("cpass", "cpassT"):
+        tr = name == "cpassT"
+        cpass.launches = 0
+        rc, out = _tool_main(vpu_bench.main, [name])
+        launches = cpass.launches
+        err, rel = _elementwise(f"phase 11: {name}", cpass(*cins, n, tr),
+                                cpass_plain(*cins, n, tr), CPASS_RTOL)
+        ms = _cuda_ms(lambda: cpass(*cins, n, tr), 20)
+        ms_plain = _cuda_ms(lambda: cpass_plain(*cins, n, tr), 2)
+        bound = _bound(_nbytes(*cins) + _nbytes(cins[0]),
+                       float(n * R * C * OPS_CPASS))
+        print(f"phase 11: {name}: tool exit {rc}, {_last(out)}; "
+              f"launches {launches}; max|d| {err:.3e}, max rel {rel:.3e} "
+              f"(bound {CPASS_RTOL:g}); kernel {ms:.4f} ms, plain "
+              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({label})")
+        if rc != 0 or launches < 1:
+            raise AssertionError(f"phase 11: {name} failed its checks")
+        rows.append(_row(name, VPU_SRC, "tools/vpu_bench.py:108", launches,
+                         err, ms, ms_plain, bound))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -760,10 +1040,7 @@ def main() -> int:
     # ---- phase 0: device and build ---------------------------------------
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_label()
     print(f"phase 0: device {name}; nvidia-smi: {smi}")
     print(f"phase 0: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -944,12 +1221,16 @@ def main() -> int:
                                    TRICL_BOX, dev, gen, label)
     tricl_step = _tricl_step_phase(tricl_sys, dev, gen, label)
 
+    # ---- phases 10-11: hardware precision, the sentinel, the tools -------
+    onehot = _precision_phase(spec, sysm.state, dev, gen, label)
+    micro = _microbench_phase(dev, label)
+
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1),
         _row("step_core", STEPG_SRC,
             "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
             err_step, ms_step, ms_step_plain, bound_step),
-        *resv, *mixed, *tricl, tricl_step,
+        *resv, *mixed, *tricl, tricl_step, onehot, *micro,
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

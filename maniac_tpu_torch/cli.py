@@ -19,12 +19,14 @@ Counterpart of maniac_tpu/cli.py with the same flags and output files:
     --profile BINS   per-block COM density histogram -> profile_<RES>.dat
     --isotherm F,..  adsorption-isotherm sweep: every fugacity a batch of
                      --replicas chains -> isotherm_<RES>.dat, isotherm.dat
+    --sentinel N     every N blocks, replay replica 0's block on the plain
+                     path and compare (mc/driver.py::sentinel_check)
 
 With -r, insertions take their geometry from the reservoir and deletions
 push back into it; reservoir.lammpstrj is written beside the trajectory.
 
-Not ported yet (a logged abort with exit code 1): --widom, --sentinel,
---checkpoint and --resume.
+Not ported yet (a logged abort with exit code 1): --widom, --checkpoint
+and --resume.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ import torch
 from .utils.errors import ManiacError
 from .utils.logger import Logger
 
-_NOT_PORTED = (("widom", "--widom"),
-               ("sentinel", "--sentinel"), ("checkpoint", "--checkpoint"),
+_NOT_PORTED = (("widom", "--widom"), ("checkpoint", "--checkpoint"),
                ("resume", "--resume"))
+# the JAX package's benign rate of sentinel divergences (one per ~500
+# checked blocks, maniac_tpu/cli.py); not a rate measured on this card
+SENTINEL_BENIGN_RATE = 1 / 500
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -69,7 +73,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "per active species -> profile_<RES>.dat")
     p.add_argument("--profile-axis", choices=["x", "y", "z"], default="z")
     p.add_argument("--sentinel", type=int, default=0, metavar="N",
-                   help="not ported yet")
+                   help="every N blocks, replay replica 0's block on the "
+                        "plain path and compare with the kernels' result")
     p.add_argument("--isotherm", default=None, metavar="F1,F2,...",
                    help="adsorption-isotherm sweep: run every listed "
                         "fugacity (atm, applied to each active species "
@@ -113,10 +118,11 @@ def _run(args, outdir: str, logger) -> int:
     from .api import load_system
     from .io.writers import OutputWriter, snapshot
     from .kernels import dispatch_report
-    from .mc.driver import (drift_report, refresh_reported_energy, resync,
-                            run_block)
+    from .mc.driver import (block_body_u, draw_uniforms, drift_report,
+                            refresh_reported_energy, resync, sentinel_check,
+                            sentinel_passed)
     from .parallel.mesh import gather_replica_stats
-    from .parallel.replicas import replicate, run_block_replicated
+    from .parallel.replicas import replicate, run_block_uniforms
     from .system import E_TOT
 
     for name, flag in _NOT_PORTED:
@@ -171,15 +177,37 @@ def _run(args, outdir: str, logger) -> int:
     act_names = [deck.residues[r].name for r in act_ids]
     f32 = spec.dtype == torch.float32
     total_steps = 0
+    sentinel_fail = 0
     for block in range(1, deck.nb_block + 1):
+        # the block's uniforms are drawn here, as run_block_replicated and
+        # run_block draw them, so that --sentinel can replay them
+        u = draw_uniforms(spec, state.B, deck.nb_step, gen)
+        state_pre = state
         if replicated:
             # f32: the amplitude resync bounds the incremental A(k) drift
             # at block granularity (DIVERGENCES #13)
-            state = run_block_replicated(spec, state, deck.nb_step,
-                                         deck.recalibrate_moves, f32, gen)
+            state = run_block_uniforms(spec, state, u,
+                                       deck.recalibrate_moves, f32)
         else:
-            state = run_block(spec, state, deck.nb_step,
-                              deck.recalibrate_moves, gen)
+            state = block_body_u(spec, state, u, deck.recalibrate_moves)
+        if args.sentinel > 0 and block % args.sentinel == 0:
+            # before the f32 energy refresh: the block's own output against
+            # the plain replay of replica 0 from the same state and uniforms
+            rep = sentinel_check(spec, state_pre, state, u,
+                                 deck.recalibrate_moves,
+                                 resync=f32 and replicated)
+            if sentinel_passed(rep):
+                logger.log(f"  sentinel block {block}: kernel == plain "
+                           f"(pos diff {rep['pos_max_diff']:.2e}, energy "
+                           f"diff {rep['energy_max_diff']:.2e} K)")
+            else:
+                sentinel_fail += 1
+                logger.log(
+                    f"  sentinel block {block}: kernel/plain divergence "
+                    f"(n_mol_mismatch={rep['n_mol_mismatch']} "
+                    f"counter_mismatch={rep['counter_mismatch']} "
+                    f"pos_max_diff={rep['pos_max_diff']:.3e}) - an isolated "
+                    f"flip at a Metropolis threshold is benign")
         if f32:
             # the reported energy rows are fresh values every block, as the
             # reference's energy.dat (src/write_utils.f90:94-188)
@@ -214,6 +242,18 @@ def _run(args, outdir: str, logger) -> int:
         for r, name in zip(act_ids, act_names):
             logger.log(f"  replica <N({name})> = {n[:, r].mean():.3f}"
                        f" +- {n[:, r].std():.3f}")
+    if args.sentinel > 0:
+        checked = deck.nb_block // args.sentinel
+        expected = checked * SENTINEL_BENIGN_RATE
+        logger.log(f"  sentinel: {checked} cross-checked blocks, "
+                   f"{sentinel_fail} divergences (~{expected:.2f} benign "
+                   f"expected at the JAX package's 1/500)")
+        if sentinel_fail > max(2.0, 4.0 * expected):
+            logger.warn(
+                f"SENTINEL: systematic kernel/plain divergence "
+                f"({sentinel_fail}/{checked} checked blocks, far above the "
+                f"JAX package's benign 1/500) - investigate with python -m "
+                f"maniac_tpu_torch.tools.precision_probe")
     if deck.nb_block * deck.nb_step > 0:
         rate = total_steps / max(elapsed, 1e-9)
         logger.log(f"  throughput: {rate:,.0f} MC steps/s "
@@ -251,7 +291,8 @@ def _run_isotherm(args, outdir: str, logger, sysm, gen, t0: float) -> int:
                          f"fugacity, and {deck.residues[r].name} has "
                          f"fugacity {deck.residues[r].fugacity} in the deck",
                          1)
-    for flag, name in ((args.audit, "--audit"), (args.profile, "--profile")):
+    for flag, name in ((args.sentinel, "--sentinel"), (args.audit, "--audit"),
+                       (args.profile, "--profile")):
         if flag:
             logger.warn(f"{name} is ignored in --isotherm mode (the sweep "
                         f"is a self-contained batched run)")

@@ -19,6 +19,13 @@ Three kernels serve the MC paths on a CUDA device:
   resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
   ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
 
+Beside them, off the MC paths and without a gate: ``hwprobe.onehot_product``
+(csrc/hwprobe.cu), stage 1 of the hardware-precision probe
+(utils/hwprobe.py), and the micro-benchmarks ``gpass.gpass``
+(csrc/gpass.cu, the block kernel's guest pair pass) and ``vpu.vpu_chain``
+and ``vpu.cpass`` (csrc/vpu.cu, chained f32 primitives and the framework
+Coulomb pass's plane math), driven by maniac_tpu_torch/tools.
+
 Dispatch is split by what it depends on. The spec gates
 (``block_gate_failure``, ``step_gate_failure``, ``resync_gate_failure``)
 are the only rule on the spec: the callers (parallel/replicas.py,

@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-LAUNCHERS = ("resync_launch", "blockg_launch", "stepg_launch")
+LAUNCHERS = ("resync_launch", "blockg_launch", "stepg_launch", "onehot_launch",
+             "vpu_chain_launch", "cpass_launch", "gpass_launch")
 
 # last build's wall time in seconds (0.0 when the cached library was used)
 # and the compiler's output (ptxas -v: registers, shared memory, spills)

@@ -17,7 +17,7 @@ from ..constants import (MAX_ROTATION_ANGLE, MAX_TRANSLATION_STEP,
 from ..physics.energy import (active_site_mask, full_amplitudes, recip_energy,
                               site_positions, system_energy)
 from ..system import E_RECIP, E_TOT, SimState, SystemSpec
-from .moves import N_UNIFORMS, mc_step_u
+from .moves import N_UNIFORMS, _core_plain, mc_step_u
 
 
 def initialize_state(spec: SystemSpec, state: SimState) -> SimState:
@@ -69,27 +69,18 @@ def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
     return state
 
 
-def run_steps(spec: SystemSpec, state: SimState, n_steps: int,
-              generator: torch.Generator) -> SimState:
-    """n_steps MC steps with uniforms drawn from ``generator``."""
-    u = draw_uniforms(spec, state.B, n_steps, generator)
-    return run_steps_u(spec, state, u)
+def block_body_u(spec: SystemSpec, state: SimState, uniforms,
+                 recalibrate: bool, core=None) -> SimState:
+    """One block on the per-step path from explicit uniforms (B, n_steps,
+    21): the MC steps (``core`` as in mc_step_u) + recalibration."""
+    return _recalibrate(run_steps_u(spec, state, uniforms, core), recalibrate)
 
 
 def block_body(spec: SystemSpec, state: SimState, n_steps: int,
                recalibrate: bool, generator: torch.Generator) -> SimState:
     """One block on the per-step path: n_steps MC steps + recalibration."""
-    state = run_steps(spec, state, n_steps, generator)
-    return _recalibrate(state, recalibrate)
-
-
-def run_block(spec: SystemSpec, state: SimState, n_steps: int,
-              recalibrate: bool, generator: torch.Generator) -> SimState:
-    """One block of a single chain (B = 1) on the per-step path: the
-    command line's default mode."""
-    if state.B != 1:
-        raise ValueError(f"run_block runs one chain, got B = {state.B}")
-    return block_body(spec, state, n_steps, recalibrate, generator)
+    u = draw_uniforms(spec, state.B, n_steps, generator)
+    return block_body_u(spec, state, u, recalibrate)
 
 
 def resync(spec: SystemSpec, state: SimState) -> SimState:
@@ -122,6 +113,54 @@ def resync_amplitudes(spec: SystemSpec, state: SimState) -> SimState:
         return resync_amplitudes_body(spec, state)
     from ..kernels.resync import resync_grouped
     return resync_grouped(spec, state)
+
+
+def sentinel_check(spec: SystemSpec, state_pre: SimState,
+                   state_post: SimState, uniforms, recalibrate: bool,
+                   resync: bool = False) -> dict:
+    """Cross-check one block of replica 0 against the plain path, on the
+    states' device (the counterpart of maniac_tpu/mc/driver.py::
+    sentinel_check; the command line's ``--sentinel N``).
+
+    ``state_post`` is what the dispatched path (on the card: the
+    whole-block kernel or the step kernel) made of ``state_pre`` with the
+    block's uniforms (B, n_steps, 21). Replica 0 of ``state_pre`` is
+    replayed on uniforms[:1] through the steps with the plain energy core
+    (``_core_plain``, named so that the replay never takes the step
+    kernel), the recalibration and, with ``resync``, the plain amplitude
+    resynthesis, and compared with replica 0 of ``state_post``. Returns
+    {"n_mol_mismatch", "counter_mismatch", "pos_max_diff",
+    "energy_max_diff"}, reduced on the device and read in one transfer.
+
+    Populations and counters must match exactly, positions and energies to
+    f32 working precision. What differs between kernel and replay on the
+    card: the f32 summation order of the pair, far-field and k-space sums,
+    and libdevice erfcf in the kernels against torch.erfc in the replay; a
+    Metropolis decision that close to its threshold flips the replay and
+    the rest of the block diverges. An isolated divergence is that; one in
+    every check, or a growing count, is a fault."""
+    replay = block_body_u(spec, _row(state_pre, 0), uniforms[:1],
+                          recalibrate, core=_core_plain)
+    if resync:
+        replay = resync_amplitudes_body(spec, replay)
+    post = _row(state_post, 0)
+    diffs = torch.stack([
+        (replay.n_mol != post.n_mol).sum().double(),
+        (replay.counters != post.counters).sum().double(),
+        (replay.pos - post.pos).abs().max().double(),
+        (replay.energy - post.energy).abs().max().double()]).cpu()
+    return {"n_mol_mismatch": int(diffs[0]),
+            "counter_mismatch": int(diffs[1]),
+            "pos_max_diff": float(diffs[2]),
+            "energy_max_diff": float(diffs[3])}
+
+
+def sentinel_passed(report: dict) -> bool:
+    """True when a sentinel_check report shows no divergence: populations
+    and counters equal, positions within 1e-3 A (the JAX package's
+    rule)."""
+    return (report["n_mol_mismatch"] == 0 and report["counter_mismatch"] == 0
+            and report["pos_max_diff"] < 1e-3)
 
 
 def refresh_reported_energy(spec: SystemSpec, states: SimState) -> SimState:

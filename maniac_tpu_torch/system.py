@@ -205,14 +205,20 @@ def tensor_fields(obj):
             if f.name not in _META_FIELDS]
 
 
+def disable_tf32() -> None:
+    """Turn TF32 off for matrix products and cuDNN: positions and energies
+    must never pass through reduced-precision math."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def to_device(obj, device, dtype=None):
     """Move a SystemSpec or SimState to ``device``; floating tensors are
-    cast to ``dtype`` (default: keep). Picking a CUDA device turns TF32 off:
-    positions and energies must never pass through reduced-precision math."""
+    cast to ``dtype`` (default: keep). Picking a CUDA device turns TF32 off
+    (disable_tf32)."""
     device = torch.device(device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        disable_tf32()
     kw = {}
     for name, t in tensor_fields(obj):
         if t.is_floating_point() and dtype is not None:

@@ -1,0 +1,48 @@
+"""Command-line tools that measure the card: ``precision_probe`` (the
+hardware-precision probe), ``gpass_bench`` (the guest pair pass) and
+``vpu_bench`` (chained f32 primitives and the framework Coulomb pass's
+plane math), each run as ``python -m maniac_tpu_torch.tools.<name>``.
+They need a CUDA device and exit 1 without one; every time they print
+comes with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import torch
+
+
+def require_cuda(tool: str) -> bool:
+    """True when a CUDA device is present; else a message on stderr."""
+    if torch.cuda.is_available():
+        return True
+    print(f"{tool}: no CUDA device (this tool measures the card)",
+          file=sys.stderr)
+    return False
+
+
+def card_label() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean time of fn() in ms over reps calls after one warm-up call, by
+    CUDA events (for a launch-bound fn this includes the device waiting on
+    the host)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -82,8 +82,8 @@ def test_cli_not_ported_and_missing_cuda(tmp_path):
     default --platform cuda on a machine without a CUDA device is an error,
     never a run on the CPU."""
     d = make_water_box(str(tmp_path / "sys"))
-    for i, extra in enumerate((["--widom", "4"], ["--sentinel", "1"],
-                               ["--checkpoint", "x.npz"])):
+    for i, extra in enumerate((["--widom", "4"], ["--checkpoint", "x.npz"],
+                               ["--resume", "x.npz"])):
         out = str(tmp_path / f"out{i}")
         assert cli_main(_flags(d, out, "--platform", "cpu", *extra)) == 1
         assert "not ported" in open(f"{out}/log.maniac").read()

@@ -7,14 +7,21 @@ without the suite's conftest:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from maniac_tpu_torch import load_system, replicate, run_block_replicated
 from maniac_tpu_torch.kernels import dispatch_report
 from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, GPASS_VARIANTS,
+                                            gpass, gpass_plain, gpass_scale)
+from maniac_tpu_torch.kernels.hwprobe import onehot_product
 from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
 from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
+from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
+                                          cpass, cpass_plain, vpu_chain,
+                                          vpu_chain_plain)
 from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                         run_steps_u)
 from maniac_tpu_torch.mc.moves import _propose
@@ -24,6 +31,10 @@ from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_mixed_reservoir, make_mixed_sizes,
                                       make_water_box, make_water_reservoir,
                                       make_zif_like, tiny_system)
+from maniac_tpu_torch.tools.gpass_bench import check_inputs
+from maniac_tpu_torch.tools.gpass_bench import inputs as gpass_inputs
+from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
+from maniac_tpu_torch.utils.hwprobe import onehot_operands, probe_onehot_exact
 
 pytestmark = pytest.mark.gpu
 
@@ -346,3 +357,73 @@ def test_resync_single_chain_matches_plain(tmp_path):
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
+
+
+def test_onehot_kernel_exact():
+    """K5 reads the one-hot columns exactly (f32 FMA, no TF32), and the
+    probe's stage 1 passes on the card."""
+    dev = _device()
+    x, oh, want = onehot_operands()
+    n0 = onehot_product.launches
+    got = onehot_product(torch.from_numpy(x).to(dev),
+                         torch.from_numpy(oh).to(dev))
+    assert onehot_product.launches == n0 + 1
+    assert np.array_equal(got.cpu().numpy().astype(np.float64), want)
+    ok, detail = probe_onehot_exact(dev)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("op", VPU_OPS)
+def test_vpu_chain_kernel_matches_plain(op):
+    """K7 at the tool's (128, 1280) plane, n = 512, elementwise."""
+    dev = _device()
+    x = plane(128, 1280, dev)
+    n0 = vpu_chain.launches
+    k = vpu_chain(x, op, 512)
+    assert vpu_chain.launches == n0 + 1
+    torch.testing.assert_close(k, vpu_chain_plain(x, op, 512),
+                               rtol=VPU_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["cpass", "cpassT"])
+def test_cpass_kernel_matches_plain(transposed):
+    """K8 at the tool's (128, 1280) planes, n = 512, elementwise."""
+    dev = _device()
+    ins = cpass_inputs(128, 1280, dev)
+    n0 = cpass.launches
+    k = cpass(*ins, 512, transposed)
+    assert cpass.launches == n0 + 1
+    torch.testing.assert_close(k, cpass_plain(*ins, 512, transposed),
+                               rtol=CPASS_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("variant", GPASS_VARIANTS)
+@pytest.mark.parametrize("fl", [2, 0], ids=["full", "coulomb"])
+def test_gpass_kernel_matches_plain(variant, fl):
+    """K6 at G 64, 8 chunks, 10 steps, with its LJ rows and without them
+    (whose closest pairs' terms would hide the Coulomb rows): the scalar
+    within 1e-5 of the sum of |terms|."""
+    dev = _device()
+    ins = gpass_inputs(64, 8 * 128, fl, dev)
+    n0 = gpass.launches
+    k = float(gpass(*ins, 10, 6, variant))
+    assert gpass.launches == n0 + 1
+    assert abs(k - float(gpass_plain(*ins, 10, 6, variant))) \
+        <= GPASS_RTOL * gpass_scale(*ins, 10, 6, variant)
+
+
+@pytest.mark.parametrize("variant", GPASS_VARIANTS)
+def test_gpass_kernel_lj_rows_match_plain(variant):
+    """K6's LJ rows alone (FQ 0) at G 64, 8 chunks, 10 steps, on inputs
+    whose eps and sigma^2 differ per row and whose sites all lie 2 A or
+    more from the footprint: the sum of |terms| then comes from the typical
+    pairs, and a planted LJ fault misses the bound more than 100 times over
+    (tests/test_torch_microbench.py)."""
+    dev = _device()
+    ins = check_inputs(64, 8 * 128, 2, 0, 10, dev)
+    n0 = gpass.launches
+    k = float(gpass(*ins, 10, 0, variant))
+    assert gpass.launches == n0 + 1
+    assert abs(k - float(gpass_plain(*ins, 10, 0, variant))) \
+        <= GPASS_RTOL * gpass_scale(*ins, 10, 0, variant)

@@ -21,7 +21,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, maniac_tpu_torch; "
+    """The package and the modules outside its import (the probes, the
+    micro-benchmark kernels and the tools) import neither jax nor the JAX
+    package."""
+    code = ("import sys, maniac_tpu_torch, maniac_tpu_torch.utils.hwprobe, "
+            "maniac_tpu_torch.kernels.hwprobe, maniac_tpu_torch.kernels.vpu, "
+            "maniac_tpu_torch.kernels.gpass, "
+            "maniac_tpu_torch.tools.precision_probe, "
+            "maniac_tpu_torch.tools.gpass_bench, "
+            "maniac_tpu_torch.tools.vpu_bench; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "
             "assert not bad, bad")
