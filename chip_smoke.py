@@ -20,10 +20,11 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      three timed blocks; both kernels must have launched, the state must be
      finite and within capacity, and replica 0's amplitudes and E_RECIP
      must match a fresh synthesis (phase-1 bounds); one block kernel call
-     of 400 steps is timed beside its bound. Then both kernels are
-     held against their plain versions at the main path's batch (10 block
-     steps, at most B/64 replicas diverged; the resync of the result) and
-     timed;
+     of 400 steps is timed beside its bound; the far table's size is
+     printed (rows, live modes, tiles, bytes). Then both kernels
+     are held against their plain versions at the main path's batch (10
+     block steps, at most B/64 replicas diverged; the resync of the result)
+     and timed;
   4. the per-step kernel against the plain energy core at B=64 on three
      systems (the flagship; bench.py's `mixed`, two active species with
      swaps and the split; bench.py's `resv` water box without its
@@ -32,7 +33,9 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      matching replicas, the committed amplitudes and E_RECIP within phase
      1's bounds; the flagship also at B=1, the single chain's shape, with
      no divergence allowed; both cores timed per step, and on the flagship
-     at B=1024 (phase 3's states);
+     at B=1024 (phase 3's states): the step kernel's call device-paced
+     (tools/kernel_times.device_ms: queued behind a spin kernel, so the
+     host's pace drops out), and host-paced beside it;
   4b. the resync kernel at B=1, driven through mc/driver.resync_amplitudes
      (the resync every replicated block calls), against its plain version
      (phase 1's bounds), timed;
@@ -64,10 +67,11 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      n_water=24, n_dimer=12, cutoff=8.5, tol=1e-5, probs=(0.25, 0.15, 0.4,
      0.2)), capacity 192, f32: a framework with the split and two active
      species with swaps): (a) the dispatch must name the whole-block
-     kernel; (b) the block kernel's two-species form against the plain
-     block, B=64 x 50 steps, phase 2's bounds, swaps tried; (c) the main
-     path as phase 3 (B=1024, one warm-up and three timed blocks of 400
-     steps with the resync); (d) both kernels held and timed at B=1024;
+     kernel, and its far table's size; (b) the block kernel's two-species
+     form against the plain block, B=64 x 50 steps, phase 2's bounds, swaps
+     tried; (c) the main path as phase 3 (B=1024, one warm-up and three
+     timed blocks of 400 steps with the resync); (d)
+     both kernels held and timed at B=1024;
   9. bench.py's `tricl` (make_triclinic_water(n_water=24, L=22, tilt=(2.0,
      1.2, 0.8), cutoff=7, tol=1e-5, probs=(0.3, 0.2, 0.5, 0),
      fugacity=4000), capacity 192, f32: a triclinic box, no framework):
@@ -78,7 +82,11 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      banner, 3 rows of energy.dat, 800 step-kernel launches.
  10. hardware precision and the sentinel: (a) the one-hot kernel K5 against
      numpy on the probe's (8, 256) x (256, 8) operands, exactly, timed
-     beside torch.matmul (its library time); (b) the main path of K5,
+     beside torch.matmul (its library time) by tools/kernel_times.k5_times
+     (100 calls each, K5, plain, torch.matmul; and 2 x 1000 calls in
+     turns), and the launch path's host cost per call (tools/launch_cost:
+     10,000 launches of the empty kernel with K5's, K3's and K2's table
+     lengths through build.launch); (b) the main path of K5,
      utils/hwprobe.hw_precision_check(blocks=4), returns "pass" and
      launches K5 and the block kernel; (c) sentinel_check on the flagship
      (B=64, 50 steps): 0 mismatches against the block's own result and
@@ -109,7 +117,9 @@ time the card could take for the same work, the larger of the bytes the
 call must move (each input read once, each output written once) over
 3.35 TB/s and its f32 operations, counted from this run's inputs
 (_step_ops, _resync_bound), over 67 TFLOP/s (one H100 SXM at 700 W; TF32
-is off by design). No single PyTorch call computes any of these
+is off by design). The far field counts one complex multiply-add per
+nonzero coefficient and charged footprint atom, the work the separable
+contraction needs. No single PyTorch call computes any of these
 functions but K5's (torch.matmul), so library_ms is null on every other
 row. Then the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure raises:
@@ -133,6 +143,7 @@ import torch
 
 from maniac_tpu_torch.tools import card_label
 from maniac_tpu_torch.tools import cuda_ms as _cuda_ms
+from maniac_tpu_torch.tools.kernel_times import device_ms
 
 RESYNC_SRC = "maniac_tpu_torch/kernels/csrc/resync.cu"
 BLOCKG_SRC = "maniac_tpu_torch/kernels/csrc/blockg.cu"
@@ -180,6 +191,9 @@ HBM_BYTES_PER_S = 3.35e12
 # OPS_IMAGE each (three adds, a product and two multiply-adds, a min)
 OPS_ATOM_MODE = 16
 OPS_MODE = 8
+# the far field contracted one axis at a time (csrc/common.cuh far_sweep):
+# one complex multiply-add per nonzero coefficient and charged atom
+OPS_FAR_ATOM_MODE = 8
 OPS_PAIR = 30
 OPS_MIN_IMAGE = 9
 OPS_IMAGE = 7
@@ -240,14 +254,15 @@ def _type_rows(spec, n_mol, charged):
 
 def _step_ops(spec, atoms_q, atoms, sites, rows) -> float:
     """Operations of MC steps: the footprint's charged atoms at every
-    k-space and far-field mode, each mode's energy term once per proposal
+    k-space mode and every far-field mode with a coefficient (a complex
+    multiply-add each), each mode's energy term once per proposal
     that needs energies (rows of them), and every footprint atom against
     the live sites (frozen prefix included) with the box's minimum image;
     atoms_q, atoms and sites (B, 1) per replica."""
     k, k2 = _modes(spec)
     pair = OPS_PAIR + (N_IMAGES * OPS_IMAGE - OPS_MIN_IMAGE
                        if spec.is_triclinic else 0)
-    return float(OPS_ATOM_MODE * (k + k2) * atoms_q.sum()
+    return float((OPS_ATOM_MODE * k + OPS_FAR_ATOM_MODE * k2) * atoms_q.sum()
                  + pair * (atoms * (sites + spec.S_frozen)).sum()
                  + OPS_MODE * (k + k2) * rows)
 
@@ -287,7 +302,7 @@ def _block_bound(spec, states, out, u):
     tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
               spec.eps_site, spec.sig2_site, spec.k_weights]
     if spec.fw_split:
-        tables += [spec.c2_re, spec.c2_im]
+        tables += [spec.far_coef, spec.far_rows, spec.far_units]
     nbytes = _nbytes(u, states.trans_step, states.rot_step, *tables,
                      *[getattr(states, k) for k in keys],
                      *[getattr(out, k) for k in keys])
@@ -295,6 +310,16 @@ def _block_bound(spec, states, out, u):
                     atoms(spec.type_A), sites,
                     float(n.sum() - blocked.sum()))
     return _bound(nbytes, ops)
+
+
+def _far_table_line(spec) -> str:
+    """The far table's size: rows, live modes (nonzero coefficients),
+    tiles, bytes."""
+    rows = int((spec.far_rows[:, 3] > 0).sum())
+    live = int((spec.far_coef != 0).any(-1).sum())
+    return (f"far table {rows} rows in {spec.far_rows.shape[0] // 32} "
+            f"groups, {live} live modes, {spec.far_units.shape[0]} tiles, "
+            f"{_nbytes(spec.far_coef, spec.far_rows, spec.far_units)} bytes")
 
 
 def _main_block(spec, states, gen):
@@ -511,8 +536,9 @@ def _step_check(name, k, p, max_diverged):
 def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
     """Phase 4 on one system: the dispatched step (the step kernel) against
     the plain energy core, one step then an n_steps chain on the same
-    uniforms; then both cores timed on one proposal. Returns
-    (max |dA|, kernel ms, plain ms, (bound ms, what bounds it))."""
+    uniforms; then both cores timed on one proposal (the kernel's call
+    device-paced, and host-paced beside it). Returns (max |dA|, kernel ms,
+    plain ms, (bound ms, what bounds it))."""
     from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
     from maniac_tpu_torch.mc.driver import draw_uniforms, run_steps_u
     from maniac_tpu_torch.mc.moves import _propose, mc_step_u
@@ -542,15 +568,18 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
                      pre["last_cols"], out["pos"], out["amp_re"],
                      out["amp_im"], spec.site_q, spec.site_type,
                      spec.site_midx, spec.site_mol, spec.eps_site,
-                     spec.sig2_site, spec.k_weights)
+                     spec.sig2_site, spec.k_weights, spec.far_coef,
+                     spec.far_rows, spec.far_units)
     bound = _bound(nbytes, _step_ops(spec, atoms_q, atoms, sites,
                                      float(pre["gate"].sum())))
-    ms = _cuda_ms(lambda: step_core(spec, states, pre), 20)
+    ms = device_ms(lambda: step_core(spec, states, pre), 20)
+    ms_host = _cuda_ms(lambda: step_core(spec, states, pre), 20)
     ms_plain = _cuda_ms(lambda: step_core_plain(spec, states, pre), 5)
     ms_full = _cuda_ms(lambda: mc_step_u(spec, states, u1), 20)
     ms_full_plain = _cuda_ms(
         lambda: mc_step_u(spec, states, u1, step_core_plain), 5)
-    print(f"{name}: B={B} per step: step core kernel {ms:.3f} ms, plain "
+    print(f"{name}: B={B} per step: step core kernel {ms:.3f} ms "
+          f"(device-paced; host-paced {ms_host:.3f} ms), plain "
           f"{ms_plain:.3f} ms; whole step (proposal, core, bookkeeping) "
           f"{ms_full:.3f} ms, plain {ms_full_plain:.3f} ms; core bound "
           f"{bound[0]:.4f} ms by {bound[1]} ({label})")
@@ -722,6 +751,7 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
     if "block: CUDA whole-block kernel" not in report:
         raise AssertionError(f"{tag}a: {system} is not dispatched to the "
                              f"whole-block kernel")
+    print(f"{tag}a: {system} {_far_table_line(spec)}")
 
     B, n_check = CHECK_REPLICAS, CHECK_STEPS
     st = replicate(spec, sysm.state, B)
@@ -800,23 +830,25 @@ def _precision_phase(spec, state, dev, gen, label):
     import numpy as np
     from maniac_tpu_torch import replicate, run_block_uniforms
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.hwprobe import (onehot_product,
-                                                  onehot_product_plain)
+    from maniac_tpu_torch.kernels.hwprobe import onehot_product
     from maniac_tpu_torch.kernels.resync import resync_grouped
     from maniac_tpu_torch.kernels.stepg import step_core
     from maniac_tpu_torch.mc.driver import (draw_uniforms, sentinel_check,
                                             sentinel_passed)
     from maniac_tpu_torch.systems import make_zif_like
+    from maniac_tpu_torch.tools.kernel_times import k5_times
     from maniac_tpu_torch.utils.hwprobe import (hw_precision_check,
                                                 onehot_operands)
 
-    # a. K5 against numpy, exactly; timed beside torch.matmul
+    # a. K5 against numpy, exactly; timed beside torch.matmul, 100 calls
+    # each (the row's times), and 2 x 1000 calls in turns
     x, oh, want = onehot_operands()
     xt, oht = torch.from_numpy(x).to(dev), torch.from_numpy(oh).to(dev)
     err = float(np.abs(onehot_product(xt, oht).cpu().numpy() - want).max())
-    ms = _cuda_ms(lambda: onehot_product(xt, oht), 100)
-    ms_plain = _cuda_ms(lambda: onehot_product_plain(xt, oht), 100)
-    ms_lib = _cuda_ms(lambda: torch.matmul(xt, oht), 100)
+    k5 = k5_times()
+    ms, ms_plain, ms_lib = k5["100 calls"]
+    turns = k5["2 x 1000 in turns"]
+    ms_turns, ms_lib_turns = (min(t) for t in zip(*turns))
     M, K = x.shape
     bound = _bound(_nbytes(xt, oht) + M * oh.shape[1] * 4,
                    2.0 * M * K * oh.shape[1])
@@ -826,6 +858,15 @@ def _precision_phase(spec, state, dev, gen, label):
           f"({label})")
     if err != 0.0:
         raise AssertionError("phase 10a: the one-hot kernel is not exact")
+    from maniac_tpu_torch.tools.launch_cost import measure
+    for table, (us, us_host) in measure(10000).items():
+        print(f"phase 10a: launch cost, {table}'s table: {us:.2f} us per "
+              f"call, enqueue {us_host:.2f} us (10000 calls; {label})")
+    print(f"phase 10a: K5 / torch.matmul = {ms / ms_lib:.3f} (CUDA events, "
+          f"100 calls each); in turns, 2 x 1000 calls: "
+          f"{ms_turns / ms_lib_turns:.3f} (ms: "
+          + ", ".join(f"K5 {k:.4f}, torch.matmul {m:.4f}" for k, m in turns)
+          + f"; {label})")
 
     # b. the main path of K5: the hardware-precision check
     onehot_product.launches = 0
@@ -836,7 +877,8 @@ def _precision_phase(spec, state, dev, gen, label):
     launches = onehot_product.launches
     print(f"phase 10b: hw_precision_check(blocks=4): {verdict} in "
           f"{sec:.1f} s; {detail}; launches onehot {launches}, blockg "
-          f"{run_block_kernel.launches}")
+          f"{run_block_kernel.launches}; K5 {ms:.4f} ms a call beside "
+          f"torch.matmul {ms_lib:.4f} ms (10a)")
     if verdict != "pass" or launches < 1 or run_block_kernel.launches < 1:
         raise AssertionError("phase 10b: the hardware-precision check "
                              "failed")
@@ -1068,6 +1110,7 @@ def main() -> int:
           f"S_frozen={spec.S_frozen} K={spec.K} kmax={spec.kmax_xyz} "
           f"far grid {spec.amp2_shape}; load {t_load:.1f} s")
     print(f"phase 0: {dispatch_report(spec, dev)}")
+    print(f"phase 3: flagship {_far_table_line(spec)}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
 

@@ -112,13 +112,14 @@ def use_resync_kernel(spec, device) -> bool:
 
 def split_args(spec):
     """The framework-split arguments of the footprint kernels (blockg.cu,
-    stepg.cu): ([S_frozen, guest_base], (kx2, ky2, kz2), (Jz2P, Jxy2P),
-    fw_d0). Without the split: no frozen prefix and an empty far-field
-    grid, so every live site takes erfc(alpha r)/r (physics/energy.py)."""
+    stepg.cu): ([S_frozen, guest_base], (kx2, ky2, kz2), fw_d0, the far
+    table's tile count). Without the split: no frozen prefix and an empty
+    far table, so every live site takes erfc(alpha r)/r
+    (physics/energy.py)."""
     if spec.fw_split:
         return ([spec.S_frozen, spec.guest_base], spec.kmax2_xyz,
-                spec.amp2_shape, spec.host_scalars["fw_d0"])
-    return [0, 0], (0, 0, 0), (1, 0), 0.0
+                spec.host_scalars["fw_d0"], int(spec.far_units.shape[0]))
+    return [0, 0], (0, 0, 0), 0.0, 0
 
 
 def dispatch_report(spec, device) -> str:

@@ -34,6 +34,13 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     replica-major (B, n_steps, 21) in the spec dtype."""
     if states.pos.device.type == "cpu":
         return block_plain(spec, states, uniforms)
+    out = _launch(spec, states, uniforms)
+    run_block_kernel.launches += 1
+    return out
+
+
+def _launch(spec, states, uniforms):
+    """Check the inputs, allocate the outputs and launch csrc/blockg.cu."""
     dev = states.pos.device
     failure = block_gate_failure(spec)
     if failure is not None:
@@ -74,8 +81,7 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
               spec.type_q_rows, spec.type_cls_rows, spec.mol_site_start,
               spec.p_cum, spec.bounds[:, 0].contiguous(), spec.box_diag,
               spec.H, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
-              spec.k_col_jy, spec.c2_re, spec.c2_im, spec.k2_col_jx,
-              spec.k2_col_jy]
+              spec.k_col_jy, spec.far_coef, spec.far_rows, spec.far_units]
     res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
                   spec.res_cap, spec.res_H]
     box_tables = [spec.active_type_ids, spec.Hinv, spec.image_shifts]
@@ -93,16 +99,15 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
             + [res_out[k] for k in res_keys] + res_tables + box_tables]
     kx, ky, kz = spec.kmax_xyz
     sc = spec.host_scalars
-    fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
+    fw, (kx2, ky2, kz2), fw_d0, n_far_tiles = split_args(spec)
     ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
-            spec.n_active, JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2,
+            spec.n_active, JzP, JxyP, kx, ky, kz, kx2, ky2, kz2, n_far_tiles,
             int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
             int(spec.is_triclinic)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL]
     build.launch("blockg_launch", ptrs, ints, floats)
-    run_block_kernel.launches += 1
     return states.replace(**out, **res_out)
 
 

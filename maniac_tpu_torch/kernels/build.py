@@ -3,9 +3,13 @@
 Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and the objects are linked into one library
 with a plain C interface (each kernel has an ``extern "C"`` launcher that
-returns its ``cudaError_t``), loaded with ctypes. The build runs at first
-use, goes into ``kernels/_build/`` (git-ignored) and is keyed by a hash of
-the sources and flags, so an unchanged tree reuses it.
+returns its ``cudaError_t``), loaded with ctypes. ``launch`` keeps one
+``_Launcher`` per launcher, whose argument tables are allocated once and
+refilled in place, and reads the current stream's raw handle. The build
+runs at first use, goes into ``kernels/_build/`` (git-ignored) and is keyed
+by a hash of the sources and flags, so an unchanged tree reuses it. Within
+``variant(defines)`` launches go to a library built with extra macros
+beside it (tools/section_split.py's clock64-instrumented build).
 
 No ``--use_fast_math``: expf, sincosf and erfcf must stay at full f32
 accuracy.
@@ -13,11 +17,13 @@ accuracy.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import time
@@ -31,12 +37,15 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 LAUNCHERS = ("resync_launch", "blockg_launch", "stepg_launch", "onehot_launch",
-             "vpu_chain_launch", "cpass_launch", "gpass_launch")
+             "vpu_chain_launch", "cpass_launch", "gpass_launch",
+             "noop_launch")
 
 # last build's wall time in seconds (0.0 when the cached library was used)
 # and the compiler's output (ptxas -v: registers, shared memory, spills)
 build_seconds = 0.0
 build_log = ""
+# the macros of the library launch() calls (variant)
+_defines: tuple = ()
 
 
 def _nvcc() -> str:
@@ -50,19 +59,24 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def _source_hash() -> str:
+def _flags(defines) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def _source_hash(defines=()) -> str:
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    """Path of the built library, building it first if needed."""
+def library_path(defines: tuple = ()) -> Path:
+    """Path of the built library, building it first if needed; ``defines``
+    (macro names) build a variant beside it (see variant)."""
     global build_seconds, build_log
-    so = BUILD_DIR / f"libmaniac_kernels_{_source_hash()}.so"
+    so = BUILD_DIR / f"libmaniac_kernels_{_source_hash(defines)}.so"
     if so.exists():
         build_seconds = 0.0
         return so
@@ -73,7 +87,7 @@ def library_path() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+            [nvcc, *_flags(defines), "-c", "-o", obj, str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(cu, objs)]
         logs = [proc.communicate()[0] for proc in procs]
@@ -96,16 +110,17 @@ def library_path() -> Path:
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library with every launcher's signature declared.
-    Each launcher takes (pointer table, int table, float table, counts,
-    stream) and returns a cudaError_t."""
-    lib = ctypes.CDLL(str(library_path()))
+def library(defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded kernel library (built with ``defines``) with every
+    launcher's signature declared. Each launcher takes (pointer table, int
+    table, float table, counts, stream) and returns a cudaError_t; the
+    tables and the stream are declared as addresses (c_void_p), which
+    _Launcher passes as ints: ctypes then converts no array per call."""
+    lib = ctypes.CDLL(str(library_path(defines)))
     for name in LAUNCHERS:
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.maniac_error_string.argtypes = [ctypes.c_int]
@@ -113,17 +128,74 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def current_stream() -> int:
+    """The raw handle of the current CUDA stream of the current device (no
+    torch.cuda.Stream object is made; the call exists in CUDA builds of
+    PyTorch only, and only CUDA launches reach it)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+class _Launcher:
+    """One launcher of the library with its three argument tables allocated
+    once (kept here while the launcher may read them) and refilled in place
+    on every call (struct.pack_into into the ctypes arrays, whose addresses
+    are passed: no ctypes object is made per call)."""
+
+    def __init__(self, name: str, lib):
+        self.fn = getattr(lib, name)
+        self.sizes = None
+
+    def _alloc(self, sizes) -> None:
+        n_p, n_i, n_f = self.sizes = sizes
+        self.p = (ctypes.c_void_p * n_p)()
+        self.i = (ctypes.c_int * n_i)()
+        self.f = (ctypes.c_float * n_f)()
+        self.addr = tuple(ctypes.addressof(t) for t in (self.p, self.i,
+                                                         self.f))
+        self.pack_p = struct.Struct(f"={n_p}Q").pack_into
+        self.pack_i = struct.Struct(f"={n_i}i").pack_into
+        self.pack_f = struct.Struct(f"={n_f}f").pack_into
+
+    def __call__(self, ptrs, ints, floats) -> int:
+        sizes = (len(ptrs), len(ints), len(floats))
+        if sizes != self.sizes:
+            self._alloc(sizes)
+        self.pack_p(self.p, 0, *ptrs)
+        if ints:
+            self.pack_i(self.i, 0, *ints)
+        if floats:
+            self.pack_f(self.f, 0, *floats)
+        p, i, f = self.addr
+        return self.fn(p, sizes[0], i, sizes[1], f, sizes[2],
+                       current_stream())
+
+
+# {(launcher name, defines): _Launcher}
+_launchers: dict = {}
+
+
+@contextlib.contextmanager
+def variant(defines: tuple):
+    """Within the block, launch() calls the library built with ``defines``
+    (macro names, such as tools/section_split.py's MANIAC_SECTION_CLOCKS)
+    in place of the production build; yields that library."""
+    global _defines
+    saved, _defines = _defines, tuple(defines)
+    try:
+        yield library(_defines)
+    finally:
+        _defines = saved
+
+
 def launch(name: str, ptrs, ints, floats) -> None:
     """Call launcher ``name`` on the current CUDA stream with its pointer,
     int and float tables; raise if it reports an error (a refused launch
     never runs, and synchronize() would not report it)."""
-    lib = library()
-    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    i = (ctypes.c_int * len(ints))(*ints)
-    f = (ctypes.c_float * len(floats))(*floats)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(p, len(ptrs), i, len(ints), f, len(floats),
-                             stream)
+    key = (name, _defines)
+    fn = _launchers.get(key)
+    if fn is None:
+        fn = _launchers[key] = _Launcher(name, library(_defines))
+    err = fn(ptrs, ints, floats)
     if err != 0:
-        raise RuntimeError(f"{name} failed: error {err} "
-                           f"({lib.maniac_error_string(err).decode()})")
+        msg = library(_defines).maniac_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: error {err} ({msg})")

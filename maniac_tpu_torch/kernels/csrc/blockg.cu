@@ -29,35 +29,46 @@
 // removal (_core_xla, _bookkeep, _update_reservoir).
 //
 // Bound on the H100: arithmetic, and the step chain. Per step and replica
-// the far-field contraction (footprint charges x the 48 x 1152 alpha2 grid)
-// and the k-space delta (x 9216 modes) dominate the split form; the pair
-// passes cover 2160 framework sites and the live guests. Without the split
-// there is no far-field term and the pair pass covers every live site
-// instead of the guests only; on a triclinic box each pair costs 27
-// minimum-image candidates. The reservoir adds no work to the bound: a few
-// dozen bytes a step (at most 2 x 8 offset rows and two COMs read and
-// written by one thread). Steps are sequential within a replica, so the
-// parallelism is replicas (one CTA each, B = 1024 CTAs) times the threads
-// of a CTA within a step.
-// Design: one CTA per replica runs all n_steps; thread 0 makes the
+// the pair passes cover 2160 framework sites and the live guests, the
+// k-space delta the 9216 modes, and the far field (the framework split)
+// one complex multiply-add per nonzero alpha2 coefficient (23,675 on the
+// flagship) and charged footprint atom. Without the split there is no far
+// field and the pair pass covers every live site instead of the guests
+// only; on a triclinic box each pair costs 27 minimum-image candidates. The
+// reservoir adds no work to the bound: a few dozen bytes a step (at most
+// 2 x 8 offset rows and two COMs read and written by one thread). Steps are
+// sequential within a replica, so the parallelism is replicas (B = 1024)
+// times the threads of a replica within a step.
+// Design: 256 threads per replica run all n_steps; thread 0 makes the
 // proposal from its uniform row (a transcription of _propose, f32 as in
 // the JAX package) and publishes the old/new footprints (<= 2 x 8 atoms,
 // each atom with its own side's charge and LJ class row) in shared memory;
 // all threads build the footprint phase-power tables, then sweep the
-// framework and live guest sites, the far-field grid and the k-space modes
-// with per-thread partial sums and one block reduction; thread 0 decides
-// and commits positions, COMs, populations, energies, counters and the
-// reservoir rows; on acceptance every thread recomputes the delta of its
-// own modes and adds it to the amplitudes (no 74 KB delta buffer). The
-// reservoir offsets and COMs are copied in-to-out at the start and updated
-// in device memory; the replica's reservoir counts live in shared memory
-// beside its populations; a triclinic box's 27 image shifts are staged in
-// shared memory once. The kernel is a template on <TRICLINIC, MULTI>, so
-// the one-species orthorhombic forms compile to the code without either.
+// framework and live guest sites and the k-space modes with per-thread
+// partial sums, contract the far table one axis at a time (common.cuh
+// far_sweep: y first from a shared table of weighted y powers, then each
+// row closed with its x and z powers; tiles staged by cp.async), and make
+// one block reduction; thread 0 decides and commits positions, COMs,
+// populations, energies, counters and the reservoir rows; on acceptance
+// every thread recomputes the delta of its own modes and adds it to the
+// amplitudes (no 74 KB delta buffer). The reservoir offsets and COMs are
+// copied in-to-out at the start and updated in device memory; the
+// replica's reservoir counts live in shared memory beside its populations;
+// a triclinic box's 27 image shifts are staged in shared memory once. The
+// kernel is a template on <TRICLINIC, MULTI, FAR>: the forms without a far
+// table compile without the far sweep. One replica a CTA: G replicas a CTA
+// in lockstep, sharing each staged tile of the far table, were measured and
+// lost (G = 2 9% and G = 4 20% slower on the flagship at B = 1024: every
+// barrier waits for the slowest of the CTA's replicas, and at G = 4 one CTA
+// fills an SM; PERF.md). Measured on the flagship at B = 1024 (NVIDIA H100
+// 80GB HBM3, 700 W; PERF.md): a 400-step block 241 -> 103 ms, the far
+// field from about 68% of the block to about a fifth (clock64 split: the
+// pair pass and k-space delta now lead). A replica's state is a static
+// __shared__ variable (carved from the dynamic shared memory it cost the
+// water boxes 5%).
 // Framework pairs loop over all frozen sites with minimum image, as the
 // oracle does (blockg's ghost-sorted windows were a TPU layout). erfc is
-// libdevice erfcf (common.cuh). Speed (shared-memory state, tensor-core
-// contractions, window culling) is later work.
+// libdevice erfcf (common.cuh).
 #include <algorithm>
 
 #include "common.cuh"
@@ -108,10 +119,9 @@ enum BlockPtr {
   BP_KW,           // (K,) f32 k_weights
   BP_COL_JX,       // (JxyP,) i32, -1 = pad
   BP_COL_JY,       // (JxyP,) i32 signed
-  BP_C2RE,         // (K2,) f32 far-field coefficients
-  BP_C2IM,
-  BP_COL2_JX,      // (Jxy2P,) i32, -1 = pad
-  BP_COL2_JY,
+  BP_FAR_COEF,     // (n_far_tiles, FAR_TILE4) float4 far table coefficients
+  BP_FAR_ROWS,     // (n_groups * 32,) int4 jz, jx, y0 + ky2, length
+  BP_FAR_UNITS,    // (n_far_tiles, FAR_WARPS) int4 row base, t0, nt, flags
   BP_RES_OFF_IN,   // (B, Sres, 3) f32 reservoir site offsets
   BP_RES_COM_IN,   // (B, Mres+1, 3) f32 reservoir COMs
   BP_RES_N_IN,     // (B, R+1) i32 reservoir populations
@@ -129,9 +139,9 @@ enum BlockPtr {
 };
 enum BlockInt {
   BI_B, BI_NSTEPS, BI_S, BI_S_FROZEN, BI_GUEST_BASE, BI_R, BI_MTOT,
-  BI_A_ACT, BI_N_ACTIVE, BI_JZP, BI_JXYP, BI_KX, BI_KY, BI_KZ, BI_JZ2P,
-  BI_JXY2P, BI_KX2, BI_KY2, BI_KZ2, BI_GG_CUT, BI_HAS_RES, BI_SRES,
-  BI_MRES1, BI_TRICLINIC, BI_COUNT
+  BI_A_ACT, BI_N_ACTIVE, BI_JZP, BI_JXYP, BI_KX, BI_KY, BI_KZ, BI_KX2,
+  BI_KY2, BI_KZ2, BI_N_FAR_TILES, BI_GG_CUT, BI_HAS_RES, BI_SRES, BI_MRES1,
+  BI_TRICLINIC, BI_COUNT
 };
 enum BlockFloat {
   BF_ALPHA, BF_ALPHA2, BF_CUTOFF, BF_RCUT2, BF_GG_RCUT_SQ, BF_TEMP,
@@ -140,7 +150,6 @@ enum BlockFloat {
 };
 
 constexpr int THREADS = STEP_THREADS;
-constexpr int NWARP = THREADS / 32;
 
 struct Args {
   const float* u;
@@ -159,15 +168,14 @@ struct Args {
   const int* type_cls; const int* mol_site_start;
   const float* p_cum; const float* lo; const float* boxl; const float* H;
   const float* h2pi; const float* kw; const int* col_jx; const int* col_jy;
-  const float* c2re; const float* c2im; const int* col2_jx;
-  const int* col2_jy;
+  const float4* far_coef; const int4* far_rows; const int4* far_units;
   const float* res_off_in; const float* res_com_in; const int* res_n_in;
   float* res_off; float* res_com; int* res_n;
   const int* res_site_base; const int* res_mol_base; const int* res_cap;
   const float* res_H;
   const int* act_ids; const float* Hinv; const float* img;
   int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, n_active;
-  int JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P, kx2, ky2, kz2, gg_cut;
+  int JzP, JxyP, kx, ky, kz, kx2, ky2, kz2, n_far_tiles, gg_cut;
   int has_res, Sres, Mres1;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi, prob_cd, small_sq;
@@ -432,6 +440,7 @@ __device__ void propose(const Args& a, const MinImage<TRICLINIC>& img,
   fp.ex_a = w_old ? mol_slot_old : a.Mtot + 1;
   fp.ex_b = slot_new;
   fp.n_sites = footprint_sites(a, nmol);
+  footprint_far_atoms(fp, A_act);
 }
 
 // Thread 0: moves.py::_update_reservoir after the decision. Pop on an
@@ -480,22 +489,46 @@ __device__ void commit_reservoir(const Args& a, const Proposal& pr, bool acc,
   extras[1] += acc && pr.remove_like && full;
 }
 
-// At most 64 registers a thread, so that four CTAs share an SM (B = 1024
-// replicas then take two waves, not three).
-template <bool TRICLINIC, bool MULTI>
-__global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
-  __shared__ Footprint fp;
-  __shared__ float2 tab[MAXF][3][JMAX];
-  __shared__ float scratch[NWARP * NRED];
-  __shared__ float red[NRED];
-  __shared__ int nmol[MAXR + 1];
-  __shared__ int res_n[MAXR + 1];
-  __shared__ float energy[6];
-  __shared__ int counters[10];
-  __shared__ int extras[4];
-  __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
+// The replica's shared state, a static __shared__ variable; the far
+// field's y table and two staged tiles (FarSmem) are the dynamic shared
+// memory, present only with a far table.
+struct SubSmem {
+  Footprint fp;
+  float2 tab[MAXF][3][JMAX];
+  float scratch[STEP_WARPS * NRED];
+  float red[NRED];
+  int nmol[MAXR + 1];
+  int res_n[MAXR + 1];
+  float energy[6];
+  int counters[10];
+  int extras[4];
+};
 
-  const int b = blockIdx.x, tid = threadIdx.x;
+struct FarSmem {
+  float4 ytab[FAR_YTAB];
+  float4 tiles[2 * FAR_TILE4];
+};
+
+// 64 registers a thread at most, so that four CTAs share an SM (B = 1024
+// replicas then take two waves, not three). One replica a CTA, replica
+// blockIdx.x. FAR: the spec has a far table (only the forms with one
+// compile the far sweep, so the others keep their registers for the rest).
+template <bool TRICLINIC, bool MULTI, bool FAR>
+__global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
+  extern __shared__ float4 smem_raw[];
+  __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
+  __shared__ SubSmem ss;
+  FarSmem* far = reinterpret_cast<FarSmem*>(smem_raw);
+  const int tid = threadIdx.x;
+  Footprint& fp = ss.fp;
+  float2 (*tab)[3][JMAX] = ss.tab;
+  int* nmol = ss.nmol;
+  int* res_n = ss.res_n;
+  float* energy = ss.energy;
+  int* counters = ss.counters;
+  int* extras = ss.extras;
+
+  const int b = blockIdx.x;
   const int S = a.S, M1 = a.Mtot + 1, K = a.JzP * a.JxyP;
   const int F = 2 * a.A_act, Jz = 2 * a.kz + 1;
   float* pos = a.pos + (size_t)b * 3 * S;
@@ -530,21 +563,37 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   const MinImage<TRICLINIC> img{TRICLINIC ? shifts : L};
   Proposal pr;
   __syncthreads();
+  SECTION_MARK(-1);
 
+  // sections of the instrumented build (SECTION_MARK): 0 proposal, 1 phase
+  // tables, 2 pair pass, 3 k-space delta, 4 far field, 5 reduction, 6
+  // decision and commits, 7 amplitude commit
   for (int step = 0; step < a.n_steps; ++step) {
     if (tid == 0)
       propose<TRICLINIC, MULTI>(a, img, b, step, nmol, pos, com, res_off,
                                 res_n, tstep, rstep, pr, fp);
     __syncthreads();
+    SECTION_MARK(0);
 
-    footprint_phase_tables(a, fp, tab);
+    footprint_phase_tables(a, fp, tab, tid);
     __syncthreads();
 
     float part[NRED];
-    footprint_partials(a, fp, tab, nmol, pos, ampre, ampim, img, part);
-    block_sum<NRED>(part, scratch, red);
+    if constexpr (FAR) far_ytab_fill(a, fp, tab, far->ytab, tid);
+    SECTION_MARK(1);
+    footprint_partials(a, fp, tab, nmol, pos, ampre, ampim, img, tid, part);
+    SECTION_MARK(3);
+    if constexpr (FAR) {
+      if (fp.far_n > 0)
+        far_sweep(a, (fp.far_n + FAR_PASS - 1) / FAR_PASS, far->tiles, fp,
+                  tab, far->ytab, tid, part);
+    }
+    SECTION_MARK(4);
+    block_sum<NRED>(part, tid, ss.scratch, ss.red);
+    SECTION_MARK(5);
 
     if (tid == 0) {
+      const float* red = ss.red;
       const float e_lj0 = red[0], e_lj1 = red[1];
       const float e_coul0 = red[2] * a.coulomb_k
                             + (red[4] + a.fw_d0 * pr.sw[0]);
@@ -596,6 +645,7 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
       fp.acc = acc;
     }
     __syncthreads();
+    SECTION_MARK(6);
 
     if (fp.acc) {  // amp += d on every grid mode (recomputed, not stored)
       for (int m = tid; m < K; m += THREADS) {
@@ -609,6 +659,7 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
       }
     }
     __syncthreads();
+    SECTION_MARK(7);
   }
 
   if (tid <= a.R) a.nmol[b * (a.R + 1) + tid] = nmol[tid];
@@ -616,6 +667,19 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   if (tid < 6) a.energy[6 * b + tid] = energy[tid];
   if (tid < 10) a.counters[10 * b + tid] = counters[tid];
   if (tid < 4) a.extras[4 * b + tid] = extras[tid];
+}
+
+// Launch one form, one replica a CTA, with its dynamic shared memory: the
+// far field's y table and tiles where there is a far table, none elsewhere.
+template <bool TRICLINIC, bool MULTI, bool FAR>
+int launch_form(const Args& a, cudaStream_t stream) {
+  auto kernel = blockg_kernel<TRICLINIC, MULTI, FAR>;
+  const size_t smem = FAR ? sizeof(FarSmem) : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a.B, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -669,10 +733,9 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.kw = static_cast<const float*>(ptrs[BP_KW]);
   a.col_jx = static_cast<const int*>(ptrs[BP_COL_JX]);
   a.col_jy = static_cast<const int*>(ptrs[BP_COL_JY]);
-  a.c2re = static_cast<const float*>(ptrs[BP_C2RE]);
-  a.c2im = static_cast<const float*>(ptrs[BP_C2IM]);
-  a.col2_jx = static_cast<const int*>(ptrs[BP_COL2_JX]);
-  a.col2_jy = static_cast<const int*>(ptrs[BP_COL2_JY]);
+  a.far_coef = static_cast<const float4*>(ptrs[BP_FAR_COEF]);
+  a.far_rows = static_cast<const int4*>(ptrs[BP_FAR_ROWS]);
+  a.far_units = static_cast<const int4*>(ptrs[BP_FAR_UNITS]);
   a.res_off_in = static_cast<const float*>(ptrs[BP_RES_OFF_IN]);
   a.res_com_in = static_cast<const float*>(ptrs[BP_RES_COM_IN]);
   a.res_n_in = static_cast<const int*>(ptrs[BP_RES_N_IN]);
@@ -700,11 +763,10 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   a.kx = ints[BI_KX];
   a.ky = ints[BI_KY];
   a.kz = ints[BI_KZ];
-  a.Jz2P = ints[BI_JZ2P];
-  a.Jxy2P = ints[BI_JXY2P];
   a.kx2 = ints[BI_KX2];
   a.ky2 = ints[BI_KY2];
   a.kz2 = ints[BI_KZ2];
+  a.n_far_tiles = ints[BI_N_FAR_TILES];
   a.gg_cut = ints[BI_GG_CUT];
   a.has_res = ints[BI_HAS_RES];
   a.Sres = ints[BI_SRES];
@@ -725,13 +787,31 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   const bool tricl = ints[BI_TRICLINIC] != 0, multi = a.n_active >= 2;
   if (a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
       || a.n_active < 1 || a.n_active > a.R || kmax >= JMAX
-      || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1
-      || (tricl && a.S_frozen != 0))
+      || a.JzP < 2 * a.kz + 1 || a.n_far_tiles < 0
+      || (tricl && (a.S_frozen != 0 || a.n_far_tiles != 0)))
     return MANIAC_ERR_SHAPE;
-  void (*kernel)(Args) = tricl ? (multi ? blockg_kernel<true, true>
-                                        : blockg_kernel<true, false>)
-                               : (multi ? blockg_kernel<false, true>
-                                        : blockg_kernel<false, false>);
-  kernel<<<a.B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tricl)
+    return multi ? launch_form<true, true, false>(a, st)
+                 : launch_form<true, false, false>(a, st);
+  if (a.n_far_tiles == 0)
+    return multi ? launch_form<false, true, false>(a, st)
+                 : launch_form<false, false, false>(a, st);
+  return multi ? launch_form<false, true, true>(a, st)
+               : launch_form<false, false, true>(a, st);
 }
+
+#ifdef MANIAC_SECTION_CLOCKS
+// The instrumented build's section ticks, (SECTION_REPLICAS, N_SECTIONS)
+// int64 replica-major, copied into out; then zeroed.
+extern "C" int maniac_section_clocks(long long* out, int n) {
+  if (n != SECTION_REPLICAS * N_SECTIONS) return MANIAC_ERR_TABLES;
+  const size_t bytes = sizeof(long long) * n;
+  cudaError_t err = cudaMemcpyFromSymbol(out, maniac_section_ticks, bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* dev = nullptr;
+  err = cudaGetSymbolAddress(&dev, maniac_section_ticks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(dev, 0, bytes);
+}
+#endif

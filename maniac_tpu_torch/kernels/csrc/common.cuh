@@ -7,6 +7,15 @@
 // the library is built without --use_fast_math, so expf, sincosf and erfcf
 // keep full f32 accuracy.
 //
+// The footprint energy shared by the whole-block and per-step kernels is
+// here too: the pair pass and the k-space sum per thread (footprint_partials)
+// and the far field of the framework split as a separable contraction over
+// the host's far table (far_sweep, section below): on the H100 it is bound
+// by the FMA pipe and shared-memory reads (4 FMA and one 16-byte read of two
+// atoms' y powers per nonzero coefficient and atom pair), where the
+// per-mode triple product it replaces was bound by index arithmetic and
+// lane-divergent shared reads at some 20 instructions per mode and atom.
+//
 // Every launcher has a plain C interface: a table of device pointers, a
 // table of ints, a table of floats (each with its length, checked against
 // the kernel's enum) and the CUDA stream. It returns a cudaError_t, or one
@@ -95,13 +104,28 @@ __device__ __forceinline__ void stage_image_shifts(const float* img,
     for (int i = threadIdx.x; i < 3 * NIMG; i += blockDim.x) smem[i] = img[i];
 }
 
-// Sum of NV values over the block; every thread gets the totals in out.
-// scratch holds (blockDim.x / 32) * NV floats. Warp shuffles, then one
-// sequential pass over the warps: the order is fixed run to run.
+// ---------------------------------------------------------------------------
+// The energy of one MC step's footprint, shared by the whole-block kernel
+// (blockg.cu) and the per-step kernel (stepg.cu): one replica a CTA of
+// STEP_THREADS threads. tid below is the thread's index.
+// ---------------------------------------------------------------------------
+
+constexpr int STEP_THREADS = 256;
+constexpr int STEP_WARPS = STEP_THREADS / 32;
+constexpr int MAXA = 8;          // atoms per molecule
+constexpr int MAXF = 2 * MAXA;   // footprint atoms (old | new)
+constexpr int JMAX = 32;         // phase powers j = 0..JMAX-1 per axis
+constexpr int MAXR = 8;          // residue types
+constexpr int NRED = 7;          // reduced partial sums per step
+
+// Sum of NV values over one replica's STEP_THREADS threads; every one of
+// them gets the totals in out. scratch holds STEP_WARPS * NV floats. Warp
+// shuffles, then one sequential pass over the warps: the order is fixed run
+// to run. It synchronizes the CTA (every thread of it calls it).
 template <int NV>
-__device__ void block_sum(float (&v)[NV], float* scratch, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
+__device__ void block_sum(float (&v)[NV], int tid, float* scratch,
+                          float* out) {
+  const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     float x = v[i];
@@ -109,25 +133,44 @@ __device__ void block_sum(float (&v)[NV], float* scratch, float* out) {
     if (lane == 0) scratch[warp * NV + i] = x;
   }
   __syncthreads();
-  if (threadIdx.x < NV) {
+  if (tid < NV) {
     float s = 0.f;
-    for (int w = 0; w < nwarp; ++w) s += scratch[w * NV + threadIdx.x];
-    out[threadIdx.x] = s;
+    for (int w = 0; w < STEP_WARPS; ++w) s += scratch[w * NV + tid];
+    out[tid] = s;
   }
   __syncthreads();
 }
 
-// ---------------------------------------------------------------------------
-// The energy of one MC step's footprint, shared by the whole-block kernel
-// (blockg.cu) and the per-step kernel (stepg.cu): one CTA per replica.
-// ---------------------------------------------------------------------------
-
-constexpr int STEP_THREADS = 256;
-constexpr int MAXA = 8;          // atoms per molecule
-constexpr int MAXF = 2 * MAXA;   // footprint atoms (old | new)
-constexpr int JMAX = 32;         // phase powers j = 0..JMAX-1 per axis
-constexpr int MAXR = 8;          // residue types
-constexpr int NRED = 7;          // reduced partial sums per step
+// Section clocks of an instrumented build: tools/section_split.py builds
+// the library with -DMANIAC_SECTION_CLOCKS beside the production build (in
+// kernels/_build/, git-ignored). There SECTION_MARK(k) synchronizes the CTA
+// and adds the clock64 ticks since the replica's previous mark to its
+// section k (k < 0 only restarts the clock); blockg.cu's
+// maniac_section_clocks copies the ticks out. The production build compiles
+// SECTION_MARK to nothing.
+constexpr int N_SECTIONS = 8;
+#ifdef MANIAC_SECTION_CLOCKS
+constexpr int SECTION_REPLICAS = 4096;
+static __device__ long long maniac_section_last[SECTION_REPLICAS];
+static __device__ long long maniac_section_ticks[SECTION_REPLICAS * N_SECTIONS];
+__device__ __forceinline__ void section_mark(int k) {
+  const int r = blockIdx.x;  // one replica a CTA
+  if (threadIdx.x != 0 || r >= SECTION_REPLICAS) return;
+  const long long now = clock64();
+  if (k >= 0)
+    maniac_section_ticks[r * N_SECTIONS + k] += now - maniac_section_last[r];
+  maniac_section_last[r] = now;
+}
+#define SECTION_MARK(k) \
+  do {                  \
+    __syncthreads();    \
+    section_mark(k);    \
+  } while (0)
+#else
+#define SECTION_MARK(k) \
+  do {                  \
+  } while (0)
+#endif
 
 // Shared per-step footprint: atoms f < A_act are the old side, the rest
 // the new side.
@@ -138,8 +181,22 @@ struct Footprint {
   int m[MAXF];     // m2: atom present and its side moves
   float wk[MAXF];  // k-space weight: sign * q * m
   float wf[MAXF];  // far-field weight: q * m
-  int ex_a, ex_b, n_sites, acc;
+  int far_f[MAXF];     // the far field's atoms: those with wf != 0, in order
+  int far_side[MAXF];  // and their sides
+  int far_n, ex_a, ex_b, n_sites, acc;
 };
+
+// The far field's compact atom list (thread 0, after wf is published).
+__device__ __forceinline__ void footprint_far_atoms(Footprint& fp, int A_act) {
+  int n = 0;
+  for (int f = 0; f < 2 * A_act; ++f) {
+    if (fp.wf[f] == 0.f) continue;
+    fp.far_f[n] = f;
+    fp.far_side[n] = f >= A_act;
+    ++n;
+  }
+  fp.far_n = n;
+}
 
 // Complex sum over the footprint atoms in [f0, f1) with weights w of
 // w e^{i(jx tx + jy ty + jz tz)}, accumulated as the JAX package does
@@ -182,8 +239,7 @@ __device__ int footprint_sites(const Args& a, const int* nmol) {
 // far-field grid orders per axis (threads 0 .. 6 A_act - 1).
 template <class Args>
 __device__ __forceinline__ void footprint_phase_tables(
-    const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX]) {
-  const int tid = threadIdx.x;
+    const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX], int tid) {
   if (tid < 3 * 2 * a.A_act) {
     const int f = tid / 3, ax = tid % 3;
     const float* h = a.h2pi + 3 * ax;
@@ -195,21 +251,20 @@ __device__ __forceinline__ void footprint_phase_tables(
   }
 }
 
-// This thread's partial sums of the step's energy terms,
-// part = [lj_old, lj_new, coul_old, coul_new, far_old, far_new, d_recip]:
-// the pair pass over the live sites (LJ cut at cutoff; real-space Coulomb
+// This thread's partial sums of the step's energy terms other than the far
+// field, part = [lj_old, lj_new, coul_old, coul_new, 0, 0, d_recip]: the
+// pair pass over the live sites (LJ cut at cutoff; real-space Coulomb
 // erfc(alpha2 r)/r cut at rcut2 on frozen sites, erfc(alpha r)/r elsewhere,
-// cut at gg_rcut when gg_cut), the far-field grid c2 . d per side (c2 is
-// zero without the framework split), and the k-space sum
-// sum_k w_k (2 A.d + |d|^2). pos, ampre, ampim are this replica's; img is
-// the box's minimum image (MinImage).
+// cut at gg_rcut when gg_cut) and the k-space sum sum_k w_k (2 A.d + |d|^2).
+// far_sweep adds part[4], part[5]. pos, ampre, ampim are this replica's; img
+// is the box's minimum image (MinImage).
 template <class Args, class Image>
 __device__ __forceinline__ void footprint_partials(
     const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX],
     const int* nmol, const float* pos, const float* ampre,
-    const float* ampim, const Image& img, float (&part)[NRED]) {
-  const int tid = threadIdx.x, S = a.S, F = 2 * a.A_act;
-  const int K = a.JzP * a.JxyP, K2 = a.Jz2P * a.Jxy2P;
+    const float* ampim, const Image& img, int tid, float (&part)[NRED]) {
+  const int S = a.S, F = 2 * a.A_act;
+  const int K = a.JzP * a.JxyP;
   const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
 #pragma unroll
   for (int i = 0; i < NRED; ++i) part[i] = 0.f;
@@ -250,22 +305,7 @@ __device__ __forceinline__ void footprint_partials(
     }
   }
 
-  // far field: sum over the alpha2 grid of c2 . d per side
-  const int Jz2 = 2 * a.kz2 + 1;
-  for (int m = tid; m < K2; m += STEP_THREADS) {
-    const int row = m / a.Jxy2P, col = m - row * a.Jxy2P;
-    const int jx = a.col2_jx[col];
-    if (row >= Jz2 || jx < 0) continue;
-    const float cre = a.c2re[m], cim = a.c2im[m];
-    if (cre == 0.f && cim == 0.f) continue;
-    const int jy = a.col2_jy[col], jz = row - a.kz2;
-#pragma unroll
-    for (int side = 0; side < 2; ++side) {
-      const float2 d = footprint_mode(tab, fp.wf, side * a.A_act,
-                                      (side + 1) * a.A_act, jx, jy, jz);
-      part[4 + side] += cre * d.x + cim * d.y;
-    }
-  }
+  SECTION_MARK(2);  // pair pass
 
   // k-space: sum_k w_k (2 A.d + |d|^2) over the modes with weight
   for (int m = tid; m < K; m += STEP_THREADS) {
@@ -276,6 +316,162 @@ __device__ __forceinline__ void footprint_partials(
                                     a.col_jy[col], row - a.kz);
     const float ar = ampre[m], ai = ampim[m];
     part[6] += w * (2.f * (ar * d.x + ai * d.y) + d.x * d.x + d.y * d.y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The far field as a separable contraction.
+//
+// The far-field term of a side is sum_k c_k . d_k over the alpha2 grid,
+// i.e. sum_f w_f Re(sum_{jz,jx,jy} conj(c) x_f^jx y_f^jy z_f^jz): a
+// trigonometric polynomial at each footprint atom, separable by axis. The
+// host (physics/fwsplit.py FarTable) keeps only the nonzero coefficients, as
+// rows of constant (jz, jx) over a contiguous jy range, FAR_LANES rows to a
+// warp (one per lane), cut into units of FAR_TCH elements; tile k holds unit
+// k of each of the FAR_WARPS warps, laid out so that a warp's read of one
+// element is 256 contiguous bytes. Per row and atom the y axis is contracted
+// first, T_f = sum_jy conj(c) w_f y_f^jy (one complex multiply-add, 4 FMA,
+// per element and atom: the coefficient is loaded once for all atoms, the
+// weighted y powers come from a shared table by index, pairs of atoms per
+// 16-byte read), then the row is closed with x_f^jx z_f^jz and its real part
+// goes to its atom's side. Tiles are staged into shared memory by cp.async,
+// double-buffered, by all the CTA's threads. Up to FAR_PASS atoms per sweep
+// of the table (water: 3 a side).
+// ---------------------------------------------------------------------------
+
+constexpr int FAR_LANES = 32, FAR_TCH = 4, FAR_WARPS = STEP_WARPS;
+constexpr int FAR_FIRST = 1, FAR_LAST = 2;    // unit flags
+constexpr int FAR_PASS = 8;                   // atoms per sweep
+constexpr int FAR_YROWS = 2 * JMAX;           // y table rows (last: zero)
+constexpr int FAR_YS = MAXF / 2 + 1;          // float4 per y row (padded)
+constexpr int FAR_YTAB = FAR_YROWS * FAR_YS;  // float4 per replica
+constexpr int FAR_TILE4 = FAR_WARPS * FAR_TCH * FAR_LANES / 2;  // float4
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// The weighted y powers of the far field's atoms, ytab[j + ky2][k] =
+// w_k y_k^j as float2 (FAR_YS float4 a row); the other slots and rows are
+// zero. Read after the CTA's next barrier.
+template <class Args>
+__device__ __forceinline__ void far_ytab_fill(const Args& a,
+                                              const Footprint& fp,
+                                              float2 (*tab)[3][JMAX],
+                                              float4* ytab, int tid) {
+  float2* y = reinterpret_cast<float2*>(ytab);
+  for (int i = tid; i < FAR_YROWS * MAXF; i += STEP_THREADS) {
+    const int row = i / MAXF, k = i - row * MAXF;
+    const int j = row - a.ky2;
+    float2 v = make_float2(0.f, 0.f);
+    if (k < fp.far_n && j <= a.ky2) {
+      const int f = fp.far_f[k];
+      const float2 p = signed_power(tab[f][1], j);
+      v = make_float2(fp.wf[f] * p.x, fp.wf[f] * p.y);
+    }
+    y[row * 2 * FAR_YS + k] = v;
+  }
+}
+
+// One unit of NP atom pairs: acc[2k] + i acc[2k+1] += conj(c) ytab[yi][k]
+// over the unit's nt elements.
+template <int NP>
+__device__ __forceinline__ void far_unit(float (&acc)[2 * FAR_PASS],
+                                         const float2* c, const float4* y,
+                                         int yi, int nt) {
+#pragma unroll
+  for (int t = 0; t < FAR_TCH; ++t) {
+    if (t >= nt) break;
+    const float2 cf = c[t * FAR_LANES];
+    const float4* yr = y + min(yi + t, FAR_YROWS - 1) * FAR_YS;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const float4 v = yr[p];
+      acc[4 * p] = fmaf(cf.y, v.y, fmaf(cf.x, v.x, acc[4 * p]));
+      acc[4 * p + 1] = fmaf(-cf.y, v.x, fmaf(cf.x, v.y, acc[4 * p + 1]));
+      acc[4 * p + 2] = fmaf(cf.y, v.w, fmaf(cf.x, v.z, acc[4 * p + 2]));
+      acc[4 * p + 3] = fmaf(-cf.y, v.z, fmaf(cf.x, v.w, acc[4 * p + 3]));
+    }
+  }
+}
+
+// part[4 + side] += this thread's share of the far field of the replica's
+// footprint (fp, tab, ytab), in npass = ceil(far_n / FAR_PASS) sweeps of the
+// table. Every thread of the CTA calls it; it synchronizes the CTA. tiles
+// holds two staged tiles (2 FAR_TILE4 float4).
+template <class Args>
+__device__ void far_sweep(const Args& a, int npass, float4* tiles,
+                          const Footprint& fp, float2 (*tab)[3][JMAX],
+                          const float4* ytab, int tid, float (&part)[NRED]) {
+  const int lane = tid & 31, warp = tid >> 5, n_tiles = a.n_far_tiles;
+  for (int pass = 0; pass < npass; ++pass) {
+    const int k0 = pass * FAR_PASS;
+    const int nk = min(FAR_PASS, fp.far_n - k0);
+    const int np = (nk + 1) / 2;  // atom pairs, 1 .. FAR_PASS / 2
+    float acc[2 * FAR_PASS];
+#pragma unroll
+    for (int i = 0; i < 2 * FAR_PASS; ++i) acc[i] = 0.f;
+    int jz = 0, jx = 0, yb = 0;
+    for (int i = tid; i < FAR_TILE4; i += STEP_THREADS)
+      cp_async16(tiles + i, a.far_coef + i);
+    cp_async_commit();
+    for (int k = 0; k < n_tiles; ++k) {
+      if (k + 1 < n_tiles) {
+        float4* dst = tiles + ((k + 1) & 1) * FAR_TILE4;
+        const float4* src = a.far_coef + (size_t)(k + 1) * FAR_TILE4;
+        for (int i = tid; i < FAR_TILE4; i += STEP_THREADS)
+          cp_async16(dst + i, src + i);
+      }
+      cp_async_commit();
+      cp_async_wait1();
+      __syncthreads();  // tile k is in, and so is ytab
+      const int4 u = a.far_units[k * FAR_WARPS + warp];
+      if (u.z > 0) {
+        if (u.w & FAR_FIRST) {
+          const int4 r = a.far_rows[u.x + lane];
+          jz = r.x;
+          jx = r.y;
+          yb = r.z;
+#pragma unroll
+          for (int i = 0; i < 2 * FAR_PASS; ++i) acc[i] = 0.f;
+        }
+        const float2* c = reinterpret_cast<const float2*>(
+                              tiles + (k & 1) * FAR_TILE4)
+                          + warp * FAR_TCH * FAR_LANES + lane;
+        const float4* y = ytab + k0 / 2;
+        const int yi = yb + u.y;
+        switch (np) {
+          case 1: far_unit<1>(acc, c, y, yi, u.z); break;
+          case 2: far_unit<2>(acc, c, y, yi, u.z); break;
+          case 3: far_unit<3>(acc, c, y, yi, u.z); break;
+          default: far_unit<4>(acc, c, y, yi, u.z); break;
+        }
+        if (u.w & FAR_LAST) {  // close the rows: Re(T x^jx z^jz) by side
+#pragma unroll
+          for (int q = 0; q < FAR_PASS; ++q) {
+            if (q >= nk) break;
+            const int f = fp.far_f[k0 + q];
+            const float2 x = tab[f][0][jx];
+            const float2 z = signed_power(tab[f][2], jz);
+            const float xr = x.x * z.x - x.y * z.y;
+            const float xi = x.x * z.y + x.y * z.x;
+            const float v = acc[2 * q] * xr - acc[2 * q + 1] * xi;
+            const bool new_side = fp.far_side[k0 + q] != 0;
+            part[4] += new_side ? 0.f : v;
+            part[5] += new_side ? v : 0.f;
+          }
+        }
+      }
+      __syncthreads();  // before tile k + 2 lands in this buffer
+    }
   }
 }
 

@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(THREADS) resync_kernel(ResyncArgs a) {
     const float re = are[m], im = aim[m];
     part[0] += a.kw[m] * (re * re + im * im);
   }
-  block_sum<1>(part, red, e_sum);
+  block_sum<1>(part, threadIdx.x, red, e_sum);
   if (threadIdx.x == 0) {
     const float* ein = a.energy_in + 6 * b;
     float* eout = a.energy_out + 6 * b;

@@ -13,14 +13,16 @@
 // old and new footprints (<= 2 x 8 atoms, any active species: each atom
 // carries its own charge and LJ class row, so a swap is an old and a new
 // footprint of different types) in shared memory; all threads build the
-// footprint phase-power tables and sweep the sites, the far-field grid and
-// the k-space modes with per-thread partial sums and one block reduction
-// (common.cuh, the same code as the whole-block kernel); thread 0 decides.
-// Outputs are written out of place: every thread copies the replica's
-// positions and adds the recomputed delta to each amplitude on acceptance.
-// Without the framework split S_frozen = guest_base = 0, so every live site
-// takes erfc(alpha r)/r (cut at gg_rcut when gg_cut) and the far-field
-// coefficients are zero. The kernel is a template on TRICLINIC, the box
+// footprint phase-power tables and sweep the sites and the k-space modes
+// with per-thread partial sums, contract the far table (the separable far
+// field, common.cuh far_sweep) and make one block
+// reduction (common.cuh, the same code as the whole-block kernel); thread 0
+// decides. Outputs are written out of place: every thread copies the
+// replica's positions and adds the recomputed delta to each amplitude on
+// acceptance. Without the framework split S_frozen = guest_base = 0, so
+// every live site takes erfc(alpha r)/r (cut at gg_rcut when gg_cut) and
+// the far table is empty (FAR false: the far sweep is not compiled in).
+// The kernel is a template on TRICLINIC, the box
 // kind of the shared core's minimum image (common.cuh MinImage): on a
 // triclinic box, which never has the split, every pair takes the minimum
 // over the 27 image shifts, staged in shared memory once per CTA.
@@ -59,10 +61,9 @@ enum StepPtr {
   SP_KW,           // (K,) f32 k_weights
   SP_COL_JX,       // (JxyP,) i32, -1 = pad
   SP_COL_JY,       // (JxyP,) i32 signed
-  SP_C2RE,         // (K2,) f32 far-field coefficients
-  SP_C2IM,
-  SP_COL2_JX,      // (Jxy2P,) i32, -1 = pad
-  SP_COL2_JY,
+  SP_FAR_COEF,     // (n_far_tiles, FAR_TILE4) float4 far table coefficients
+  SP_FAR_ROWS,     // (n_groups * 32,) int4 jz, jx, y0 + ky2, length
+  SP_FAR_UNITS,    // (n_far_tiles, FAR_WARPS) int4 row base, t0, nt, flags
   SP_IMG,          // (27, 3) f32 lattice image shifts
   SP_COUNT
 };
@@ -79,15 +80,13 @@ enum StepFScal {
 constexpr int NFLAG = 8;
 enum StepInt {
   SI_B, SI_S, SI_S_FROZEN, SI_GUEST_BASE, SI_R, SI_A_ACT, SI_JZP, SI_JXYP,
-  SI_KX, SI_KY, SI_KZ, SI_JZ2P, SI_JXY2P, SI_KX2, SI_KY2, SI_KZ2, SI_GG_CUT,
+  SI_KX, SI_KY, SI_KZ, SI_KX2, SI_KY2, SI_KZ2, SI_N_FAR_TILES, SI_GG_CUT,
   SI_TRICLINIC, SI_COUNT
 };
 enum StepFloat {
   SF_ALPHA, SF_ALPHA2, SF_CUTOFF, SF_RCUT2, SF_GG_RCUT_SQ, SF_TEMP,
   SF_VOLUME, SF_FW_D0, SF_COULOMB_K, SF_TWO_PI, SF_COUNT
 };
-
-constexpr int NWARP = STEP_THREADS / 32;
 
 struct Args {
   const float* pos_in; const float* ampre_in; const float* ampim_in;
@@ -99,19 +98,22 @@ struct Args {
   const int* type_A; const int* type_site_base;
   const float* boxl; const float* h2pi; const float* kw;
   const int* col_jx; const int* col_jy;
-  const float* c2re; const float* c2im; const int* col2_jx;
-  const int* col2_jy; const float* img;
+  const float4* far_coef; const int4* far_rows; const int4* far_units;
+  const float* img;
   int B, S, S_frozen, guest_base, R, A_act, JzP, JxyP, kx, ky, kz;
-  int Jz2P, Jxy2P, kx2, ky2, kz2, gg_cut;
+  int kx2, ky2, kz2, n_far_tiles, gg_cut;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi;
 };
 
-template <bool TRICLINIC>
+// FAR: the spec has a far table (only then is the far sweep compiled in).
+template <bool TRICLINIC, bool FAR>
 __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
   __shared__ Footprint fp;
   __shared__ float2 tab[MAXF][3][JMAX];
-  __shared__ float scratch[NWARP * NRED];
+  __shared__ float scratch[STEP_WARPS * NRED];
+  __shared__ float4 ytab[FAR ? FAR_YTAB : 1];
+  __shared__ float4 tiles[FAR ? 2 * FAR_TILE4 : 1];
   __shared__ float red[NRED];
   __shared__ int nmol[MAXR + 1];
   __shared__ float sw[2];
@@ -151,17 +153,24 @@ __global__ void __launch_bounds__(STEP_THREADS) stepg_kernel(Args a) {
     fp.ex_a = is[IS_EX_A];
     fp.ex_b = is[IS_EX_B];
     fp.n_sites = footprint_sites(a, nmol);
+    footprint_far_atoms(fp, A_act);
   }
   for (int i = tid; i < 3 * S; i += STEP_THREADS) pos[i] = pos_in[i];
   __syncthreads();
 
-  footprint_phase_tables(a, fp, tab);
+  footprint_phase_tables(a, fp, tab, tid);
   __syncthreads();
 
   float part[NRED];
-  footprint_partials(a, fp, tab, nmol, pos_in, ampre_in, ampim_in, img,
+  if constexpr (FAR) far_ytab_fill(a, fp, tab, ytab, tid);
+  footprint_partials(a, fp, tab, nmol, pos_in, ampre_in, ampim_in, img, tid,
                      part);
-  block_sum<NRED>(part, scratch, red);
+  if constexpr (FAR) {
+    if (fp.far_n > 0)
+      far_sweep(a, (fp.far_n + FAR_PASS - 1) / FAR_PASS, tiles, fp, tab, ytab,
+                tid, part);
+  }
+  block_sum<NRED>(part, tid, scratch, red);
 
   if (tid == 0) {
     const float e_lj0 = red[0], e_lj1 = red[1];
@@ -259,10 +268,9 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   a.kw = static_cast<const float*>(ptrs[SP_KW]);
   a.col_jx = static_cast<const int*>(ptrs[SP_COL_JX]);
   a.col_jy = static_cast<const int*>(ptrs[SP_COL_JY]);
-  a.c2re = static_cast<const float*>(ptrs[SP_C2RE]);
-  a.c2im = static_cast<const float*>(ptrs[SP_C2IM]);
-  a.col2_jx = static_cast<const int*>(ptrs[SP_COL2_JX]);
-  a.col2_jy = static_cast<const int*>(ptrs[SP_COL2_JY]);
+  a.far_coef = static_cast<const float4*>(ptrs[SP_FAR_COEF]);
+  a.far_rows = static_cast<const int4*>(ptrs[SP_FAR_ROWS]);
+  a.far_units = static_cast<const int4*>(ptrs[SP_FAR_UNITS]);
   a.img = static_cast<const float*>(ptrs[SP_IMG]);
   a.B = ints[SI_B];
   a.S = ints[SI_S];
@@ -275,11 +283,10 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   a.kx = ints[SI_KX];
   a.ky = ints[SI_KY];
   a.kz = ints[SI_KZ];
-  a.Jz2P = ints[SI_JZ2P];
-  a.Jxy2P = ints[SI_JXY2P];
   a.kx2 = ints[SI_KX2];
   a.ky2 = ints[SI_KY2];
   a.kz2 = ints[SI_KZ2];
+  a.n_far_tiles = ints[SI_N_FAR_TILES];
   a.gg_cut = ints[SI_GG_CUT];
   a.alpha = fl[SF_ALPHA];
   a.alpha2 = fl[SF_ALPHA2];
@@ -294,10 +301,12 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
   const bool tricl = ints[SI_TRICLINIC] != 0;
   if (a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
-      || kmax >= JMAX || a.JzP < 2 * a.kz + 1 || a.Jz2P < 2 * a.kz2 + 1
-      || (tricl && a.S_frozen != 0))
+      || kmax >= JMAX || a.JzP < 2 * a.kz + 1 || a.n_far_tiles < 0
+      || (tricl && (a.S_frozen != 0 || a.n_far_tiles != 0)))
     return MANIAC_ERR_SHAPE;
-  void (*kernel)(Args) = tricl ? stepg_kernel<true> : stepg_kernel<false>;
+  void (*kernel)(Args) = tricl ? stepg_kernel<true, false>
+                         : a.n_far_tiles > 0 ? stepg_kernel<false, true>
+                                             : stepg_kernel<false, false>;
   kernel<<<a.B, STEP_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -23,17 +23,22 @@ def onehot_product_plain(x: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
 
 def onehot_product(x: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
     """(M, K) x (K, N) f32 product, computed by f32 FMA."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return onehot_product_plain(x, oh)
-    if x.dim() != 2 or oh.dim() != 2 or x.shape[1] != oh.shape[0]:
-        raise ValueError(f"onehot_product: shapes {tuple(x.shape)} and "
-                         f"{tuple(oh.shape)} do not multiply")
+    # one test for operands that pass; _check names what fails
+    if not (x.dtype == torch.float32 and oh.dtype == torch.float32
+            and x.dim() == 2 and oh.dim() == 2 and x.shape[1] == oh.shape[0]
+            and x.is_contiguous() and oh.is_contiguous()
+            and oh.device == x.device):
+        if x.dim() != 2 or oh.dim() != 2 or x.shape[1] != oh.shape[0]:
+            raise ValueError(f"onehot_product: shapes {tuple(x.shape)} and "
+                             f"{tuple(oh.shape)} do not multiply")
+        _check("x", x, tuple(x.shape), torch.float32, x.device)
+        _check("oh", oh, tuple(oh.shape), torch.float32, x.device)
     (M, K), N = x.shape, oh.shape[1]
-    _check("x", x, (M, K), torch.float32, x.device)
-    _check("oh", oh, (K, N), torch.float32, x.device)
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    build.launch("onehot_launch", [x.data_ptr(), oh.data_ptr(),
-                                   out.data_ptr()], [M, K, N], [])
+    out = x.new_empty((M, N))
+    build.launch("onehot_launch", (x.data_ptr(), oh.data_ptr(),
+                                   out.data_ptr()), (M, K, N), ())
     onehot_product.launches += 1
     return out
 

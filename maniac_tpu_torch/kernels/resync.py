@@ -34,11 +34,15 @@ def _regions(spec: SystemSpec) -> np.ndarray:
 
 
 def _check(name, t, shape, dtype, device):
+    """Raise unless t has this dtype, shape and device and is contiguous
+    (one test for a tensor that passes; the message only on failure)."""
+    if (t.dtype == dtype and t.shape == shape and t.is_contiguous()
+            and t.device == device):
+        return
     if t.dtype != dtype or t.device != device or tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected {dtype} {shape} on {device}, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")
 
 
 def resync_grouped(spec: SystemSpec, states: SimState) -> SimState:

@@ -29,8 +29,8 @@ def _spec_tables(spec: SystemSpec) -> list:
     return [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
             spec.eps_site, spec.sig2_site, spec.type_A, spec.type_site_base,
             spec.box_diag, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
-            spec.k_col_jy, spec.c2_re, spec.c2_im, spec.k2_col_jx,
-            spec.k2_col_jy, spec.image_shifts]
+            spec.k_col_jy, spec.far_coef, spec.far_rows, spec.far_units,
+            spec.image_shifts]
 
 
 def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
@@ -38,6 +38,13 @@ def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
     the Metropolis test and the commits."""
     if states.pos.device.type == "cpu":
         return step_core_plain(spec, states, pre)
+    out = _launch(spec, states, pre)
+    step_core.launches += 1
+    return out
+
+
+def _launch(spec: SystemSpec, states: SimState, pre: dict) -> dict:
+    """Check the inputs, allocate the outputs and launch csrc/stepg.cu."""
     dev = states.pos.device
     failure = step_gate_failure(spec)
     if failure is not None:
@@ -83,14 +90,13 @@ def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
             + tables]
     kx, ky, kz = spec.kmax_xyz
     sc = spec.host_scalars
-    fw, (kx2, ky2, kz2), (Jz2P, Jxy2P), fw_d0 = split_args(spec)
-    ints = [B, spec.S, *fw, spec.R, A, JzP, JxyP, kx, ky, kz, Jz2P, Jxy2P,
-            kx2, ky2, kz2, int(spec.gg_cut), int(spec.is_triclinic)]
+    fw, (kx2, ky2, kz2), fw_d0, n_far_tiles = split_args(spec)
+    ints = [B, spec.S, *fw, spec.R, A, JzP, JxyP, kx, ky, kz, kx2, ky2, kz2,
+            n_far_tiles, int(spec.gg_cut), int(spec.is_triclinic)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI]
     build.launch("stepg_launch", ptrs, ints, floats)
-    step_core.launches += 1
     acc = flags[:, 0] > 0.5
     return dict(pos=pos, amp_re=amp_re, amp_im=amp_im, acc=acc,
                 e_recip_new=flags[:, 1],

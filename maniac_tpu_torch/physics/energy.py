@@ -20,6 +20,7 @@ import torch
 
 from ..constants import COULOMB_K, SMALL, TWOPI
 from ..system import E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF, E_TOT, SystemSpec
+from .fwsplit import FAR_LANES, FAR_TCH, FAR_YROWS
 from .pbc import min_image_dist2
 
 _R2_FLOOR = 1e-18
@@ -194,6 +195,36 @@ def fw_far_energy(spec: SystemSpec, pos, w):
     d_re, d_im = _separable_amp(spec, theta, w, far=True)
     return ((spec.c2_re * d_re + spec.c2_im * d_im).sum(dim=(-1, -2))
             + spec.fw_d0 * w.sum(dim=-1))
+
+
+def far_table_energy(spec: SystemSpec, pos, w):
+    """fw_far_energy in the footprint kernels' contraction order over the
+    far table (spec.far_*; csrc/common.cuh far_sweep): per row of constant
+    (jz, jx), the y axis first, T = sum_jy conj(c) w y^jy (one complex
+    multiply-add per element, the y index clamped into the zero-padded
+    table as the kernels clamp it), then each row closed with x^jx z^jz and
+    the real parts summed. pos (N, 3), w (N,)."""
+    N = pos.shape[0]
+    ky2, kz2 = spec.kmax2_xyz[1], spec.kmax2_xyz[2]
+    cplx = torch.complex128 if pos.dtype == torch.float64 else torch.complex64
+    theta = pos @ spec.two_pi_Hinv.T
+    (px_re, px_im), (py_re, py_im), (pz_re, pz_im) = \
+        _axis_phase_tables(theta, spec.kmax2_xyz)
+    Y = torch.zeros((N, FAR_YROWS), dtype=cplx)
+    Y[:, :2 * ky2 + 1] = torch.complex(py_re, py_im) * w[:, None]
+    coef = torch.complex(spec.far_coef[..., 0], spec.far_coef[..., 1])
+    base, t0, nt = (spec.far_units[..., i].long() for i in range(3))
+    t = torch.arange(FAR_TCH)[:, None]
+    row = base[..., None, None] + torch.arange(FAR_LANES)   # (T, W, 1, 32)
+    yidx = torch.clamp(spec.far_rows[row, 2].long() + t0[..., None, None] + t,
+                       max=FAR_YROWS - 1)                  # (T, W, TCH, 32)
+    live = t < nt[..., None, None]
+    terms = torch.where(live, coef.conj(), 0) * Y[:, yidx]
+    T = torch.zeros((N, spec.far_rows.shape[0]), dtype=cplx)
+    T.index_add_(1, row.expand_as(yidx).flatten(), terms.flatten(1))
+    x = torch.complex(px_re, px_im)[:, spec.far_rows[:, 1].long()]
+    z = torch.complex(pz_re, pz_im)[:, spec.far_rows[:, 0].long() + kz2]
+    return (T * x * z).real.sum() + spec.fw_d0 * w.sum()
 
 
 def amp_delta(spec: SystemSpec, pos, q, mask, signs):

@@ -93,6 +93,95 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# ---- the far table: the kernels' layout of the far-field coefficients ------
+#: shared with csrc/common.cuh (FAR_*): rows of FAR_LANES to a warp, units of
+#: FAR_TCH jy elements, FAR_WARPS units (one per warp of a replica) to a tile
+FAR_LANES, FAR_TCH, FAR_WARPS = 32, 4, 8
+#: unit flags: the unit starts its rows (zero the sums) / ends them (close)
+FAR_FIRST, FAR_LAST = 1, 2
+#: rows of the kernels' per-atom y table; the last is always zero, and a
+#: padded element's jy index is clamped to it
+FAR_YROWS = 64
+
+
+@dataclass
+class FarTable:
+    """The nonzero far-field coefficients as rows of constant (jz, jx) over
+    a contiguous jy range, for the separable contraction of the footprint
+    kernels (csrc/common.cuh far_sweep).
+
+    Rows are sorted by length (longest first) and taken FAR_LANES to a
+    group, one row per lane; a group's rows are cut into units of FAR_TCH
+    elements, and the groups are dealt to FAR_WARPS warps so that each
+    warp's unit count is balanced (longest processing time first). Tile k
+    holds unit k of every warp. coef[k, w, t, lane] is the coefficient of
+    row ``units[k, w, 0] + lane`` at jy = y0 + units[k, w, 1] + t (zero past
+    the row's end), so a warp's loads of one element are one contiguous
+    256-byte read."""
+    coef: np.ndarray   # (n_tiles, FAR_WARPS, FAR_TCH, FAR_LANES, 2) f64
+    rows: np.ndarray   # (n_groups * FAR_LANES, 4) int32: jz, jx, y0 + ky2, len
+    units: np.ndarray  # (n_tiles, FAR_WARPS, 4) int32: row base, t0, nt, flags
+
+
+def build_far_table(c2_re, c2_im, col_jx, col_jy, ky2: int,
+                    kz2: int) -> FarTable:
+    """The far table of a (Jz2P, Jxy2P) coefficient grid whose columns are
+    (col_jx, signed col_jy) (jx -1 on pad columns) and whose rows are signed
+    jz + kz2. Each (jz, jx) with a nonzero coefficient gives one row from
+    its first to its last nonzero jy (an exact zero between them stays in
+    the row); a grid without one (no split) gives an empty table."""
+    c2_re, c2_im = np.asarray(c2_re), np.asarray(c2_im)
+    col_jx, col_jy = np.asarray(col_jx), np.asarray(col_jy)
+    live = (c2_re != 0) | (c2_im != 0)
+    rows = []                                   # (jz, jx, y0, values)
+    for jx in np.unique(col_jx[col_jx >= 0]):
+        cols = np.nonzero(col_jx == jx)[0]
+        for zr in range(c2_re.shape[0]):
+            nz = cols[live[zr, cols]]
+            if nz.size == 0:
+                continue
+            ys = col_jy[nz]
+            y0 = int(ys.min())
+            vals = np.zeros((int(ys.max()) - y0 + 1, 2))
+            vals[ys - y0, 0] = c2_re[zr, nz]
+            vals[ys - y0, 1] = c2_im[zr, nz]
+            rows.append((zr - kz2, int(jx), y0, vals))
+    rows.sort(key=lambda r: -len(r[3]))          # stable: ties keep (jx, jz)
+    n_groups = -(-len(rows) // FAR_LANES)
+    meta = np.zeros((n_groups * FAR_LANES, 4), dtype=np.int32)
+    for i, (jz, jx, y0, vals) in enumerate(rows):
+        meta[i] = (jz, jx, y0 + ky2, len(vals))
+    # deal the groups to the warps, most units first, each to the warp with
+    # the fewest units so far
+    n_units = [-(-int(meta[g * FAR_LANES, 3]) // FAR_TCH)
+               for g in range(n_groups)]
+    plan = [[] for _ in range(FAR_WARPS)]
+    load = [0] * FAR_WARPS
+    for g in sorted(range(n_groups), key=lambda g: -n_units[g]):
+        w = load.index(min(load))
+        plan[w].append(g)
+        load[w] += n_units[g]
+    n_tiles = max(load)
+    coef = np.zeros((n_tiles, FAR_WARPS, FAR_TCH, FAR_LANES, 2))
+    units = np.zeros((n_tiles, FAR_WARPS, 4), dtype=np.int32)
+    for w, groups in enumerate(plan):
+        k = 0
+        for g in groups:
+            L = int(meta[g * FAR_LANES, 3])
+            for t0 in range(0, L, FAR_TCH):
+                nt = min(FAR_TCH, L - t0)
+                flags = ((FAR_FIRST if t0 == 0 else 0)
+                         | (FAR_LAST if t0 + nt == L else 0))
+                units[k, w] = (g * FAR_LANES, t0, nt, flags)
+                for lane in range(FAR_LANES):
+                    i = g * FAR_LANES + lane
+                    if i < len(rows):
+                        piece = rows[i][3][t0:t0 + nt]
+                        coef[k, w, :len(piece), lane] = piece
+                k += 1
+    return FarTable(coef=coef, rows=meta, units=units)
+
+
 def _amps_on_grid(phase, q, kmaxs, shape, yb: int = 0):
     """sum_s q_s e^{i 2 pi n.frac_s} on a dense half-space grid laid out
     (JzP, JxyP) with cols jx*JyB + jy (JyB=Jy: the ewald.py convention;

@@ -21,6 +21,9 @@ Differences from the JAX data model:
   grid ``k2_col_*``) are derived from the 0/1 selectors ``ex_sel``/
   ``ey_sel``: the port reads phase powers by index instead of expanding
   them with selector matmuls.
+* The far table (``far_coef``, ``far_rows``, ``far_units``) is derived from
+  the far-field coefficients: their nonzero entries laid out for the
+  footprint kernels' separable contraction (physics/fwsplit.py FarTable).
 
 ``build_spec_and_state`` runs in float64 numpy on the host; ``to_device``
 casts the float tables to the working dtype and moves everything to the
@@ -41,6 +44,7 @@ from .ewald import EwaldSetup
 from .geometry import image_shifts
 from .io.deck import InputDeck
 from .io.lammps_data import ParsedSystem
+from .physics.fwsplit import build_far_table
 
 # energy component indices (internal unit: Kelvin)
 E_RECIP, E_LJ, E_COUL, E_SELF, E_INTRA, E_TOT = range(6)
@@ -117,6 +121,11 @@ class SystemSpec:
     ey2_sel: torch.Tensor         # (Jy2, Jxy2P)
     k2_col_jx: torch.Tensor       # (Jxy2P,) int32, -1 = pad
     k2_col_jy: torch.Tensor       # (Jxy2P,) int32 signed jy
+    # the far table the footprint kernels contract (physics/fwsplit.py
+    # FarTable; empty without the split): coefficients, rows, units
+    far_coef: torch.Tensor        # (n_tiles, 8, FAR_TCH, 32, 2)
+    far_rows: torch.Tensor        # (n_groups * 32, 4) int32
+    far_units: torch.Tensor       # (n_tiles, 8, 4) int32
     alpha2: torch.Tensor
     rcut2: torch.Tensor
     fw_d0: torch.Tensor
@@ -252,7 +261,8 @@ def _spec_from_leaves(leaves: dict) -> SystemSpec:
     """Assemble a host (float64 / int32) SystemSpec from numpy arrays and
     meta values keyed by field name."""
     kw = {}
-    derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy")
+    derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy",
+               "far_coef", "far_rows", "far_units")
     for f in dataclasses.fields(SystemSpec):
         if f.name not in _META_FIELDS and f.name not in derived:
             kw[f.name] = _host_tensor(leaves[f.name])
@@ -261,6 +271,11 @@ def _spec_from_leaves(leaves: dict) -> SystemSpec:
         jx, jy = _grid_columns(np.asarray(leaves[ex]), np.asarray(leaves[ey]))
         kw[f"{dst}_col_jx"] = torch.from_numpy(jx)
         kw[f"{dst}_col_jy"] = torch.from_numpy(jy)
+    far = build_far_table(leaves["c2_re"], leaves["c2_im"], kw["k2_col_jx"],
+                          kw["k2_col_jy"], leaves["kmax2_xyz"][1],
+                          leaves["kmax2_xyz"][2])
+    for name in ("coef", "rows", "units"):
+        kw[f"far_{name}"] = _host_tensor(getattr(far, name))
     kw.update({name: leaves[name] for name in _META_FIELDS})
     kw["dtype_name"] = "float64"
     return SystemSpec(**kw)

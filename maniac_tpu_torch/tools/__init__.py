@@ -1,7 +1,10 @@
 """Command-line tools that measure the card: ``precision_probe`` (the
-hardware-precision probe), ``gpass_bench`` (the guest pair pass) and
+hardware-precision probe), ``gpass_bench`` (the guest pair pass),
 ``vpu_bench`` (chained f32 primitives and the framework Coulomb pass's
-plane math), each run as ``python -m maniac_tpu_torch.tools.<name>``.
+plane math), ``section_split`` (the block kernel's time by section, from a
+clock64-instrumented build), ``launch_cost`` (the host's cost of a
+kernel launch) and ``kernel_times`` (the step and one-hot kernels, each
+timed two ways), each run as ``python -m maniac_tpu_torch.tools.<name>``.
 They need a CUDA device and exit 1 without one; every time they print
 comes with the card's name and power limit.
 """

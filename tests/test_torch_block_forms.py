@@ -15,16 +15,10 @@ framework (every type active), with and without a reservoir of both. The
 two-species framework of systems.tiny_system("mixed") is too small for the
 split, so its inactive framework keeps it outside both gates."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from maniac_tpu.kernels.blockg import run_block_grouped
-from maniac_tpu.mc.driver import _recalibrate as jax_recalibrate
-from maniac_tpu.mc.driver import resync_amplitudes_body
-from maniac_tpu.mc.moves import N_UNIFORMS
 from maniac_tpu_torch import load_system
 from maniac_tpu_torch.kernels import (block_gate_failure, dispatch_report,
                                       step_gate_failure)
@@ -36,8 +30,8 @@ from maniac_tpu_torch.systems import (make_framework_mixed, make_mixed_sizes,
                                       make_triclinic_water, tiny_system)
 
 from torch_parity import (F32_ENERGY_TOL, F32_POS_TOL, as_np,
-                          assert_same_chain, files, jax_batch, load_both,
-                          mixed_with_reservoir, uniforms)
+                          assert_same_chain, files, jax_batch, jax_blockg,
+                          load_both, mixed_with_reservoir, uniforms)
 
 torch.set_num_threads(1)
 
@@ -68,39 +62,6 @@ CASES = {"fw_mixed": (_fw_mixed, 2, False),
          "tricl": (_tricl, 1, True)}
 
 
-def _jax_blockg(sysm, U):
-    """JAX's Pallas blockg (interpret mode) over uniforms U (G, n, 21) from
-    the loaded state, unpacked as driver.block_body_group, then the
-    recalibration and the amplitude resync."""
-    spec = sysm.spec
-    G, n = U.shape[:2]
-    st = jax.tree_util.tree_map(lambda x: jnp.stack([x] * G), sysm.state)
-    uq = jnp.asarray(U.transpose(1, 2, 0).reshape(n, N_UNIFORMS * G))
-    (pos, com, amp_re, amp_im, nrow, eng, cnt, resoff, rescom,
-     resn) = run_block_grouped(spec, st, uq, interpret=True)
-    aids = [r for r in range(spec.R) if spec.active_list[r]]
-    r_idx = jnp.arange(spec.R + 1)
-    n_mol, res_n = st.n_mol, st.res_n
-    for j, t in enumerate(aids):
-        n_mol = jnp.where(r_idx[None, :] == t, nrow[j][:, None], n_mol)
-        res_n = jnp.where(r_idx[None, :] == t, resn[j][:, None], res_n)
-    counters = st.counters + jnp.stack(
-        [cnt[0:5, :].T.astype(jnp.int32), cnt[8:13, :].T.astype(jnp.int32)],
-        axis=1)
-    extras = st.extras.at[:, 0].add(cnt[5].astype(jnp.int32))
-    extras = extras.at[:, 1].add(cnt[6].astype(jnp.int32))
-    st = st.replace(pos=pos, com=com, amp_re=amp_re, amp_im=amp_im,
-                    n_mol=n_mol, energy=eng[:6, :].T, counters=counters,
-                    extras=extras)
-    if spec.has_reservoir:
-        Sres, Mres = st.res_offset.shape[1], st.res_com.shape[1]
-        st = st.replace(res_offset=resoff[:, :, :Sres].transpose(0, 2, 1),
-                        res_com=rescom[:, :, :Mres].transpose(0, 2, 1),
-                        res_n=res_n)
-    st = jax.vmap(lambda s: jax_recalibrate(s, True, spec.dtype))(st)
-    return jax.vmap(lambda s: resync_amplitudes_body(spec, s))(st)
-
-
 @pytest.mark.parametrize("name", list(CASES))
 def test_block_matches_pallas_blockg(tmp_path, name):
     """G = 2 replicas x 40 steps: identical decisions (populations,
@@ -118,7 +79,7 @@ def test_block_matches_pallas_blockg(tmp_path, name):
     out = run_block_uniforms(spec, replicate(spec, state, 2),
                              torch.from_numpy(U), recalibrate=True,
                              resync=True)
-    jst = _jax_blockg(sysm, U)
+    jst = jax_blockg(sysm, U)
     assert_same_chain(jst, out, pos_tol=F32_POS_TOL,
                       energy_tol=F32_ENERGY_TOL)
     np.testing.assert_array_equal(as_np(out.res_n), np.asarray(jst.res_n))

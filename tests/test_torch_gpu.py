@@ -27,10 +27,12 @@ from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
 from maniac_tpu_torch.mc.moves import _propose
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
+from maniac_tpu_torch.kernels import build
 from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_mixed_reservoir, make_mixed_sizes,
-                                      make_water_box, make_water_reservoir,
-                                      make_zif_like, tiny_system)
+                                      make_slit_pore, make_water_box,
+                                      make_water_reservoir, make_zif_like,
+                                      tiny_system)
 from maniac_tpu_torch.tools.gpass_bench import check_inputs
 from maniac_tpu_torch.tools.gpass_bench import inputs as gpass_inputs
 from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
@@ -427,3 +429,85 @@ def test_gpass_kernel_lj_rows_match_plain(variant):
     assert gpass.launches == n0 + 1
     assert abs(k - float(gpass_plain(*ins, 10, 0, variant))) \
         <= GPASS_RTOL * gpass_scale(*ins, 10, 0, variant)
+
+
+def _step_parity(spec, states, seed):
+    """The step kernel against the plain core: one proposal (the same
+    acceptances, energies within 5 K plus 1e-4 relative, positions within
+    1e-4 A), then 40-step chains on the same uniforms."""
+    dev = states.pos.device
+    pre = _propose(spec, states, draw_uniforms(spec, states.B, 1,
+                                               _gen(dev, seed))[:, 0])
+    n0 = step_core.launches
+    k = step_core(spec, states, pre)
+    assert step_core.launches == n0 + 1
+    p = step_core_plain(spec, states, pre)
+    assert torch.equal(k["acc"], p["acc"])
+    for name in ("e_lj", "e_coul", "delta_e", "e_recip_new"):
+        torch.testing.assert_close(k[name], p[name], atol=ENERGY_TOL,
+                                   rtol=PROPOSAL_E_RTOL, msg=name)
+    assert float((k["pos"] - p["pos"]).abs().max()) <= POS_TOL
+    u = draw_uniforms(spec, states.B, 40, _gen(dev, seed + 1))
+    kc = run_steps_u(spec, states, u)
+    pc = block_plain(spec, states, u)
+    torch.testing.assert_close(kc.n_mol, pc.n_mol, rtol=0, atol=0)
+    torch.testing.assert_close(kc.counters, pc.counters, rtol=0, atol=0)
+    assert float((kc.pos - pc.pos).abs().max()) <= POS_TOL
+    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
+
+
+def test_far_field_ragged_rows_kernels_match_plain(tmp_path):
+    """A slit pore (12 x 12 x 30 A, the split on): far rows of uneven
+    lengths and kz2 = 31, the largest order the kernels take. K2 against
+    the plain block, and K3 against the plain core."""
+    dev = _device()
+    make_slit_pore(str(tmp_path), fugacity=500.0)
+    sysm = _load(str(tmp_path), dev, 16)
+    spec = sysm.spec
+    assert spec.fw_split and spec.kmax2_xyz[2] == 31
+    lens = spec.far_rows[:, 3].cpu()
+    assert len(set(lens[lens > 0].tolist())) > 5
+    states = replicate(spec, sysm.state, 8)
+    u = draw_uniforms(spec, 8, 60, _gen(dev, 21))
+    k1 = _assert_block_parity(spec, states, u)
+    assert int(k1.counters[:, 1].sum()) > 0
+    _step_parity(spec, block_plain(spec, states, u), 23)
+
+
+def test_guest_cutoff_off_kernels_match_plain(tmp_path):
+    """tests/test_ggsplit.py's water box with guest_split off: the
+    kernels' gg_cut == 0 branch (every mobile pair's erfc(alpha r)/r)
+    against the plain path, K2 and K3."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=24, L=24.0, cutoff=8.0,
+                   ewald_alpha=0.5, fugacity=40000.0,
+                   probs=(0.3, 0.2, 0.5, 0.0), guest_split="off")
+    sysm = _load(str(tmp_path), dev, 32)
+    spec = sysm.spec
+    assert not spec.gg_cut
+    states = replicate(spec, sysm.state, 8)
+    u = draw_uniforms(spec, 8, 60, _gen(dev, 31))
+    k = _assert_block_parity(spec, states, u)
+    assert int(k.counters[:, 1].sum()) > 0
+    _step_parity(spec, k, 33)
+
+
+def test_launch_path_refills_and_refuses():
+    """The launchers' tables are refilled on every call: K5 on changing
+    operands stays exact each time; the empty kernel takes tables of any
+    length; a launch the kernel refuses raises, and the next one runs."""
+    dev = _device()
+    x, oh, want = onehot_operands()
+    xt, oht = torch.from_numpy(x).to(dev), torch.from_numpy(oh).to(dev)
+    for k in range(4):
+        got = onehot_product(xt[:, k:].contiguous() * (k + 1),
+                             oht[k:].contiguous())
+        ref = (x[:, k:] * np.float32(k + 1)).astype(np.float64) @ oh[k:]
+        assert np.array_equal(got.cpu().numpy().astype(np.float64), ref)
+    for n in (0, 3, 60):
+        build.launch("noop_launch", [xt.data_ptr()] * n, [1] * n, [2.0] * n)
+    with pytest.raises(RuntimeError, match="onehot_launch failed"):
+        build.launch("onehot_launch", [xt.data_ptr(), oht.data_ptr(),
+                                       xt.data_ptr()], [0, 256, 8], [])
+    torch.cuda.synchronize()
+    assert np.array_equal(onehot_product(xt, oht).cpu().numpy(), want)

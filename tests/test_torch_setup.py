@@ -29,7 +29,10 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.kernels.gpass, "
             "maniac_tpu_torch.tools.precision_probe, "
             "maniac_tpu_torch.tools.gpass_bench, "
-            "maniac_tpu_torch.tools.vpu_bench; "
+            "maniac_tpu_torch.tools.vpu_bench, "
+            "maniac_tpu_torch.tools.launch_cost, "
+            "maniac_tpu_torch.tools.section_split, "
+            "maniac_tpu_torch.tools.kernel_times; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "
             "assert not bad, bad")

@@ -1,6 +1,7 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: load a system
 in both packages, carry JAX leaves into the port, run JAX scans of
-mc_step_u on explicit uniforms, and compare batched states."""
+mc_step_u and JAX's Pallas blockg (interpret mode) on explicit uniforms,
+and compare batched states."""
 
 from __future__ import annotations
 
@@ -12,6 +13,10 @@ import numpy as np
 import torch
 
 import maniac_tpu
+from maniac_tpu.kernels.blockg import run_block_grouped
+from maniac_tpu.mc.driver import _recalibrate as jax_recalibrate
+from maniac_tpu.mc.driver import resync_amplitudes_body
+from maniac_tpu.mc.moves import N_UNIFORMS
 from maniac_tpu.mc.moves import mc_step_u as jax_mc_step_u
 from maniac_tpu_torch.system import from_numpy
 from maniac_tpu_torch.systems import make_mixed_reservoir, make_mixed_sizes
@@ -89,6 +94,39 @@ def jax_batch(spec, state, U):
     outs = [run(jax.tree_util.tree_map(lambda x: x[b], state) if batched
                 else state, jnp.asarray(U[b])) for b in range(U.shape[0])]
     return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *outs)
+
+
+def jax_blockg(sysm, U):
+    """JAX's Pallas blockg (interpret mode) over uniforms U (G, n, 21) from
+    the loaded state, unpacked as driver.block_body_group, then the
+    recalibration and the amplitude resync."""
+    spec = sysm.spec
+    G, n = U.shape[:2]
+    st = jax.tree_util.tree_map(lambda x: jnp.stack([x] * G), sysm.state)
+    uq = jnp.asarray(U.transpose(1, 2, 0).reshape(n, N_UNIFORMS * G))
+    (pos, com, amp_re, amp_im, nrow, eng, cnt, resoff, rescom,
+     resn) = run_block_grouped(spec, st, uq, interpret=True)
+    aids = [r for r in range(spec.R) if spec.active_list[r]]
+    r_idx = jnp.arange(spec.R + 1)
+    n_mol, res_n = st.n_mol, st.res_n
+    for j, t in enumerate(aids):
+        n_mol = jnp.where(r_idx[None, :] == t, nrow[j][:, None], n_mol)
+        res_n = jnp.where(r_idx[None, :] == t, resn[j][:, None], res_n)
+    counters = st.counters + jnp.stack(
+        [cnt[0:5, :].T.astype(jnp.int32), cnt[8:13, :].T.astype(jnp.int32)],
+        axis=1)
+    extras = st.extras.at[:, 0].add(cnt[5].astype(jnp.int32))
+    extras = extras.at[:, 1].add(cnt[6].astype(jnp.int32))
+    st = st.replace(pos=pos, com=com, amp_re=amp_re, amp_im=amp_im,
+                    n_mol=n_mol, energy=eng[:6, :].T, counters=counters,
+                    extras=extras)
+    if spec.has_reservoir:
+        Sres, Mres = st.res_offset.shape[1], st.res_com.shape[1]
+        st = st.replace(res_offset=resoff[:, :, :Sres].transpose(0, 2, 1),
+                        res_com=rescom[:, :, :Mres].transpose(0, 2, 1),
+                        res_n=res_n)
+    st = jax.vmap(lambda s: jax_recalibrate(s, True, spec.dtype))(st)
+    return jax.vmap(lambda s: resync_amplitudes_body(spec, s))(st)
 
 
 def as_np(x) -> np.ndarray:
