@@ -25,17 +25,24 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      are held against their plain versions at the main path's batch (10
      block steps, at most B/64 replicas diverged; the resync of the result)
      and timed;
-  4. the per-step kernel against the plain energy core at B=64 on three
-     systems (the flagship; bench.py's `mixed`, two active species with
-     swaps and the split; bench.py's `resv` water box without its
-     reservoir, no split): one step on the same proposals, then 50-step
-     chains on the same uniforms, with phase 2's bounds and, on the
-     matching replicas, the committed amplitudes and E_RECIP within phase
-     1's bounds; the flagship also at B=1, the single chain's shape, with
-     no divergence allowed; both cores timed per step, and on the flagship
-     at B=1024 (phase 3's states): the step kernel's call device-paced
-     (tools/kernel_times.device_ms: queued behind a spin kernel, so the
-     host's pace drops out), and host-paced beside it;
+  4. the whole-step kernel (run_steps_kernel: one launch a step, the
+     proposal, energies, decision and commits in place on a clone of the
+     caller's state) against the plain steps (steps_plain: the torch step
+     with the plain energy core) at B=64 on three systems (the flagship;
+     bench.py's `mixed`, two active species with swaps and the split;
+     bench.py's `resv` water box without its reservoir, no split): one
+     step, then 50-step chains on the same uniforms, with phase 2's bounds
+     and, on the matching replicas, the committed amplitudes and E_RECIP
+     within phase 1's bounds; the kernel must launch once a step and leave
+     its input state as it was; the flagship also at B=1, the single
+     chain's shape, with no divergence allowed, and at B=1024 (phase 3's
+     states) under its own spec and under the isotherm's (8 fugacities x
+     128 replicas, one activity table a replica: the kernel line's time),
+     at most B/64 replicas diverged. Each timed per step over 20-step
+     calls: device-paced (tools/kernel_times.device_ms: queued behind a
+     spin kernel, so the host's pace drops out) and host-paced, the plain
+     steps, the device activities a step launches (torch.profiler), beside
+     the whole step's bound;
   4b. the resync kernel at B=1, driven through mc/driver.resync_amplitudes
      (the resync every replicated block calls), against its plain version
      (phase 1's bounds), timed;
@@ -43,7 +50,7 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      400 steps, 8 fugacities x 128 replicas = 1024 chains, f32 on the card):
      exit 0, 8 finite isotherm rows, populations within [0, capacity], more
      water at 3000 atm than at 1 atm, the step kernel launched once per
-     step;
+     step (1200 times) and the block kernel never;
   6. the command line's single chain on the same deck (2 blocks of 400
      steps): exit 0, the completion banner, 3 rows of energy.dat, the step
      kernel launched 800 times;
@@ -56,7 +63,7 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      and extras and reservoir rows within 1e-4 A; (c) box + reservoir +
      dropped molecules conserved exactly on every replica; (d) the resync
      kernel on that state (phase 1's bounds); (e) the step kernel against
-     the plain core at B=64 (phase 4's bounds) and timed at B=1; (f) the
+     the plain steps at B=64 (phase 4's bounds) and timed at B=1; (f) the
      no-split form alone on the same water box without its reservoir,
      B=64 x 50; (g) the main path, B=1024, one warm-up and three timed
      blocks of 400 steps with the resync, both kernels' launch counts
@@ -76,8 +83,8 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      1.2, 0.8), cutoff=7, tol=1e-5, probs=(0.3, 0.2, 0.5, 0),
      fugacity=4000), capacity 192, f32: a triclinic box, no framework):
      (a)-(d) as phase 8 for the block kernel's triclinic form; (e) the step
-     kernel against the plain core at B=64 (one step, then 50 steps) and at
-     B=1 with no divergence allowed, timed at B=1; (f) the command line's
+     kernel against the plain steps at B=64 (one step, then 50 steps) and
+     at B=1 with no divergence allowed, timed at B=1; (f) the command line's
      single chain on a tricl deck (2 blocks of 400 steps): exit 0, the
      banner, 3 rows of energy.dat, 800 step-kernel launches.
  10. hardware precision and the sentinel: (a) the one-hot kernel K5 against
@@ -112,12 +119,15 @@ Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
 kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
 and 9c, 9f on mixed and tricl), the largest error against the plain
-version, the times of kernel and plain version, and the bound: the least
-time the card could take for the same work, the larger of the bytes the
-call must move (each input read once, each output written once) over
-3.35 TB/s and its f32 operations, counted from this run's inputs
-(_step_ops, _resync_bound), over 67 TFLOP/s (one H100 SXM at 700 W; TF32
-is off by design). The far field counts one complex multiply-add per
+version, the times of kernel and plain version (the step kernel's per
+step, device-paced: the isotherm's spec at B=1024, resv and tricl at
+B=1), and the bound: the least time the card could take for the same
+work, the larger of the bytes the call must move (each input read once,
+each output written once; a whole step reads each replica's amplitudes
+at the weighted modes, its live positions and uniform row, and writes the
+accepted steps' amplitudes at the real modes) over 3.35 TB/s and its f32 operations, counted from this
+run's inputs (_trial_ops, _steps_bound, _resync_bound), over 67 TFLOP/s
+(one H100 SXM at 700 W; TF32 is off by design). The far field counts one complex multiply-add per
 nonzero coefficient and charged footprint atom, the work the separable
 contraction needs. No single PyTorch call computes any of these
 functions but K5's (torch.matmul), so library_ms is null on every other
@@ -143,7 +153,10 @@ import torch
 
 from maniac_tpu_torch.tools import card_label
 from maniac_tpu_torch.tools import cuda_ms as _cuda_ms
-from maniac_tpu_torch.tools.kernel_times import device_ms
+from maniac_tpu_torch.tools.kernel_times import (ISOTHERM_FUGACITIES,
+                                                 ISOTHERM_REPLICAS,
+                                                 STEPS_TIMED, device_ms,
+                                                 isotherm_spec, profile_steps)
 
 RESYNC_SRC = "maniac_tpu_torch/kernels/csrc/resync.cu"
 BLOCKG_SRC = "maniac_tpu_torch/kernels/csrc/blockg.cu"
@@ -157,8 +170,8 @@ CHECK_REPLICAS, CHECK_STEPS = 64, 50
 MAIN_REPLICAS, MAIN_STEPS, MAIN_BLOCKS = 1024, 400, 3
 # phases 5-6: the command line on the flagship deck
 CAPACITY = 192
-ISOTHERM = "1,3,10,30,100,300,1000,3000"
-ISO_REPLICAS, ISO_BLOCKS, CHAIN_BLOCKS = 128, 3, 2
+ISOTHERM = ",".join(f"{f:g}" for f in ISOTHERM_FUGACITIES)
+ISO_REPLICAS, ISO_BLOCKS, CHAIN_BLOCKS = ISOTHERM_REPLICAS, 3, 2
 SEED = 1234
 # phase 7: bench.py's resv water box and its reservoir
 RESV_BOX = dict(n_water=48, L=24.0, cutoff=8.0, tol=1e-5,
@@ -195,6 +208,11 @@ OPS_MODE = 8
 # one complex multiply-add per nonzero coefficient and charged atom
 OPS_FAR_ATOM_MODE = 8
 OPS_PAIR = 30
+# one replica's proposal (thread 0): its draws, the rotation, the new
+# footprint's positions and COM wrap, the prefactor; the intra energies of
+# an insertion or removal are left out (a lower bound)
+OPS_PROPOSAL = 200
+N_UNIFORMS = 21
 OPS_MIN_IMAGE = 9
 OPS_IMAGE = 7
 N_IMAGES = 27
@@ -267,16 +285,17 @@ def _step_ops(spec, atoms_q, atoms, sites, rows) -> float:
                  + OPS_MODE * (k + k2) * rows)
 
 
-def _block_bound(spec, states, out, u):
-    """Bound of one whole-block call. Only valid trials need energies: each
-    move class's valid trials (the counters' growth over the call) set the
-    footprint, both sides of a translation or rotation, one side of an
-    insertion or deletion, the old and the new type's molecule of a swap.
-    The counters do not split trials by type, so each side takes the
-    smallest active type's atoms (a swap the two smallest types'), and the
-    bound stays a lower one; trials blocked by the capacity need no
-    energies either and come off the swaps first, then the insertions.
-    Live sites are the mean of the block's first and last populations."""
+def _trial_ops(spec, states, out):
+    """Operations of the MC steps that took ``states`` to ``out``. Only
+    valid trials need energies: each move class's valid trials (the
+    counters' growth) set the footprint, both sides of a translation or
+    rotation, one side of an insertion or deletion, the old and the new
+    type's molecule of a swap. The counters do not split trials by type, so
+    each side takes the smallest active type's atoms (a swap the two
+    smallest types'), and the bound stays a lower one; trials blocked by
+    the capacity need no energies either and come off the swaps first,
+    then the insertions. Live sites are the mean of the first and last
+    populations."""
     from maniac_tpu_torch.constants import (TYPE_CREATION, TYPE_DELETION,
                                             TYPE_ROTATION, TYPE_SWAP,
                                             TYPE_TRANSLATION)
@@ -295,20 +314,60 @@ def _block_bound(spec, states, out, u):
         return (one_side * least[0] + swaps * (least[0] + second))[:, None]
     sites = 0.5 * (_type_rows(spec, states.n_mol, False)
                    + _type_rows(spec, out.n_mol, False))[:, None]
+    return _step_ops(spec, atoms((spec.type_q_rows != 0).sum(1)),
+                     atoms(spec.type_A), sites,
+                     float(n.sum() - blocked.sum()))
+
+
+def _energy_tables(spec):
+    """The spec tables the energies of a step read; of the LJ tables
+    (eps_site, sig2_site: one row per LJ class, 2165 x 3072 on the
+    flagship) only the rows of the active types' classes, which are all a
+    footprint reads."""
+    rows = spec.type_cls_rows[spec.active_type_ids.long()].long().unique()
+    tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
+              spec.eps_site[rows], spec.sig2_site[rows], spec.k_weights]
+    if spec.fw_split:
+        tables += [spec.far_coef, spec.far_rows, spec.far_units]
+    return tables
+
+
+def _block_bound(spec, states, out, u):
+    """Bound of one whole-block call: its inputs and outputs once, the
+    operations of its valid trials (_trial_ops)."""
     keys = ["pos", "com", "amp_re", "amp_im", "n_mol", "energy", "counters",
             "extras"]
     if spec.has_reservoir:
         keys += ["res_offset", "res_com", "res_n"]
-    tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
-              spec.eps_site, spec.sig2_site, spec.k_weights]
-    if spec.fw_split:
-        tables += [spec.far_coef, spec.far_rows, spec.far_units]
-    nbytes = _nbytes(u, states.trans_step, states.rot_step, *tables,
+    nbytes = _nbytes(u, states.trans_step, states.rot_step,
+                     *_energy_tables(spec),
                      *[getattr(states, k) for k in keys],
                      *[getattr(out, k) for k in keys])
-    ops = _step_ops(spec, atoms((spec.type_q_rows != 0).sum(1)),
-                    atoms(spec.type_A), sites,
-                    float(n.sum() - blocked.sum()))
+    return _bound(nbytes, _trial_ops(spec, states, out))
+
+
+def _steps_bound(spec, states, out, n_steps):
+    """Bound of one whole step (K3's launch), the mean over the n_steps
+    steps that took ``states`` to ``out``: the same work whatever
+    implements it. Bytes: each replica's amplitudes at the modes with a
+    nonzero k weight read once (all the k-space delta needs), its live
+    positions (frozen prefix and live guests) and its uniform row read, the
+    spec tables the energies read, and for each accepted step the
+    amplitudes at the grid's real (non-pad) modes written, with the ones
+    not read yet (zero weight) read, since the new value is the old one
+    plus the delta. Operations: the valid trials' (_trial_ops) and
+    OPS_PROPOSAL a replica."""
+    B = states.B
+    weighted = int((spec.k_weights != 0).sum())
+    real = (2 * spec.kmax_xyz[2] + 1) * int((spec.k_col_jx >= 0).sum())
+    live = 0.5 * (_type_rows(spec, states.n_mol, False)
+                  + _type_rows(spec, out.n_mol, False)).sum() + B * (
+                      spec.S_frozen if spec.fw_split else 0)
+    accepted = float((out.counters[:, 1] - states.counters[:, 1]).sum())
+    nbytes = (B * 8 * weighted + 12 * float(live) + B * N_UNIFORMS * 4
+              + _nbytes(*_energy_tables(spec))
+              + accepted / n_steps * 8 * (2 * real - weighted))
+    ops = _trial_ops(spec, states, out) / n_steps + OPS_PROPOSAL * B
     return _bound(nbytes, ops)
 
 
@@ -346,9 +405,9 @@ def _main_path(tag, spec, state, gen, label):
     replicas diverged; the resync of the result) and timed. Returns (the
     states, the numbers of the kernels line)."""
     from maniac_tpu_torch import replicate, run_block_replicated
-    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.physics.energy import (active_site_mask,
                                                  full_amplitudes,
                                                  recip_energy,
@@ -404,10 +463,10 @@ def _main_path(tag, spec, state, gen, label):
     u = draw_uniforms(spec, Bm, 10, gen)
     k_blk = run_block_kernel(spec, states, u)
     err_block, _ = _block_check(f"{tag}: block B={Bm} x 10 steps", k_blk,
-                                block_plain(spec, states, u),
+                                steps_plain(spec, states, u),
                                 max(1, Bm // 64))
     ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
-    ms_block_plain = _cuda_ms(lambda: block_plain(spec, states, u), 1)
+    ms_block_plain = _cuda_ms(lambda: steps_plain(spec, states, u), 1)
     bound_block = _block_bound(spec, states, k_blk, u)
     k_rs = resync_grouped(spec, k_blk)
     err_resync = _amp_check(f"{tag}: resync B={Bm} kernel vs plain",
@@ -525,7 +584,7 @@ def _load(make, dev, reservoir=None, **kw):
 def _step_check(name, k, p, max_diverged):
     """Phase-2 bounds on step-kernel (k) vs plain-core (p) chains, then the
     amplitudes the kernel committed and E_RECIP of the matching replicas
-    against the plain core's, with phase 1's bounds; returns max |dA|."""
+    against the plain steps', with phase 1's bounds; returns max |dA|."""
     from maniac_tpu_torch.system import E_RECIP
     _, same = _block_check(name, k, p, max_diverged)
     return _amp_check(f"{name}: amplitudes", k.amp_re[same], k.amp_im[same],
@@ -534,55 +593,49 @@ def _step_check(name, k, p, max_diverged):
 
 
 def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
-    """Phase 4 on one system: the dispatched step (the step kernel) against
-    the plain energy core, one step then an n_steps chain on the same
-    uniforms; then both cores timed on one proposal (the kernel's call
-    device-paced, and host-paced beside it). Returns (max |dA|, kernel ms,
+    """Phase 4 on one system: the whole-step kernel (run_steps_kernel)
+    against the plain steps (steps_plain) on the same uniforms, one step,
+    then an n_steps chain, with phase 2's bounds and, on the matching
+    replicas, the committed amplitudes and E_RECIP within phase 1's; the
+    kernel must launch once a step and leave its input state as it was.
+    Then STEPS_TIMED steps, per step: the kernel device-paced
+    (tools/kernel_times.device_ms: queued behind a spin kernel, so the
+    host's pace drops out) and host-paced, the plain steps, the device
+    activities a step launches and their device time (torch.profiler), and
+    the whole step's bound (_steps_bound). Returns (max |dA|, kernel ms,
     plain ms, (bound ms, what bounds it))."""
-    from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
-    from maniac_tpu_torch.mc.driver import draw_uniforms, run_steps_u
-    from maniac_tpu_torch.mc.moves import _propose, mc_step_u
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     B = states.B
-    u = draw_uniforms(spec, B, 1, gen)
-    err = _step_check(f"{name}: one step B={B}",
-                      run_steps_u(spec, states, u),
-                      run_steps_u(spec, states, u, core=step_core_plain),
-                      max_diverged)
-    if n_steps:
-        u = draw_uniforms(spec, B, n_steps, gen)
-        err = max(err, _step_check(
-            f"{name}: B={B} x {n_steps} steps", run_steps_u(spec, states, u),
-            run_steps_u(spec, states, u, core=step_core_plain),
-            max_diverged))
-    u1 = draw_uniforms(spec, B, 1, gen)[:, 0]
-    pre = _propose(spec, states, u1)
-    out = step_core(spec, states, pre)
-    q2 = torch.stack([pre["q_old"], pre["q_new"]], dim=1)
-    # only the proposals through the gate need energies
-    m2 = pre["m2"] & pre["gate"][:, None, None]
-    atoms = m2.sum((1, 2)).double()[:, None]
-    atoms_q = (m2 & (q2 != 0)).sum((1, 2)).double()[:, None]
-    sites = _type_rows(spec, states.n_mol, False)[:, None]
-    nbytes = _nbytes(states.pos, states.amp_re, states.amp_im, states.n_mol,
-                     pre["P_old"], pre["P_new"], q2, pre["m2"],
-                     pre["last_cols"], out["pos"], out["amp_re"],
-                     out["amp_im"], spec.site_q, spec.site_type,
-                     spec.site_midx, spec.site_mol, spec.eps_site,
-                     spec.sig2_site, spec.k_weights, spec.far_coef,
-                     spec.far_rows, spec.far_units)
-    bound = _bound(nbytes, _step_ops(spec, atoms_q, atoms, sites,
-                                     float(pre["gate"].sum())))
-    ms = device_ms(lambda: step_core(spec, states, pre), 20)
-    ms_host = _cuda_ms(lambda: step_core(spec, states, pre), 20)
-    ms_plain = _cuda_ms(lambda: step_core_plain(spec, states, pre), 5)
-    ms_full = _cuda_ms(lambda: mc_step_u(spec, states, u1), 20)
-    ms_full_plain = _cuda_ms(
-        lambda: mc_step_u(spec, states, u1, step_core_plain), 5)
-    print(f"{name}: B={B} per step: step core kernel {ms:.3f} ms "
-          f"(device-paced; host-paced {ms_host:.3f} ms), plain "
-          f"{ms_plain:.3f} ms; whole step (proposal, core, bookkeeping) "
-          f"{ms_full:.3f} ms, plain {ms_full_plain:.3f} ms; core bound "
-          f"{bound[0]:.4f} ms by {bound[1]} ({label})")
+    before = {k: v.clone() for k, v in vars(states).items()}
+    err = 0.0
+    for n in (1, n_steps) if n_steps else (1,):
+        u = draw_uniforms(spec, B, n, gen)
+        n0 = run_steps_kernel.launches
+        k = run_steps_kernel(spec, states, u)
+        if run_steps_kernel.launches != n0 + n:
+            raise AssertionError(f"{name}: {run_steps_kernel.launches - n0} "
+                                 f"launches for {n} steps")
+        err = max(err, _step_check(f"{name}: B={B} x {n} steps", k,
+                                   steps_plain(spec, states, u),
+                                   max_diverged))
+    if not all(torch.equal(v, before[k]) for k, v in vars(states).items()):
+        raise AssertionError(f"{name}: the step kernel wrote its input")
+    u = draw_uniforms(spec, B, STEPS_TIMED, gen)
+
+    def kernel():
+        return run_steps_kernel(spec, states, u)
+    bound = _steps_bound(spec, states, kernel(), STEPS_TIMED)
+    ms = device_ms(kernel, 3) / STEPS_TIMED
+    ms_host = _cuda_ms(kernel, 3) / STEPS_TIMED
+    ms_plain = _cuda_ms(lambda: steps_plain(spec, states, u),
+                        1) / STEPS_TIMED
+    n_act, busy = profile_steps(kernel, STEPS_TIMED)
+    print(f"{name}: B={B} per step ({STEPS_TIMED} steps a call): whole-step "
+          f"kernel {ms:.4f} ms device-paced, {ms_host:.4f} ms host-paced; "
+          f"plain {ms_plain:.3f} ms; {n_act:.2f} device activities a step "
+          f"({busy:.4f} ms, torch.profiler); bound {bound[0]:.4f} ms by "
+          f"{bound[1]} ({label})")
     return err, ms, ms_plain, bound
 
 
@@ -611,10 +664,10 @@ def _resv_phase(dev, gen, label):
     line's rows of the block, resync and step kernels on this system."""
     from maniac_tpu_torch import replicate
     from maniac_tpu_torch.kernels import dispatch_report
-    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.kernels.stepg import step_core
-    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.system import E_RECIP
     from maniac_tpu_torch.systems import make_water_box, make_water_reservoir
 
@@ -638,7 +691,7 @@ def _resv_phase(dev, gen, label):
     st = replicate(spec, rv.state, B)
     u = draw_uniforms(spec, B, n_check, gen)
     k_blk = run_block_kernel(spec, st, u)
-    p_blk = block_plain(spec, st, u)
+    p_blk = steps_plain(spec, st, u)
     err_block, _ = _block_check(f"phase 7b: reservoir block B={B} x "
                                 f"{n_check} steps", k_blk, p_blk, 1)
     for what, out in (("kernel", k_blk), ("plain", p_blk)):
@@ -657,7 +710,7 @@ def _resv_phase(dev, gen, label):
         *_resync_pair(resync_grouped(spec, k_blk),
                       resync_plain(spec, k_blk), E_RECIP))
 
-    # e. the step kernel against the plain core; timed at B = 1 (the single
+    # e. the step kernel against the plain steps; timed at B = 1 (the single
     # chain's shape, phase 7h)
     err_step, _, _, _ = _step_phase("phase 7e: resv", spec, st, gen, 1,
                                     n_check, label)
@@ -671,7 +724,7 @@ def _resv_phase(dev, gen, label):
     uw = draw_uniforms(wb.spec, B, n_check, gen)
     err_nosplit, _ = _block_check(
         f"phase 7f: no-split block (no reservoir) B={B} x {n_check} steps",
-        run_block_kernel(wb.spec, stw, uw), block_plain(wb.spec, stw, uw), 1)
+        run_block_kernel(wb.spec, stw, uw), steps_plain(wb.spec, stw, uw), 1)
 
     # g. the main path, then both kernels held and timed at its batch
     _, main = _main_path("phase 7g: resv", spec, rv.state, gen, label)
@@ -682,12 +735,12 @@ def _resv_phase(dev, gen, label):
         make_water_box(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
                        **RESV_BOX)
         res = make_water_reservoir(deck, **RESV_RESERVOIR)
-        step_core.launches = 0
+        run_steps_kernel.launches = 0
         rc, sec, log = _cli(
             ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
              "-p", f"{deck}/parameters.inc", "-r", res, "--capacity",
              str(CAPACITY)], f"{tmp}/out")
-        chain_launches = step_core.launches
+        chain_launches = run_steps_kernel.launches
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         with open(f"{tmp}/out/reservoir.lammpstrj") as f:
             frames = f.read().count("ITEM: TIMESTEP")
@@ -705,8 +758,9 @@ def _resv_phase(dev, gen, label):
 
     return [
         *_main_rows("resv", main, max(err_block, err_nosplit), err_resync),
-        _row("step_core/resv", STEPG_SRC, "maniac_tpu/kernels/stepg.py:65",
-            chain_launches, err_step, ms_step, ms_step_plain, bound_step),
+        _row("run_steps_kernel/resv", STEPG_SRC,
+             "maniac_tpu/kernels/stepg.py:65", chain_launches, err_step,
+             ms_step, ms_step_plain, bound_step),
     ]
 
 
@@ -736,8 +790,8 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
     its kernels line rows)."""
     from maniac_tpu_torch import replicate
     from maniac_tpu_torch.kernels import dispatch_report
-    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
-    from maniac_tpu_torch.mc.driver import draw_uniforms
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
 
     t0 = time.perf_counter()
     sysm = _load(make, dev, **kw)
@@ -758,7 +812,7 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
     u = draw_uniforms(spec, B, n_check, gen)
     k_blk = run_block_kernel(spec, st, u)
     err_block, _ = _block_check(f"{tag}b: {system} block B={B} x {n_check} "
-                                f"steps", k_blk, block_plain(spec, st, u), 1)
+                                f"steps", k_blk, steps_plain(spec, st, u), 1)
     swaps = k_blk.counters[:, :, 4].sum(0).tolist()
     print(f"{tag}b: swap trials {swaps[0]}, accepted {swaps[1]}")
     if spec.n_active > 1 and swaps[0] < 1:
@@ -769,11 +823,11 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
 
 
 def _tricl_step_phase(sysm, dev, gen, label):
-    """Phase 9 (e)-(f): the step kernel on tricl against the plain core at
+    """Phase 9 (e)-(f): the step kernel on tricl against the plain steps at
     B=64 and, timed, at B=1 with no divergence allowed; the command line's
     single chain on a tricl deck. Returns its kernels line row."""
     from maniac_tpu_torch import replicate
-    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.systems import make_triclinic_water
 
     spec = sysm.spec
@@ -787,12 +841,12 @@ def _tricl_step_phase(sysm, dev, gen, label):
         deck = f"{tmp}/tricl"
         make_triclinic_water(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
                              **TRICL_BOX)
-        step_core.launches = 0
+        run_steps_kernel.launches = 0
         rc, sec, log = _cli(
             ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
              "-p", f"{deck}/parameters.inc", "--capacity", str(CAPACITY)],
             f"{tmp}/out")
-        launches = step_core.launches
+        launches = run_steps_kernel.launches
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         energy_rows = _rows(f"{tmp}/out/energy.dat")
     print(f"phase 9f: tricl single chain exit {rc}, {n_chain} steps in "
@@ -805,7 +859,7 @@ def _tricl_step_phase(sysm, dev, gen, label):
             or len(energy_rows) != CHAIN_BLOCKS + 1 or launches != n_chain):
         raise AssertionError("phase 9f: the tricl single chain failed its "
                              "checks")
-    return _row("step_core/tricl", STEPG_SRC,
+    return _row("run_steps_kernel/tricl", STEPG_SRC,
                 "maniac_tpu/kernels/stepg.py:65", launches, max(err, err1),
                 ms, ms_plain, bound)
 
@@ -832,7 +886,7 @@ def _precision_phase(spec, state, dev, gen, label):
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.hwprobe import onehot_product
     from maniac_tpu_torch.kernels.resync import resync_grouped
-    from maniac_tpu_torch.kernels.stepg import step_core
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.mc.driver import (draw_uniforms, sentinel_check,
                                             sentinel_passed)
     from maniac_tpu_torch.systems import make_zif_like
@@ -911,11 +965,11 @@ def _precision_phase(spec, state, dev, gen, label):
                            ("single chain", [])):
             run_block_kernel.launches = 0
             resync_grouped.launches = 0
-            step_core.launches = 0
+            run_steps_kernel.launches = 0
             rc, sec, log = _cli(files + extra, f"{tmp}/out_{len(extra)}")
             counts = {"blockg": run_block_kernel.launches,
                       "resync": resync_grouped.launches,
-                      "stepg": step_core.launches}
+                      "stepg": run_steps_kernel.launches}
             lines = [ln.strip() for ln in log.splitlines()
                      if "sentinel" in ln.lower()]
             print(f"phase 10d: --sentinel 1, {tag}: exit {rc} in {sec:.1f} "
@@ -924,7 +978,7 @@ def _precision_phase(spec, state, dev, gen, label):
                 kernels_ok = (counts["blockg"] >= CHAIN_BLOCKS
                               and counts["resync"] >= CHAIN_BLOCKS)
             else:
-                kernels_ok = counts["stepg"] >= CHAIN_BLOCKS * MAIN_STEPS
+                kernels_ok = counts["stepg"] == CHAIN_BLOCKS * MAIN_STEPS
             if (rc != 0 or not kernels_ok
                     or f"sentinel: {CHAIN_BLOCKS} cross-checked blocks, 0 "
                        f"divergences" not in log):
@@ -1070,10 +1124,11 @@ def main() -> int:
         return 2
     from maniac_tpu_torch import load_system, replicate
     from maniac_tpu_torch.kernels import build, dispatch_report
-    from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.kernels.stepg import step_core
-    from maniac_tpu_torch.mc.driver import draw_uniforms, resync_amplitudes
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
+                                            steps_plain)
     from maniac_tpu_torch.system import E_RECIP
     from maniac_tpu_torch.systems import (make_framework_mixed,
                                           make_triclinic_water,
@@ -1118,7 +1173,7 @@ def main() -> int:
     B, n_check = CHECK_REPLICAS, CHECK_STEPS
     states = replicate(spec, sysm.state, B)
     u = draw_uniforms(spec, B, n_check, gen)
-    states = block_plain(spec, states, u)
+    states = steps_plain(spec, states, u)
     n = states.n_mol[:, 1]
     print(f"phase 1: B={B} after {n_check} plain steps, N in "
           f"[{int(n.min())}, {int(n.max())}]")
@@ -1135,11 +1190,11 @@ def main() -> int:
     st0 = p_out
     u = draw_uniforms(spec, B, n_check, gen)
     k_blk = run_block_kernel(spec, st0, u)
-    p_blk = block_plain(spec, st0, u)
+    p_blk = steps_plain(spec, st0, u)
     err_blk2, _ = _block_check(f"phase 2: block B={B} x {n_check} steps",
                                k_blk, p_blk, 1)
     ms_blk = _cuda_ms(lambda: run_block_kernel(spec, st0, u), 3)
-    ms_blk_plain = _cuda_ms(lambda: block_plain(spec, st0, u), 1)
+    ms_blk_plain = _cuda_ms(lambda: steps_plain(spec, st0, u), 1)
     print(f"phase 2: block kernel {ms_blk:.3f} ms, plain "
           f"{ms_blk_plain:.3f} ms ({name}, {smi})")
 
@@ -1147,7 +1202,7 @@ def main() -> int:
     states, main = _main_path("phase 3: flagship", spec, sysm.state, gen,
                               f"{name}, {smi}")
 
-    # ---- phase 4: step kernel vs plain core --------------------------------
+    # ---- phase 4: the whole-step kernel vs the plain steps -----------------
     label = f"{name}, {smi}"
     systems = [("flagship", spec, sysm.state)]
     for sname, make, kw in (
@@ -1171,13 +1226,21 @@ def main() -> int:
                                replicate(spec, sysm.state, 1), gen, 0,
                                n_check, label)
     err_step = max(err_step, err)
+    # the main path's batch (phase 3's states): the flagship's spec, then
+    # the isotherm's (phase 5: 8 fugacities x 128 replicas, one activity
+    # table a replica), whose time is the kernels line's
+    err, _, _, _ = _step_phase("phase 4: flagship", spec, states, gen,
+                               max(1, MAIN_REPLICAS // 64), 0, label)
+    err_step = max(err_step, err)
+    sweep = isotherm_spec(spec)
+    print(f"phase 4: isotherm spec: {dispatch_report(sweep, dev)}")
     err, ms_step, ms_step_plain, bound_step = _step_phase(
-        "phase 4: flagship", spec, states, gen,
-        max(1, MAIN_REPLICAS // 64), 0, label)
+        f"phase 4: isotherm {len(ISOTHERM.split(','))} x {ISO_REPLICAS}",
+        sweep, states, gen, max(1, MAIN_REPLICAS // 64), n_check, label)
     err_step = max(err_step, err)
 
     # ---- phase 4b: the resync kernel at B = 1 (a single chain) -------------
-    st1 = block_plain(spec, sysm.state, draw_uniforms(spec, 1, n_check, gen))
+    st1 = steps_plain(spec, sysm.state, draw_uniforms(spec, 1, n_check, gen))
     resync_grouped.launches = 0
     k_one = resync_amplitudes(spec, st1)
     launches_one = resync_grouped.launches
@@ -1209,13 +1272,13 @@ def main() -> int:
                     "-p", f"{d}/parameters.inc", "--capacity",
                     str(CAPACITY)]
 
-        step_core.launches = 0
+        run_steps_kernel.launches = 0
         resync_grouped.launches = 0
         run_block_kernel.launches = 0
         rc, sec, log = _cli(files(iso_deck) + [
             "--isotherm", ISOTHERM, "--replicas", str(ISO_REPLICAS)],
             f"{tmp}/iso_out")
-        iso_launches = {"stepg": step_core.launches,
+        iso_launches = {"stepg": run_steps_kernel.launches,
                         "resync": resync_grouped.launches,
                         "blockg": run_block_kernel.launches}
         n_iso = len(fugs) * ISO_REPLICAS * ISO_BLOCKS * MAIN_STEPS
@@ -1236,14 +1299,15 @@ def main() -> int:
                            for v in r[1:4])
                 or not all(0.0 <= v <= CAPACITY for v in vals)
                 or not iso_n[-1] > iso_n[0]
-                or iso_launches["stepg"] < ISO_BLOCKS * MAIN_STEPS
+                or iso_launches["stepg"] != ISO_BLOCKS * MAIN_STEPS
+                or iso_launches["blockg"] != 0
                 or iso_launches["resync"] < 1):
             raise AssertionError("phase 5: the isotherm sweep failed its "
                                  "checks")
 
-        step_core.launches = 0
+        run_steps_kernel.launches = 0
         rc, sec, log = _cli(files(chain_deck), f"{tmp}/chain_out")
-        chain_launches = step_core.launches
+        chain_launches = run_steps_kernel.launches
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         print(f"phase 6: single chain exit {rc}, {n_chain} steps in "
               f"{sec:.2f} s (load included): {n_chain / sec:.0f} MC "
@@ -1270,9 +1334,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1),
-        _row("step_core", STEPG_SRC,
-            "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
-            err_step, ms_step, ms_step_plain, bound_step),
+        _row("run_steps_kernel", STEPG_SRC,
+             "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
+             err_step, ms_step, ms_step_plain, bound_step),
         *resv, *mixed, *tricl, tricl_step, onehot, *micro,
     ]}))
     print(smi)

@@ -9,12 +9,14 @@ Three kernels serve the MC paths on a CUDA device:
   orthorhombic or a triclinic box (27-image minimum image; the split is
   orthorhombic only), each with or without a reservoir, and one activity
   for every replica;
-* ``stepg.step_core`` (csrc/stepg.cu): the energy core of one MC step for
-  B replicas given their proposals, the counterpart of
-  maniac_tpu/kernels/stepg.py ``_stepg_kernel`` (and, on triclinic boxes,
-  of the XLA core the JAX package runs there); every f32 block outside the
-  block kernel's gate (a per-replica activity sweep, a single chain, an
-  inactive type without the framework split) runs its steps through it;
+* ``stepg.run_steps_kernel`` (csrc/stepg.cu): whole MC steps for B
+  replicas, one launch a step, in place on a clone of the caller's state:
+  the counterpart of maniac_tpu/kernels/stepg.py ``_stepg_kernel`` with the
+  proposal and the bookkeeping around it (and, on triclinic boxes, of the
+  XLA core the JAX package runs there). It runs the same step body as the
+  block kernel (csrc/step_body.cuh). Every f32 block outside the block
+  kernel's gate (a per-replica activity sweep, a single chain, an inactive
+  type without the framework split) runs its steps through it;
 * ``resync.resync_grouped`` (csrc/resync.cu): the per-block amplitude
   resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
   ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
@@ -73,9 +75,9 @@ def _table_limit_failure(spec) -> str | None:
 def step_gate_failure(spec) -> str | None:
     """First static-spec condition the per-step kernel does not take, or
     None. It takes any number of active species, with the framework split
-    on or off, an orthorhombic or a triclinic box, a per-replica activity
-    and a reservoir (the proposal and the reservoir bookkeeping, which read
-    them, stay in torch)."""
+    on or off (an inactive type without the split included), an
+    orthorhombic or a triclinic box, one activity table or one per replica,
+    and a reservoir."""
     if spec.dtype_name != "float32":
         return f"dtype {spec.dtype_name} (the kernels take float32)"
     if spec.use_table:
@@ -98,8 +100,8 @@ def use_block_kernel(spec, device) -> bool:
 
 
 def use_step_kernel(spec, device) -> bool:
-    """True when an MC step's energy core runs in the CUDA per-step
-    kernel."""
+    """True when an MC step runs in the CUDA per-step kernel (the whole
+    step: proposal, energies, decision and commits)."""
     return (torch.device(device).type == "cuda"
             and step_gate_failure(spec) is None)
 
@@ -110,22 +112,11 @@ def use_resync_kernel(spec, device) -> bool:
             and resync_gate_failure(spec) is None)
 
 
-def split_args(spec):
-    """The framework-split arguments of the footprint kernels (blockg.cu,
-    stepg.cu): ([S_frozen, guest_base], (kx2, ky2, kz2), fw_d0, the far
-    table's tile count). Without the split: no frozen prefix and an empty
-    far table, so every live site takes erfc(alpha r)/r
-    (physics/energy.py)."""
-    if spec.fw_split:
-        return ([spec.S_frozen, spec.guest_base], spec.kmax2_xyz,
-                spec.host_scalars["fw_d0"], int(spec.far_units.shape[0]))
-    return [0, 0], (0, 0, 0), 0.0, 0
-
-
 def dispatch_report(spec, device) -> str:
-    """One line naming the implementation of the block, of the MC step
-    inside a block that is not the whole-block kernel, and of the resync on
-    ``device``, with the reason when it is not the kernel."""
+    """One line naming the implementation of the block, of the MC steps of
+    a block that is not the whole-block kernel (the per-step kernel runs
+    whole steps, one launch each), and of the resync on ``device``, with the
+    reason when it is not the kernel."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"kernel dispatch: plain torch path (device {device.type})"

@@ -1,107 +1,143 @@
-"""Energy core of one MC step for B replicas: CUDA kernel and plain version.
+"""Whole MC steps for B replicas, one launch a step: CUDA kernel, and the
+tables both step kernels take.
 
-``step_core`` replaces maniac_tpu/kernels/stepg.py::mc_step_core_grouped
-(kernel ``_stepg_kernel``), which mc_step_u runs between the proposal and
-the bookkeeping (kernels.step_gate_failure is the gate); on a triclinic box
-it also takes the core the JAX package leaves to XLA there. For a CUDA state
-it launches csrc/stepg.cu; for a CPU state it runs ``step_core_plain``,
-mc/moves.py::_core_plain. Both take the proposal dict of
-mc/moves.py::_propose and return the dict _bookkeep reads: positions and
-amplitudes after the commit, and per replica acc, e_recip_new,
-delta_e, e_lj (B, 2) and e_coul (B, 2).
+``run_steps_kernel`` replaces maniac_tpu/kernels/stepg.py::
+mc_step_core_grouped (kernel ``_stepg_kernel``) together with the proposal
+and the bookkeeping mc_step_u runs around it (kernels.step_gate_failure is
+the gate); on a triclinic box it also takes the core the JAX package leaves
+to XLA there. For a CUDA state it clones the state once and launches
+csrc/stepg.cu once per step on the clone, in place; for a CPU state it runs
+its plain version, mc/driver.py::steps_plain (the torch loop of
+mc/moves.py::mc_step_u with the plain energy core). ``step_core_plain``
+(mc/moves.py::_core_plain) is that core, which the parity tests hold to
+the JAX package's Pallas step core.
+
+``step_tables`` packs the tables csrc/step_body.cuh names (StepPtr,
+StepInt, StepFloat), which the whole-block kernel (kernels/blockg.py) takes
+too, each kernel with its own entries after them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..constants import COULOMB_K, TWOPI
-from ..mc.moves import _core_plain
+from ..constants import COULOMB_K, PROB_CREATE_DELETE, SMALL, TWOPI
+from ..mc.driver import steps_plain
+from ..mc.moves import N_UNIFORMS, _core_plain
 from ..system import SimState, SystemSpec
-from . import build, split_args, step_gate_failure
+from . import build, step_gate_failure
 from .resync import _check
 
 step_core_plain = _core_plain
 
-
-def _spec_tables(spec: SystemSpec) -> list:
-    """The spec tables the kernel reads, in its pointer order."""
-    return [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
-            spec.eps_site, spec.sig2_site, spec.type_A, spec.type_site_base,
-            spec.box_diag, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
-            spec.k_col_jy, spec.far_coef, spec.far_rows, spec.far_units,
-            spec.image_shifts]
+# the state a step writes, in csrc/step_body.cuh's pointer order (SP_POS ..
+# SP_EXTRAS, then SP_RES_OFF .. SP_RES_N)
+STATE_KEYS = ("pos", "com", "amp_re", "amp_im", "n_mol", "energy",
+              "counters", "extras")
+RES_KEYS = ("res_offset", "res_com", "res_n")
 
 
-def step_core(spec: SystemSpec, states: SimState, pre: dict) -> dict:
-    """Pair, far-field and k-space energies of each replica's proposal,
-    the Metropolis test and the commits."""
-    if states.pos.device.type == "cpu":
-        return step_core_plain(spec, states, pre)
-    out = _launch(spec, states, pre)
-    step_core.launches += 1
-    return out
-
-
-def _launch(spec: SystemSpec, states: SimState, pre: dict) -> dict:
-    """Check the inputs, allocate the outputs and launch csrc/stepg.cu."""
+def step_tables(spec: SystemSpec, states: SimState, uniforms,
+                work: SimState) -> tuple[list, list, list]:
+    """Check a block's inputs (``states``, uniforms (B, n_steps, 21)) and
+    pack the tables of csrc/step_body.cuh with ``work`` as the state the
+    kernel writes (the block kernel's outputs, the step kernel's working
+    copy): (pointers, ints, floats)."""
     dev = states.pos.device
+    B, n_steps = states.B, uniforms.shape[1]
+    M1 = spec.Mtot + 1
+    JzP, JxyP = spec.amp_shape
+    f32, i32 = torch.float32, torch.int32
+    _check("uniforms", uniforms, (B, n_steps, N_UNIFORMS), f32, dev)
+    _check("pos", states.pos, (B, 3, spec.S), f32, dev)
+    _check("com", states.com, (B, 3, M1), f32, dev)
+    _check("amp_re", states.amp_re, (B, JzP, JxyP), f32, dev)
+    _check("amp_im", states.amp_im, (B, JzP, JxyP), f32, dev)
+    _check("n_mol", states.n_mol, (B, spec.R + 1), i32, dev)
+    _check("energy", states.energy, (B, 6), f32, dev)
+    _check("counters", states.counters, (B, 2, 5), i32, dev)
+    _check("extras", states.extras, (B, 4), i32, dev)
+    _check("trans_step", states.trans_step, (B,), f32, dev)
+    _check("rot_step", states.rot_step, (B,), f32, dev)
+    Sres, Mres1 = states.res_offset.shape[1], states.res_com.shape[1]
+    _check("res_offset", states.res_offset, (B, Sres, 3), f32, dev)
+    _check("res_com", states.res_com, (B, Mres1, 3), f32, dev)
+    _check("res_n", states.res_n, (B, spec.R + 1), i32, dev)
+    tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
+              spec.eps_site, spec.sig2_site, spec.type_A, spec.type_cap,
+              spec.type_site_base, spec.type_mol_base, spec.type_activity,
+              spec.type_self_energy, spec.type_template_off,
+              spec.type_q_rows, spec.type_cls_rows, spec.mol_site_start,
+              spec.p_cum, spec.bounds[:, 0].contiguous(), spec.box_diag,
+              spec.H, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
+              spec.k_col_jy, spec.far_coef, spec.far_rows, spec.far_units]
+    res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
+                  spec.res_cap, spec.res_H]
+    box_tables = [spec.active_type_ids, spec.Hinv, spec.image_shifts]
+    for t in tables + res_tables + box_tables:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("spec tables must be contiguous on the state's "
+                             "device")
+    ptrs = [t.data_ptr() for t in (
+        uniforms, *[getattr(work, k) for k in STATE_KEYS], work.trans_step,
+        work.rot_step, *tables, *[getattr(work, k) for k in RES_KEYS],
+        *res_tables, *box_tables)]
+    # the framework split's arguments; without it no frozen prefix and an
+    # empty far table, so every live site takes erfc(alpha r)/r
+    if spec.fw_split:
+        fw, kmax2 = [spec.S_frozen, spec.guest_base], spec.kmax2_xyz
+        fw_d0, n_far_tiles = (spec.host_scalars["fw_d0"],
+                              int(spec.far_units.shape[0]))
+    else:
+        fw, kmax2, fw_d0, n_far_tiles = [0, 0], (0, 0, 0), 0.0, 0
+    sc = spec.host_scalars
+    ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
+            spec.n_active, JzP, JxyP, *spec.kmax_xyz, *kmax2, n_far_tiles,
+            int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
+            int(spec.is_triclinic)]
+    floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
+              spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
+              fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL]
+    return ptrs, ints, floats
+
+
+def run_steps_kernel(spec: SystemSpec, states: SimState,
+                     uniforms) -> SimState:
+    """Run uniforms.shape[1] MC steps for every replica; uniforms are
+    replica-major (B, n_steps, 21) in the spec dtype. The caller's states
+    are never written."""
+    if states.pos.device.type == "cpu":
+        return steps_plain(spec, states, uniforms)
+    return _run(spec, states, uniforms)
+
+
+def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
+    """Check the inputs once, clone the state once and launch csrc/stepg.cu
+    once per step on the clone (the tables are the same for every step of
+    the block but for the step index)."""
     failure = step_gate_failure(spec)
     if failure is not None:
         raise ValueError(f"the step kernel does not take this spec: "
                          f"{failure}")
-    B, A = states.B, spec.A_act
-    JzP, JxyP = spec.amp_shape
-    f32, i32 = torch.float32, torch.int32
-    _check("pos", states.pos, (B, 3, spec.S), f32, dev)
-    _check("amp_re", states.amp_re, (B, JzP, JxyP), f32, dev)
-    _check("amp_im", states.amp_im, (B, JzP, JxyP), f32, dev)
-    _check("n_mol", states.n_mol, (B, spec.R + 1), i32, dev)
-    P = torch.stack([pre["P_old"], pre["P_new"]], dim=1).contiguous()
-    q = torch.stack([pre["q_old"], pre["q_new"]], dim=1).contiguous()
-    cls = torch.stack([pre["cls_old"], pre["cls_new"]], dim=1).to(i32)
-    m = pre["m2"].to(i32)
-    last = pre["last_cols"].contiguous()
-    iscal = torch.stack([pre[k].to(i32) for k in (
-        "ex_a", "ex_b", "site_start_old", "site_start_new", "A_old", "A_new",
-        "remove_like", "w_new", "gate")], dim=1)
-    fscal = torch.stack([
-        pre["s_old"], pre["i_old"], pre["s_new"], pre["i_new"],
-        pre["e_recip_old"], pre["pref"], pre["u_acc"]], dim=1).contiguous()
-    _check("P", P, (B, 2, A, 3), f32, dev)
-    _check("q", q, (B, 2, A), f32, dev)
-    _check("cls", cls, (B, 2, A), i32, dev)
-    _check("m2", m, (B, 2, A), i32, dev)
-    _check("last_cols", last, (B, 3, A), f32, dev)
-    _check("iscal", iscal, (B, 9), i32, dev)
-    _check("fscal", fscal, (B, 7), f32, dev)
-    tables = _spec_tables(spec)
-    for t in tables:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError("spec tables must be contiguous on the state's "
-                             "device")
-    pos = torch.empty_like(states.pos)
-    amp_re = torch.empty_like(states.amp_re)
-    amp_im = torch.empty_like(states.amp_im)
-    flags = torch.empty((B, 8), dtype=f32, device=dev)
-    ins = [states.pos, states.amp_re, states.amp_im, states.n_mol, P, q,
-           cls, m, last, iscal, fscal]
-    ptrs = [t.data_ptr() for t in ins + [pos, amp_re, amp_im, flags]
-            + tables]
-    kx, ky, kz = spec.kmax_xyz
-    sc = spec.host_scalars
-    fw, (kx2, ky2, kz2), fw_d0, n_far_tiles = split_args(spec)
-    ints = [B, spec.S, *fw, spec.R, A, JzP, JxyP, kx, ky, kz, kx2, ky2, kz2,
-            n_far_tiles, int(spec.gg_cut), int(spec.is_triclinic)]
-    floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
-              spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
-              fw_d0, COULOMB_K, TWOPI]
-    build.launch("stepg_launch", ptrs, ints, floats)
-    acc = flags[:, 0] > 0.5
-    return dict(pos=pos, amp_re=amp_re, amp_im=amp_im, acc=acc,
-                e_recip_new=flags[:, 1],
-                delta_e=flags[:, 2], e_lj=flags[:, 3:5],
-                e_coul=flags[:, 5:7])
+    act = spec.type_activity
+    act_stride = spec.R if act.dim() == 2 else 0
+    if act_stride and tuple(act.shape) != (states.B, spec.R):
+        raise ValueError(f"a per-replica activity must be ({states.B}, "
+                         f"{spec.R}), got {tuple(act.shape)}")
+    # the working copy the launches update in place (SimState.replace
+    # shares tensors, so the caller's state must never reach the kernel);
+    # without a reservoir the (tiny, unread) reservoir tensors pass through
+    keys = STATE_KEYS + (RES_KEYS if spec.has_reservoir else ())
+    work = states.replace(**{k: getattr(states, k).clone() for k in keys})
+    ptrs, ints, floats = step_tables(spec, states, uniforms, work)
+    # stepg.cu's own ints after the shared ones: SI_STEP, SI_ACT_STRIDE
+    si_step = len(ints)
+    ints += [0, act_stride]
+    for step in range(uniforms.shape[1]):
+        ints[si_step] = step
+        build.launch("stepg_launch", ptrs, ints, floats)
+        run_steps_kernel.launches += 1
+    return work
 
 
-step_core.launches = 0
+run_steps_kernel.launches = 0

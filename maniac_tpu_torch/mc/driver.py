@@ -61,12 +61,28 @@ def draw_uniforms(spec: SystemSpec, B: int, n_steps: int,
 
 def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
                 core=None) -> SimState:
-    """n_steps MC steps from explicit uniforms (B, n_steps, 21): a Python
-    loop of mc_step_u (the per-step path of a block; ``core`` as in
-    mc_step_u)."""
+    """n_steps MC steps from explicit uniforms (B, n_steps, 21): the
+    per-step path of a block. ``core`` None dispatches: a spec inside
+    kernels.step_gate_failure goes to kernels/stepg.py::run_steps_kernel
+    (on the card one launch a step; on the CPU the loop below with
+    _core_plain), any other runs the loop with _core_plain. A core passed
+    (_core_plain) pins the torch loop of mc_step_u."""
+    if core is None:
+        from ..kernels import step_gate_failure
+        if step_gate_failure(spec) is None:
+            from ..kernels.stepg import run_steps_kernel
+            return run_steps_kernel(spec, state, uniforms)
+        core = _core_plain
     for i in range(uniforms.shape[1]):
         state = mc_step_u(spec, state, uniforms[:, i], core)
     return state
+
+
+def steps_plain(spec: SystemSpec, state: SimState, uniforms) -> SimState:
+    """The plain whole steps: run_steps_u pinned to the torch loop with the
+    plain energy core, never a kernel. The plain version of both step
+    kernels (kernels/blockg.py, kernels/stepg.py)."""
+    return run_steps_u(spec, state, uniforms, core=_core_plain)
 
 
 def block_body_u(spec: SystemSpec, state: SimState, uniforms,

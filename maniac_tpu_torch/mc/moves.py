@@ -11,10 +11,12 @@ Footprints are read with gathers (the JAX package's one-hot matmul reads
 were a TPU layout workaround). With a reservoir (``-r``) an insertion takes
 a random reservoir molecule's geometry as it is, and _update_reservoir pops
 and pushes reservoir molecules after the bookkeeping. The energy core of a
-step is ``_core_plain`` here; for a spec inside kernels.step_gate_failure,
-mc_step_u runs it through kernels/stepg.py::step_core, which launches
-kernels/csrc/stepg.cu for CUDA tensors. On the card, a block inside the
-whole-block kernel's gate runs in kernels/csrc/blockg.cu instead.
+step is ``_core_plain`` here. For a spec inside kernels.step_gate_failure,
+mc_step_u and mc/driver.py::run_steps_u run whole steps through
+kernels/stepg.py::run_steps_kernel, which launches kernels/csrc/stepg.cu
+(the proposal, the core and the bookkeeping in one launch a step) for CUDA
+tensors and runs this torch step for CPU tensors. On the card, a block
+inside the whole-block kernel's gate runs in kernels/csrc/blockg.cu.
 """
 
 from __future__ import annotations
@@ -96,26 +98,20 @@ def _scatter_cols(x, idx, cols, mask):
 
 def mc_step_u(spec: SystemSpec, states: SimState, u, core=None) -> SimState:
     """One MC trial per replica from a row of uniforms u (B, 21):
-    proposal, energy core, bookkeeping. ``core`` None dispatches the energy
-    core (kernels/stepg.py::step_core for a spec inside its gate, else
-    _core_plain); pass _core_plain to pin the plain version."""
-    pre = _propose(spec, states, u)
+    proposal, energy core, bookkeeping. ``core`` None dispatches as
+    mc/driver.py::run_steps_u does for one step (a spec inside
+    kernels.step_gate_failure: kernels/stepg.py::run_steps_kernel); pass a
+    core (_core_plain) to pin the torch step."""
     if core is None:
-        core = _dispatch_core(spec)
+        from .driver import run_steps_u
+        return run_steps_u(spec, states, u[:, None].contiguous())
+    pre = _propose(spec, states, u)
     core_out = core(spec, states, pre)
     new = _bookkeep(spec, states, pre, core_out)
     if spec.has_reservoir:
         new = _update_reservoir(spec, states, new, pre, core_out["acc"],
                                 u[:, 18:21])
     return new
-
-
-def _dispatch_core(spec: SystemSpec):
-    from ..kernels import step_gate_failure
-    if step_gate_failure(spec) is not None:
-        return _core_plain
-    from ..kernels.stepg import step_core
-    return step_core
 
 
 def _propose(spec: SystemSpec, st: SimState, u) -> dict:

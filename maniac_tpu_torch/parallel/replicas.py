@@ -6,9 +6,9 @@ through the uniforms each one consumes (and, in an isotherm sweep, their
 activities). A spec inside a kernel's gate goes through the kernel's
 wrapper, which launches kernels/csrc/blockg.cu or kernels/csrc/resync.cu
 for CUDA tensors and runs its plain version for CPU tensors; a block
-outside the whole-block gate runs the per-step path, whose energy core is
-kernels/csrc/stepg.cu under the same rule (kernels.dispatch_report says
-which).
+outside the whole-block gate runs the per-step path, whose steps are
+kernels/csrc/stepg.cu, one launch a step, under the same rule
+(kernels.dispatch_report says which).
 """
 
 from __future__ import annotations
@@ -66,7 +66,8 @@ def run_block_sweep_uniforms(spec: SystemSpec, states: SimState, uniforms,
     """run_block_uniforms for a spec with a per-replica activity axis
     (perturb_activity): one isotherm, every state point a batch of
     replicas, in one block. The block kernel does not take a per-replica
-    activity, so the steps run the per-step path, then the resync."""
+    activity, so the steps run the per-step path (the step kernel reads
+    each replica's activity table), then the resync."""
     if tuple(spec.type_activity.shape) != (states.B, spec.R):
         raise ValueError(f"a sweep needs type_activity ({states.B}, "
                          f"{spec.R}), got {tuple(spec.type_activity.shape)}")

@@ -18,7 +18,7 @@ from maniac_tpu.mc.moves import _core_kernel_grouped
 from maniac_tpu.mc.moves import _propose as jax_propose
 from maniac_tpu.system import E_TOT as JAX_E_TOT
 from maniac_tpu_torch.kernels import block_gate_failure, step_gate_failure
-from maniac_tpu_torch.kernels.stepg import step_core
+from maniac_tpu_torch.kernels.stepg import step_core_plain
 from maniac_tpu_torch.mc.driver import run_steps_u
 from maniac_tpu_torch.mc.moves import _core_plain, _propose
 from maniac_tpu_torch.parallel.replicas import replicate, run_block_uniforms
@@ -100,7 +100,8 @@ def test_gg_off_step_core_matches_pallas_stepg(tmp_path, monkeypatch):
                        dtype=torch.float32)
     for seed in range(3):
         u = uniforms(4, 1, seed=30 + seed, f32=True)[:, 0]
-        core = step_core(spec, st, _propose(spec, st, torch.from_numpy(u)))
+        core = step_core_plain(spec, st,
+                               _propose(spec, st, torch.from_numpy(u)))
         jpre = jax.vmap(lambda s, uu: jax_propose(sysm.spec, s, uu))(
             jst, jnp.asarray(u))
         jcore = _core_kernel_grouped(sysm.spec, jst, jpre)

@@ -13,22 +13,23 @@ import torch
 
 from maniac_tpu_torch import load_system, replicate, run_block_replicated
 from maniac_tpu_torch.kernels import dispatch_report
-from maniac_tpu_torch.kernels.blockg import block_plain, run_block_kernel
+from maniac_tpu_torch.kernels.blockg import run_block_kernel
 from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, GPASS_VARIANTS,
                                             gpass, gpass_plain, gpass_scale)
 from maniac_tpu_torch.kernels.hwprobe import onehot_product
 from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-from maniac_tpu_torch.kernels.stepg import step_core, step_core_plain
+from maniac_tpu_torch.kernels.stepg import run_steps_kernel
 from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
                                           cpass, cpass_plain, vpu_chain,
                                           vpu_chain_plain)
 from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
-                                        run_steps_u)
-from maniac_tpu_torch.mc.moves import _propose
+                                        steps_plain)
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
 from maniac_tpu_torch.kernels import build
+from maniac_tpu_torch.system import E_RECIP
 from maniac_tpu_torch.systems import (make_framework_mixed,
+                                      make_framework_water,
                                       make_mixed_reservoir, make_mixed_sizes,
                                       make_slit_pore, make_water_box,
                                       make_water_reservoir, make_zif_like,
@@ -72,7 +73,7 @@ def _gen(dev, seed):
 
 def _assert_block_parity(spec, states, u):
     k = run_block_kernel(spec, states, u)
-    p = block_plain(spec, states, u)
+    p = steps_plain(spec, states, u)
     torch.testing.assert_close(k.n_mol, p.n_mol, rtol=0, atol=0)
     torch.testing.assert_close(k.counters, p.counters, rtol=0, atol=0)
     torch.testing.assert_close(k.extras, p.extras, rtol=0, atol=0)
@@ -117,7 +118,7 @@ def test_resync_kernel_matches_plain(tmp_path):
                   fugacity=50.0, cutoff=6.0)
     sysm = _load(str(tmp_path), dev, 16)
     states = replicate(sysm.spec, sysm.state, 8)
-    states = block_plain(sysm.spec, states,
+    states = steps_plain(sysm.spec, states,
                          draw_uniforms(sysm.spec, 8, 30, _gen(dev, 3)))
     k = resync_grouped(sysm.spec, states)
     p = resync_plain(sysm.spec, states)
@@ -127,10 +128,11 @@ def test_resync_kernel_matches_plain(tmp_path):
 
 
 def test_launch_counts_and_refusals(tmp_path):
-    """Each wrapper counts one launch per call on CUDA tensors, and raises
-    (no fallback) for a spec outside its kernel; two active species run the
-    block kernel, and a per-replica activity (an isotherm sweep) runs the
-    per-step path with the step kernel and the resync kernel."""
+    """Each wrapper counts one launch per kernel launch on CUDA tensors
+    (the step kernel one a step), and raises (no fallback) for a spec
+    outside its kernel; two active species run the block kernel, and a
+    per-replica activity (an isotherm sweep) runs the per-step path with
+    the step kernel and the resync kernel."""
     dev = _device()
     _mixed_sizes(str(tmp_path))
     f32 = _load(str(tmp_path), dev, 16)
@@ -143,12 +145,12 @@ def test_launch_counts_and_refusals(tmp_path):
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
     assert "block: CUDA whole-block kernel" in dispatch_report(f32.spec, dev)
-    nb, ns, nr = (run_block_kernel.launches, step_core.launches,
+    nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
                   resync_grouped.launches)
     out = run_block_replicated(f32.spec, states, 5, False, True,
                                _gen(dev, 5))
     assert run_block_kernel.launches == nb + 1
-    assert step_core.launches == ns
+    assert run_steps_kernel.launches == ns
     assert resync_grouped.launches == nr + 1
     assert int(out.counters[:, 0].sum()) == 10
     sweep = perturb_activity(f32.spec, f32.spec.type_activity.expand(2, -1))
@@ -159,21 +161,20 @@ def test_launch_counts_and_refusals(tmp_path):
     # path with the step kernel, the kernel resync, and the report says so
     assert "per-step path (per-replica activity" in dispatch_report(
         sweep, dev)
-    nb, ns, nr = (run_block_kernel.launches, step_core.launches,
+    nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
                   resync_grouped.launches)
     out = run_block_sweep(sweep, states, 5, False, True, _gen(dev, 5))
     assert run_block_kernel.launches == nb
-    assert step_core.launches == ns + 5
+    assert run_steps_kernel.launches == ns + 5
     assert resync_grouped.launches == nr + 1
     assert int(out.counters[:, 0].sum()) == 10
     f64 = _load(str(tmp_path), dev, 16, dtype=torch.float64)
     st64 = replicate(f64.spec, f64.state, 2)
     with pytest.raises(ValueError, match="float32"):
         resync_grouped(f64.spec, st64)
-    pre = _propose(f64.spec, st64, draw_uniforms(f64.spec, 2, 1,
-                                                 _gen(dev, 6))[:, 0])
+    u64 = draw_uniforms(f64.spec, 2, 1, _gen(dev, 6))
     with pytest.raises(ValueError, match="float32"):
-        step_core(f64.spec, st64, pre)
+        run_steps_kernel(f64.spec, st64, u64)
 
 
 def _water(d, **kw):
@@ -231,26 +232,17 @@ def test_block_kernel_rejected_overlap_keeps_energies_finite(tmp_path):
 
 
 def test_step_kernel_reservoir_matches_plain(tmp_path):
-    """The per-step kernel on the reservoir fixture: 40-step chains of the
-    dispatched step against the plain core on the same uniforms."""
+    """The whole-step kernel on the reservoir fixture: 40-step chains
+    against the plain steps on the same uniforms, no divergence."""
     dev = _device()
     res = _water(str(tmp_path))
     sysm = _load(str(tmp_path), dev, 16, reservoir=res)
     spec = sysm.spec
     assert "step: CUDA per-step kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
-    u = draw_uniforms(spec, 8, 40, _gen(dev, 12))
-    n0 = step_core.launches
-    kc = run_steps_u(spec, states, u)
-    assert step_core.launches == n0 + 40
-    pc = block_plain(spec, states, u)
-    for name in ("n_mol", "res_n", "counters", "extras"):
-        torch.testing.assert_close(getattr(kc, name), getattr(pc, name),
-                                   rtol=0, atol=0, msg=name)
-    for name in ("pos", "res_offset", "res_com"):
-        assert float((getattr(kc, name) - getattr(pc, name)).abs().max()) \
-            <= POS_TOL, name
-    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
+    k = _assert_steps_parity(spec, states,
+                             draw_uniforms(spec, 8, 40, _gen(dev, 12)), 0)
+    assert not torch.equal(k.res_n, states.res_n)
 
 
 def _zif_small(d):
@@ -312,37 +304,20 @@ def test_block_kernel_forms_match_plain(tmp_path, make):
 @pytest.mark.parametrize("make", [_zif_small, _mixed_sizes, _tricl],
                          ids=["zif", "mixed_sizes", "tricl"])
 def test_step_kernel_matches_plain(tmp_path, make):
-    """The per-step core on one proposal (the same acceptances, energies
-    within 5 K, positions within 1e-4 A), then 40-step chains of the
-    dispatched step against the plain core on the same uniforms."""
+    """One step, then 40-step chains of the whole-step kernel against the
+    plain steps on the same uniforms, from a state 20 plain steps on: the
+    same decisions, energies within 5 K, positions within 1e-4 A."""
     dev = _device()
     make(str(tmp_path))
     sysm = _load(str(tmp_path), dev, 16)
     spec = sysm.spec
-    states = block_plain(spec, replicate(spec, sysm.state, 8),
+    states = steps_plain(spec, replicate(spec, sysm.state, 8),
                          draw_uniforms(spec, 8, 20, _gen(dev, 7)))
-    pre = _propose(spec, states, draw_uniforms(spec, 8, 1, _gen(dev, 8))
-                   [:, 0])
-    n0 = step_core.launches
-    k = step_core(spec, states, pre)
-    assert step_core.launches == n0 + 1
-    p = step_core_plain(spec, states, pre)
-    assert torch.equal(k["acc"], p["acc"])
-    for name in ("e_lj", "e_coul", "delta_e", "e_recip_new"):
-        torch.testing.assert_close(k[name], p[name], atol=ENERGY_TOL,
-                                   rtol=PROPOSAL_E_RTOL, msg=name)
-    assert float((k["pos"] - p["pos"]).abs().max()) <= POS_TOL
-    torch.testing.assert_close(k["amp_re"], p["amp_re"], rtol=0,
-                               atol=AMP_TOL)
-    u = draw_uniforms(spec, 8, 40, _gen(dev, 9))
-    kc = run_steps_u(spec, states, u)
-    assert step_core.launches == n0 + 41
-    pc = block_plain(spec, states, u)
-    torch.testing.assert_close(kc.n_mol, pc.n_mol, rtol=0, atol=0)
-    torch.testing.assert_close(kc.counters, pc.counters, rtol=0, atol=0)
-    assert float((kc.pos - pc.pos).abs().max()) <= POS_TOL
-    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
-    assert int(kc.counters[:, 1].sum()) > 0
+    _assert_steps_parity(spec, states,
+                         draw_uniforms(spec, 8, 1, _gen(dev, 8)), 0)
+    k = _assert_steps_parity(spec, states,
+                             draw_uniforms(spec, 8, 40, _gen(dev, 9)), 0)
+    assert int(k.counters[:, 1].sum()) > 0
 
 
 def test_resync_single_chain_matches_plain(tmp_path):
@@ -350,7 +325,7 @@ def test_resync_single_chain_matches_plain(tmp_path):
     dev = _device()
     _zif_small(str(tmp_path))
     sysm = _load(str(tmp_path), dev, 16)
-    st = block_plain(sysm.spec, sysm.state,
+    st = steps_plain(sysm.spec, sysm.state,
                      draw_uniforms(sysm.spec, 1, 30, _gen(dev, 10)))
     n0 = resync_grouped.launches
     k = resync_amplitudes(sysm.spec, st)
@@ -432,28 +407,152 @@ def test_gpass_kernel_lj_rows_match_plain(variant):
 
 
 def _step_parity(spec, states, seed):
-    """The step kernel against the plain core: one proposal (the same
-    acceptances, energies within 5 K plus 1e-4 relative, positions within
-    1e-4 A), then 40-step chains on the same uniforms."""
+    """The whole-step kernel against the plain steps: one step, then
+    40-step chains on the same uniforms, no divergence."""
     dev = states.pos.device
-    pre = _propose(spec, states, draw_uniforms(spec, states.B, 1,
-                                               _gen(dev, seed))[:, 0])
-    n0 = step_core.launches
-    k = step_core(spec, states, pre)
-    assert step_core.launches == n0 + 1
-    p = step_core_plain(spec, states, pre)
-    assert torch.equal(k["acc"], p["acc"])
-    for name in ("e_lj", "e_coul", "delta_e", "e_recip_new"):
-        torch.testing.assert_close(k[name], p[name], atol=ENERGY_TOL,
-                                   rtol=PROPOSAL_E_RTOL, msg=name)
-    assert float((k["pos"] - p["pos"]).abs().max()) <= POS_TOL
-    u = draw_uniforms(spec, states.B, 40, _gen(dev, seed + 1))
-    kc = run_steps_u(spec, states, u)
-    pc = block_plain(spec, states, u)
-    torch.testing.assert_close(kc.n_mol, pc.n_mol, rtol=0, atol=0)
-    torch.testing.assert_close(kc.counters, pc.counters, rtol=0, atol=0)
-    assert float((kc.pos - pc.pos).abs().max()) <= POS_TOL
-    assert float((kc.energy - pc.energy).abs().max()) <= ENERGY_TOL
+    _assert_steps_parity(spec, states,
+                         draw_uniforms(spec, states.B, 1, _gen(dev, seed)), 0)
+    _assert_steps_parity(spec, states, draw_uniforms(
+        spec, states.B, 40, _gen(dev, seed + 1)), 0)
+
+
+def _conserved(st):
+    """Box + reservoir + dropped molecules per replica."""
+    return (st.n_mol[:, :-1].sum(1) + st.res_n[:, :-1].sum(1)
+            + st.extras[:, 1])
+
+
+def _assert_steps_parity(spec, states, u, max_diverged):
+    """run_steps_kernel against the plain steps (steps_plain) on the same
+    uniforms, with PERF.md section 2's limits: decisions (populations,
+    counters, extras, reservoir counts) identical on all but max_diverged
+    replicas; on the rest positions, COMs and reservoir rows within 1e-4 A,
+    energies within 5 K, the amplitudes the kernel committed within
+    AMP_TOL max(1, max|A|) and E_RECIP within 1e-5 relative (chip_smoke.py
+    phase 4's limits). The kernel launches once a step, leaves the input
+    state as it was, keeps every energy finite and, with a reservoir,
+    conserves box + reservoir + drops on every replica. Returns the
+    kernel's state."""
+    before = {name: v.clone() for name, v in vars(states).items()}
+    n0 = run_steps_kernel.launches
+    k = run_steps_kernel(spec, states, u)
+    assert run_steps_kernel.launches == n0 + u.shape[1]
+    for name, v in vars(states).items():
+        assert torch.equal(v, before[name]), name
+    p = steps_plain(spec, states, u)
+    same = ((k.n_mol == p.n_mol).all(1)
+            & (k.counters == p.counters).flatten(1).all(1)
+            & (k.extras == p.extras).all(1) & (k.res_n == p.res_n).all(1))
+    assert int((~same).sum()) <= max_diverged
+    for name in ("pos", "com", "res_offset", "res_com"):
+        diff = (getattr(k, name) - getattr(p, name))[same]
+        assert float(diff.abs().max()) <= POS_TOL, name
+    assert float((k.energy - p.energy)[same].abs().max()) <= ENERGY_TOL
+    scale = max(1.0, float(torch.maximum(p.amp_re.abs(),
+                                         p.amp_im.abs()).max()))
+    for name in ("amp_re", "amp_im"):
+        diff = (getattr(k, name) - getattr(p, name))[same]
+        assert float(diff.abs().max()) <= AMP_TOL * scale, name
+    e_k, e_p = k.energy[same, E_RECIP], p.energy[same, E_RECIP]
+    assert float(((e_k - e_p).abs() / e_p.abs()).max()) <= 1e-5
+    assert bool(torch.isfinite(k.energy).all())
+    if spec.has_reservoir:
+        assert torch.equal(_conserved(k), _conserved(states))
+    return k
+
+
+# tests/test_torch_stepg.py's CASES (the JAX parity fixtures), built here
+# without jax
+def _fw_water(d):
+    make_framework_water(d, n_cells=2, a=8.0, n_water=6, cutoff=5.0,
+                         tol=1e-4, probs=(0.3, 0.2, 0.5, 0.0),
+                         fugacity=200.0)
+
+
+def _mixed_sizes_stepg(d):
+    make_mixed_sizes(d, n_water=6, n_dimer=6, L=16.0, cutoff=6.0, tol=1e-4,
+                     probs=(0.2, 0.1, 0.3, 0.4), fug_w=500.0, fug_d=500.0)
+
+
+def _water_gcmc(d):
+    make_water_box(d, n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.3, 0.2, 0.5, 0.0), fugacity=20000.0)
+
+
+def _fw_mixed_split_off(d):
+    # tests/test_torch_reservoir.py's fixture: too small a framework for the
+    # split, so the inactive framework keeps it outside the block kernel
+    make_framework_mixed(d, n_cells=2, a=5.66, n_water=3, n_dimer=3)
+
+
+@pytest.mark.parametrize("make,capacity", [
+    (_fw_water, 12), (_fw_mixed, 12), (_mixed_sizes_stepg, 12),
+    (_water_gcmc, 12), (_water, 16), (_tricl, 16), (_fw_mixed_split_off, 16)],
+    ids=["fw_water", "fw_mixed", "mixed_sizes", "water_gcmc", "reservoir",
+         "tricl", "split_off_inactive"])
+def test_step_kernel_systems_match_plain(tmp_path, make, capacity):
+    """The whole-step kernel at B = 64 x 50 steps against the plain steps
+    on test_torch_stepg.py's four systems (capacity 12, as there), a
+    reservoir water box, the triclinic box and a framework without the
+    split (an inactive type, a form the block kernel does not take): at
+    most 1 of 64 replicas diverged; moves accepted, swaps tried where two
+    species are active."""
+    dev = _device()
+    res = make(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, capacity, reservoir=res)
+    spec = sysm.spec
+    report = dispatch_report(spec, dev)
+    assert "step: CUDA per-step kernel" in report
+    if make is _fw_mixed_split_off:
+        assert not spec.fw_split
+        assert "framework split off with inactive types" in report
+    states = replicate(spec, sysm.state, 64)
+    k = _assert_steps_parity(spec, states,
+                             draw_uniforms(spec, 64, 50, _gen(dev, 41)), 1)
+    assert int(k.counters[:, 1].sum()) > 0
+    if spec.n_active > 1:
+        assert int(k.counters[:, 0, 4].sum()) > 0
+
+
+def test_step_kernel_activity_sweep_matches_plain(tmp_path):
+    """A per-replica activity (8 levels x 8 replicas, the isotherm's spec)
+    on the framework water system: the kernel reads each replica's table
+    (activity stride R), B = 64 x 50 steps against the plain steps, and
+    the populations grow with the activity."""
+    dev = _device()
+    _fw_water(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 12)
+    spec = sysm.spec
+    scale = torch.tensor([0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0],
+                         device=dev).repeat_interleave(8)
+    sweep = perturb_activity(spec, spec.type_activity[None, :]
+                             * scale[:, None])
+    assert "step: CUDA per-step kernel" in dispatch_report(sweep, dev)
+    states = replicate(spec, sysm.state, 64)
+    k = _assert_steps_parity(sweep, states,
+                             draw_uniforms(spec, 64, 50, _gen(dev, 42)), 1)
+    n = k.n_mol[:, 1].float().reshape(8, 8).mean(1)
+    assert float(n[-1]) > float(n[0])
+
+
+def test_step_kernel_rejected_overlap_keeps_energies_finite(tmp_path):
+    """The block test's overlapping insertion (onto molecule 0's sites)
+    through the whole-step kernel: rejected as by the plain step, the
+    running energies unchanged."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.25, 0.25, 0.5, 0.0), fugacity=5000.0)
+    sysm = _load(str(tmp_path), dev, 16)
+    spec, state = sysm.spec, sysm.state
+    com0 = state.com[0, :, 0].double()
+    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
+    u = torch.full((1, 1, 21), 0.37, dtype=torch.float32, device=dev)
+    u[0, 0, :3] = torch.tensor([0.7, 0.25, 0.5])   # a creation; u_acc 0.5
+    u[0, 0, 6:9] = frac.float()                    # molecule 0's COM
+    u[0, 0, 15:17] = torch.tensor([0.0, 0.25])     # the identity rotation
+    k = _assert_steps_parity(spec, state, u, 0)
+    assert torch.equal(k.energy, state.energy)
+    assert int(k.counters[0, 0, 0]) == 1 and int(k.counters[0, 1, 0]) == 0
 
 
 def test_far_field_ragged_rows_kernels_match_plain(tmp_path):
@@ -471,7 +570,7 @@ def test_far_field_ragged_rows_kernels_match_plain(tmp_path):
     u = draw_uniforms(spec, 8, 60, _gen(dev, 21))
     k1 = _assert_block_parity(spec, states, u)
     assert int(k1.counters[:, 1].sum()) > 0
-    _step_parity(spec, block_plain(spec, states, u), 23)
+    _step_parity(spec, steps_plain(spec, states, u), 23)
 
 
 def test_guest_cutoff_off_kernels_match_plain(tmp_path):

@@ -2,8 +2,9 @@
 with a stub in place of the kernel library: each launcher's preallocated
 tables are refilled with exactly the bytes the per-call ctypes arrays of
 the earlier path held, a refusal raises, a variant build takes the
-launches only within build.variant, and the block and step wrappers'
-tables have the lengths and entries of the kernels' enums (csrc/*.cu)."""
+launches only within build.variant, the block and step wrappers' tables
+have the lengths and entries of the kernels' enums (csrc/*.cu), and the
+step wrapper launches each step of a block on one clone of the state."""
 
 import ctypes
 import re
@@ -15,8 +16,9 @@ import torch
 from maniac_tpu_torch import load_system, replicate
 from maniac_tpu_torch.kernels import blockg, build, stepg
 from maniac_tpu_torch.mc.driver import draw_uniforms
-from maniac_tpu_torch.mc.moves import _propose
-from maniac_tpu_torch.systems import make_water_box, make_zif_like
+from maniac_tpu_torch.parallel.replicas import perturb_activity
+from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
+                                      make_zif_like)
 
 torch.set_num_threads(1)
 
@@ -96,11 +98,27 @@ def test_launch_raises_on_refusal(stub):
 
 
 def _enum(source, name):
-    """{entry: index} of ``enum name { ... }`` in a csrc file."""
+    """{entry: value} of ``enum name { ... }`` in a csrc file; an entry
+    ``= NAME`` takes the value of csrc/step_body.cuh's NAME."""
     text = (CSRC / source).read_text()
     body = re.search(r"enum %s \{(.*?)\};" % name, text, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
-    return {e.strip(): k for k, e in enumerate(body.split(",")) if e.strip()}
+    out, k = {}, 0
+    for e in (e.strip() for e in body.split(",")):
+        if "=" in e:
+            e, start = (x.strip() for x in e.split("="))
+            k = _shared()[start]
+        if e:
+            out[e] = k
+            k += 1
+    return out
+
+
+def _shared():
+    """csrc/step_body.cuh's tables, which both step kernels take first:
+    {entry: value} of StepPtr, StepInt and StepFloat."""
+    return {k: v for n in ("StepPtr", "StepInt", "StepFloat")
+            for k, v in _enum("step_body.cuh", n).items()}
 
 
 def _unpack(call):
@@ -147,6 +165,19 @@ def zif32(tmp_path):
 
 
 @pytest.fixture
+def resv32(tmp_path):
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0,
+                   fugacity=2000.0, probs=(0.2, 0.2, 0.6, 0.0))
+    res = make_water_reservoir(str(tmp_path), n_water=12)
+    sysm = load_system(f"{tmp_path}/input.maniac",
+                       f"{tmp_path}/topology.data",
+                       f"{tmp_path}/parameters.inc", reservoir_file=res,
+                       capacity=16, dtype=torch.float32, device="cpu")
+    assert sysm.spec.has_reservoir
+    return sysm
+
+
+@pytest.fixture
 def water32(tmp_path):
     make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=6.0,
                    fugacity=400.0, probs=(0.3, 0.2, 0.5, 0.0))
@@ -157,59 +188,127 @@ def water32(tmp_path):
 
 @pytest.mark.parametrize("system", ["zif32", "water32"])
 def test_block_tables_match_the_kernel(stub, system, request):
-    """run_block_kernel's tables against csrc/blockg.cu's enums: lengths,
-    the far table's pointers and tile count (none on a water box)."""
+    """run_block_kernel's tables against csrc/step_body.cuh's and
+    blockg.cu's enums: lengths, the outputs and then the input state, the
+    far table's pointers and tile count (none on a water box)."""
     sysm = request.getfixturevalue(system)
     spec = sysm.spec
     states = replicate(spec, sysm.state, 4)
     gen = torch.Generator().manual_seed(1)
-    blockg._launch(spec, states, draw_uniforms(spec, 4, 3, gen))
+    out = blockg._launch(spec, states, draw_uniforms(spec, 4, 3, gen))
     ptrs, ints, floats = _unpack(stub.calls[-1])
-    bp = _enum("blockg.cu", "BlockPtr")
+    sh, bp = _shared(), _enum("blockg.cu", "BlockPtr")
     bi = _enum("blockg.cu", "BlockInt")
-    bf = _enum("blockg.cu", "BlockFloat")
     assert (len(ptrs), len(ints), len(floats)) == (
-        bp["BP_COUNT"], bi["BI_COUNT"], bf["BF_COUNT"])
-    for key, t in (("BP_U", None), ("BP_POS_IN", states.pos),
-                   ("BP_FAR_COEF", spec.far_coef),
-                   ("BP_FAR_ROWS", spec.far_rows),
-                   ("BP_FAR_UNITS", spec.far_units),
-                   ("BP_IMG", spec.image_shifts)):
-        if t is not None:
-            assert ptrs[bp[key]] == t.data_ptr(), key
-    assert ints[bi["BI_B"]] == 4 and ints[bi["BI_NSTEPS"]] == 3
-    assert ints[bi["BI_N_FAR_TILES"]] == spec.far_units.shape[0]
-    assert ints[bi["BI_KY2"]] == spec.kmax2_xyz[1]
-    assert floats[bf["BF_FW_D0"]] == pytest.approx(
-        spec.host_scalars["fw_d0"], rel=1e-6)
+        bp["BP_COUNT"], bi["BI_COUNT"], sh["SF_COUNT"])
+    for key, t in (("SP_POS", out.pos), ("SP_AMPRE", out.amp_re),
+                   ("BP_POS_IN", states.pos), ("BP_AMPRE_IN", states.amp_re),
+                   ("BP_RES_N_IN", states.res_n),
+                   ("SP_FAR_COEF", spec.far_coef),
+                   ("SP_FAR_ROWS", spec.far_rows),
+                   ("SP_FAR_UNITS", spec.far_units),
+                   ("SP_IMG", spec.image_shifts)):
+        assert ptrs[sh.get(key, bp.get(key))] == t.data_ptr(), key
+    assert out.pos.data_ptr() != states.pos.data_ptr()
+    assert ints[sh["SI_B"]] == 4 and ints[sh["SI_NSTEPS"]] == 3
+    assert ints[sh["SI_N_FAR_TILES"]] == spec.far_units.shape[0]
+    assert ints[sh["SI_KY2"]] == (spec.kmax2_xyz[1] if spec.fw_split else 0)
+    assert floats[sh["SF_FW_D0"]] == pytest.approx(
+        spec.host_scalars["fw_d0"] if spec.fw_split else 0.0, rel=1e-6)
+
+
+def _step_calls(stub, spec, states, n_steps, seed):
+    """run_steps_kernel's launches (stepg._run on CPU tensors) of one
+    n_steps block: (the returned state, the uniforms, the unpacked tables
+    of each launch, (csrc/step_body.cuh's shared entries, csrc/stepg.cu's
+    own ints))."""
+    gen = torch.Generator().manual_seed(seed)
+    u = draw_uniforms(spec, states.B, n_steps, gen)
+    n0, calls0 = stepg.run_steps_kernel.launches, len(stub.calls)
+    out = stepg._run(spec, states, u)
+    calls = [_unpack(c) for c in stub.calls[calls0:]]
+    assert stepg.run_steps_kernel.launches == n0 + n_steps == n0 + len(calls)
+    assert all(c[0] == "stepg_launch" for c in stub.calls[calls0:])
+    return out, u, calls, (_shared(), _enum("stepg.cu", "StepgInt"))
 
 
 def test_step_tables_match_the_kernel(stub, zif32):
-    """step_core's tables against csrc/stepg.cu's enums."""
+    """run_steps_kernel's tables against csrc/step_body.cuh's and
+    stepg.cu's enums: lengths, the block's uniform pointer, the step index
+    0..n-1 in order, one activity table (stride 0), the far table's
+    pointers and tile count."""
     spec = zif32.spec
     states = replicate(spec, zif32.state, 4)
-    gen = torch.Generator().manual_seed(2)
-    pre = _propose(spec, states, draw_uniforms(spec, 4, 1, gen)[:, 0])
-    stepg._launch(spec, states, pre)
-    ptrs, ints, floats = _unpack(stub.calls[-1])
-    sp = _enum("stepg.cu", "StepPtr")
-    si = _enum("stepg.cu", "StepInt")
-    sf = _enum("stepg.cu", "StepFloat")
-    assert (len(ptrs), len(ints), len(floats)) == (
-        sp["SP_COUNT"], si["SI_COUNT"], sf["SF_COUNT"])
-    assert ptrs[sp["SP_FAR_COEF"]] == spec.far_coef.data_ptr()
-    assert ptrs[sp["SP_FAR_UNITS"]] == spec.far_units.data_ptr()
-    assert ptrs[sp["SP_IMG"]] == spec.image_shifts.data_ptr()
-    assert ints[si["SI_N_FAR_TILES"]] == spec.far_units.shape[0]
-    assert ints[si["SI_TRICLINIC"]] == 0
+    _, u, calls, (sh, si) = _step_calls(stub, spec, states, 3, 2)
+    for k, (ptrs, ints, floats) in enumerate(calls):
+        assert (len(ptrs), len(ints), len(floats)) == (
+            sh["SP_SHARED"], si["SI_COUNT"], sh["SF_COUNT"])
+        assert ptrs[sh["SP_U"]] == u.data_ptr()
+        assert ints[si["SI_STEP"]] == k and ints[sh["SI_NSTEPS"]] == 3
+        assert ints[sh["SI_B"]] == 4 and ints[si["SI_ACT_STRIDE"]] == 0
+        assert ptrs[sh["SP_TYPE_ACTIVITY"]] == spec.type_activity.data_ptr()
+        assert ptrs[sh["SP_FAR_COEF"]] == spec.far_coef.data_ptr()
+        assert ptrs[sh["SP_FAR_UNITS"]] == spec.far_units.data_ptr()
+        assert ptrs[sh["SP_IMG"]] == spec.image_shifts.data_ptr()
+        assert ints[sh["SI_N_FAR_TILES"]] == spec.far_units.shape[0]
+        assert ints[sh["SI_TRICLINIC"]] == 0
+        assert floats[sh["SF_FW_D0"]] == pytest.approx(
+            spec.host_scalars["fw_d0"], rel=1e-6)
+
+
+def test_step_tables_sweep_activity_stride(stub, zif32):
+    """A perturb_activity spec (one activity table per replica, (B, R)):
+    the kernel reads it with stride R."""
+    spec = zif32.spec
+    sweep = perturb_activity(spec, spec.type_activity.expand(4, -1) * 2.0)
+    states = replicate(spec, zif32.state, 4)
+    _, _, calls, (sh, si) = _step_calls(stub, sweep, states, 2, 3)
+    for ptrs, ints, _ in calls:
+        assert ints[si["SI_ACT_STRIDE"]] == spec.R
+        assert ptrs[sh["SP_TYPE_ACTIVITY"]] == sweep.type_activity.data_ptr()
+
+
+@pytest.mark.parametrize("system", ["zif32", "resv32"])
+def test_step_kernel_launches_on_one_clone(stub, system, request):
+    """Every launch of a block updates one working copy: the state
+    pointers differ from the input state's and stay the same across the
+    block, the returned state is that copy (equal to the input, since the
+    stub writes nothing), and the input state's tensors are unchanged; the
+    reservoir is cloned only where there is one."""
+    sysm = request.getfixturevalue(system)
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, 4)
+    before = {k: v.clone() for k, v in vars(states).items()}
+    out, _, calls, (sp, _) = _step_calls(stub, spec, states, 4, 4)
+    keys = {"SP_POS": "pos", "SP_COM": "com", "SP_AMPRE": "amp_re",
+            "SP_AMPIM": "amp_im", "SP_NMOL": "n_mol", "SP_ENERGY": "energy",
+            "SP_COUNTERS": "counters", "SP_EXTRAS": "extras",
+            "SP_RES_OFF": "res_offset", "SP_RES_COM": "res_com",
+            "SP_RES_N": "res_n", "SP_TSTEP": "trans_step",
+            "SP_RSTEP": "rot_step"}
+    cloned = {"trans_step": False, "rot_step": False,
+              **{k: spec.has_reservoir for k in ("res_offset", "res_com",
+                                                 "res_n")}}
+    for entry, name in keys.items():
+        ptr = {c[0][sp[entry]] for c in calls}
+        assert ptr == {getattr(out, name).data_ptr()}, entry
+        assert (ptr != {getattr(states, name).data_ptr()}) == cloned.get(
+            name, True), entry
+    for k, v in vars(states).items():
+        assert torch.equal(v, before[k]), k
+        assert torch.equal(getattr(out, k), before[k]), k
 
 
 def test_launch_cost_tables_match_the_kernels():
     """tools/launch_cost.py prices tables of the lengths the kernels take."""
     from maniac_tpu_torch.tools.launch_cost import TABLES
-    for key, src, names in (
-            ("K5", "hwprobe.cu", ("OnehotPtr", "OnehotInt", None)),
-            ("K3", "stepg.cu", ("StepPtr", "StepInt", "StepFloat")),
-            ("K2", "blockg.cu", ("BlockPtr", "BlockInt", "BlockFloat"))):
-        want = tuple(len(_enum(src, n)) - 1 if n else 0 for n in names)
-        assert TABLES[key] == want, key
+    sh = _shared()
+    k5 = tuple(len(_enum("hwprobe.cu", n)) - 1
+               for n in ("OnehotPtr", "OnehotInt")) + (0,)
+    assert TABLES["K5"] == k5
+    assert TABLES["K3"] == (sh["SP_SHARED"],
+                            _enum("stepg.cu", "StepgInt")["SI_COUNT"],
+                            sh["SF_COUNT"])
+    assert TABLES["K2"] == (_enum("blockg.cu", "BlockPtr")["BP_COUNT"],
+                            _enum("blockg.cu", "BlockInt")["BI_COUNT"],
+                            sh["SF_COUNT"])

@@ -1,12 +1,14 @@
-"""maniac_tpu_torch per-step core, isotherm sweep and output writers against
+"""maniac_tpu_torch per-step path, isotherm sweep and output writers against
 the JAX package.
 
-The step core's CUDA kernel has no CPU mode: on the CPU ``step_core`` runs
-its plain version (mc/moves.py::_core_plain), which is held here to the
-JAX package's grouped Pallas step core (kernels/stepg.py, run in interpret
-mode with MANIAC_PALLAS=1, as tests/test_kernels.py runs it) on the same
-proposals; the kernel itself is held to the plain version on the card by
-chip_smoke.py phase 4 and tests/test_torch_gpu.py."""
+The whole-step CUDA kernel (kernels/stepg.py::run_steps_kernel) has no CPU
+mode: on the CPU it runs its plain version, the torch loop of mc_step_u
+with the plain energy core (``step_core_plain``, mc/moves.py::_core_plain).
+That core is held here to the JAX package's grouped Pallas step core
+(kernels/stepg.py, run in interpret mode with MANIAC_PALLAS=1, as
+tests/test_kernels.py runs it) on the same proposals, and the dispatched
+steps to JAX's mc_step_u chains; the kernel itself is held to the plain
+steps on the card by chip_smoke.py phase 4 and tests/test_torch_gpu.py."""
 
 import os
 
@@ -24,7 +26,8 @@ from maniac_tpu.mc.moves import mc_step_u as jax_mc_step_u
 from maniac_tpu.parallel.replicas import _with_activity
 from maniac_tpu_torch.io.writers import OutputWriter, snapshot
 from maniac_tpu_torch.kernels import step_gate_failure, use_step_kernel
-from maniac_tpu_torch.kernels.stepg import step_core
+from maniac_tpu_torch.kernels.stepg import (run_steps_kernel,
+                                            step_core_plain)
 from maniac_tpu_torch.mc.driver import run_steps_u
 from maniac_tpu_torch.mc.moves import _propose
 from maniac_tpu_torch.parallel.mesh import gather_replica_stats
@@ -95,16 +98,15 @@ def case32(request, tmp_path, monkeypatch):
 
 
 def test_step_core_matches_pallas_stepg(case32):
-    """The same proposals through the port's step_core (plain on the CPU)
-    and JAX's _core_kernel_grouped (the Pallas kernel in interpret mode):
-    identical acceptances, energies within 5 K (plus 1e-4 relative for the
-    huge overlaps of rejected insertions), positions within 1e-4 A."""
+    """The same proposals through the port's plain step core and JAX's
+    _core_kernel_grouped (the Pallas kernel in interpret mode): identical
+    acceptances, energies within 5 K (plus 1e-4 relative for the huge
+    overlaps of rejected insertions), positions within 1e-4 A."""
     sysm, spec, st, jst = case32
-    before = step_core.launches
     for seed in range(3):
         u = uniforms(4, 1, seed=30 + seed, f32=True)[:, 0]
         pre = _propose(spec, st, torch.from_numpy(u))
-        core = step_core(spec, st, pre)
+        core = step_core_plain(spec, st, pre)
         jpre = jax.vmap(lambda s, uu: jax_propose(sysm.spec, s, uu))(
             jst, jnp.asarray(u))
         jcore = _core_kernel_grouped(sysm.spec, jst, jpre)
@@ -119,15 +121,17 @@ def test_step_core_matches_pallas_stepg(case32):
             <= F32_POS_TOL
         np.testing.assert_allclose(as_np(core["amp_re"]),
                                    np.asarray(jcore["amp_re"]), atol=2e-4)
-    assert step_core.launches == before    # the CPU never launches
 
 
 def test_step_chain_matches_pallas_stepg(case32):
-    """25 steps of the port's dispatched mc_step_u against JAX's mc_step_u
-    on its Pallas step core, on the same uniforms."""
+    """25 steps of the port's dispatched run_steps_u (run_steps_kernel,
+    plain on the CPU) against JAX's mc_step_u on its Pallas step core, on
+    the same uniforms; the CPU never launches the kernel."""
     sysm, spec, st, jst = case32
     U = uniforms(4, 25, seed=40, f32=True)
+    before = run_steps_kernel.launches
     pst = run_steps_u(spec, st, torch.from_numpy(U))
+    assert run_steps_kernel.launches == before
     jout = jax_batch(sysm.spec, jst, U)
     assert_same_chain(jout, pst, pos_tol=F32_POS_TOL,
                       energy_tol=F32_ENERGY_TOL)
@@ -190,6 +194,49 @@ def test_sweep_matches_jax_per_replica_activity(tmp_path):
                                np.asarray(jst.trans_step))
     n = as_np(pst.n_mol)[:, 0]
     assert n[0] < n[3]                        # the activities matter
+
+
+def test_sweep_matches_jax_per_replica_activity_f32(tmp_path, monkeypatch):
+    """f32, the framework split on: run_block_sweep_uniforms with a (B, R)
+    activity (the per-step path, run_steps_kernel: plain on the CPU)
+    against a JAX vmap of per-replica scans of mc_step_u on
+    _with_activity(spec, act), whose step core is the Pallas stepg in
+    interpret mode (MANIAC_PALLAS=1, as case32; the per-replica spec reaches
+    it, use_pair_kernel reads no activity): identical decisions, positions
+    within 1e-4 A and energies within 5 K (F32_POS_TOL, F32_ENERGY_TOL)."""
+    _fw_water(str(tmp_path))
+    sysm, spec, state = load_both(str(tmp_path), capacity=12, f32=True)
+    assert spec.fw_split and step_gate_failure(spec) is None
+    monkeypatch.setenv("MANIAC_PALLAS", "1")
+    from maniac_tpu.kernels import use_pair_kernel
+    assert use_pair_kernel(sysm.spec)
+    B = 4
+    acts = (np.asarray(sysm.spec.type_activity)[None, :]
+            * np.array([0.25, 1.0, 4.0, 16.0])[:, None]).astype(np.float32)
+    U = uniforms(B, 30, seed=52, f32=True)
+    sweep = perturb_activity(spec, acts)
+    assert step_gate_failure(sweep) is None
+    before = run_steps_kernel.launches
+    pst = run_block_sweep_uniforms(sweep, replicate(spec, state, B),
+                                   torch.from_numpy(U), recalibrate=True)
+    assert run_steps_kernel.launches == before
+
+    def one(act, u):
+        s = _with_activity(sysm.spec, act)
+
+        def body(c, row):
+            return jax_mc_step_u(s, c, row), None
+        return jax.lax.scan(body, sysm.state, u)[0]
+
+    jst = jax.jit(jax.vmap(one))(jnp.asarray(acts), jnp.asarray(U))
+    from maniac_tpu.mc.driver import _recalibrate
+    jst = jax.vmap(lambda s: _recalibrate(s, True, sysm.spec.dtype))(jst)
+    assert_same_chain(jst, pst, pos_tol=F32_POS_TOL,
+                      energy_tol=F32_ENERGY_TOL)
+    np.testing.assert_allclose(as_np(pst.trans_step),
+                               np.asarray(jst.trans_step), rtol=1e-6)
+    assert int(pst.counters[:, 1].sum()) > 0
+    assert not np.array_equal(as_np(pst.n_mol)[0], as_np(pst.n_mol)[3])
 
 
 def test_sweep_ideal_gas_isotherm(tmp_path):
