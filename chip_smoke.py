@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke check of the maniac_tpu_torch main path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # about a minute on an H100
+    python3 chip_smoke.py    # some two and a half minutes on an H100
 
 Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
 
@@ -9,7 +9,12 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
   1. resync kernel vs its plain torch version on the flagship system
      (make_zif_like(n_cells=6, a=5.66, n_water=32, fugacity=30), capacity
      192, f32) at B=64 after 50 plain steps: max|dA| <= 1e-4 max(1, max|A|),
-     relative |dE_RECIP| <= 1e-5;
+     relative |dE_RECIP| <= 1e-5; then on its edge replicas
+     (tools/resync_times.edge_replicas: no guests, where A must be fw_amp
+     exactly; every guest type at capacity; a charged-site count that is
+     not a multiple of the kernel's chunk, each guest type at a different
+     count), and two launches on one input must give the same bits (every
+     resync check below adds the same); timed device-paced;
   2. whole-block kernel vs its plain version, B=64, 50 steps on the same
      uniforms: n_mol and counters identical in all but at most one replica
      (a Metropolis decision at its threshold may flip under f32 summation
@@ -23,8 +28,8 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      of 400 steps is timed beside its bound; the far table's size is
      printed (rows, live modes, tiles, bytes). Then both kernels
      are held against their plain versions at the main path's batch (10
-     block steps, at most B/64 replicas diverged; the resync of the result)
-     and timed;
+     block steps, at most B/64 replicas diverged; the resync of the result
+     and its edge replicas) and timed (the resync device-paced);
   4. the whole-step kernel (run_steps_kernel: one launch a step, the
      proposal, energies, decision and commits in place on a clone of the
      caller's state) against the plain steps (steps_plain: the torch step
@@ -43,9 +48,11 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      spin kernel, so the host's pace drops out) and host-paced, the plain
      steps, the device activities a step launches (torch.profiler), beside
      the whole step's bound;
-  4b. the resync kernel at B=1, driven through mc/driver.resync_amplitudes
-     (the resync every replicated block calls), against its plain version
-     (phase 1's bounds), timed;
+  4b. the resync kernel at B=1 (K4), driven once through
+     mc/driver.resync_amplitudes (the resync every replicated block calls)
+     with its count set to 0 just before, against its plain version and on
+     the edge replicas each alone (phase 1's bounds), timed device-paced
+     and host-paced beside its bound;
   5. the command line's isotherm sweep on the flagship deck (3 blocks of
      400 steps, 8 fugacities x 128 replicas = 1024 chains, f32 on the card):
      exit 0, 8 finite isotherm rows, populations within [0, capacity], more
@@ -62,7 +69,8 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      plain block, B=64 x 50 steps, phase 2's bounds with identical res_n
      and extras and reservoir rows within 1e-4 A; (c) box + reservoir +
      dropped molecules conserved exactly on every replica; (d) the resync
-     kernel on that state (phase 1's bounds); (e) the step kernel against
+     kernel on that state and its edge replicas (phase 1's bounds), and K4
+     on resv as phase 4b; (e) the step kernel against
      the plain steps at B=64 (phase 4's bounds) and timed at B=1; (f) the
      no-split form alone on the same water box without its reservoir,
      B=64 x 50; (g) the main path, B=1024, one warm-up and three timed
@@ -82,7 +90,8 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
   9. bench.py's `tricl` (make_triclinic_water(n_water=24, L=22, tilt=(2.0,
      1.2, 0.8), cutoff=7, tol=1e-5, probs=(0.3, 0.2, 0.5, 0),
      fugacity=4000), capacity 192, f32: a triclinic box, no framework):
-     (a)-(d) as phase 8 for the block kernel's triclinic form; (e) the step
+     (a)-(d) as phase 8 for the block kernel's triclinic form, and K4 on
+     tricl as phase 4b; (e) the step
      kernel against the plain steps at B=64 (one step, then 50 steps) and
      at B=1 with no divergence allowed, timed at B=1; (f) the command line's
      single chain on a tricl deck (2 blocks of 400 steps): exit 0, the
@@ -118,10 +127,11 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
 kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
-and 9c, 9f on mixed and tricl), the largest error against the plain
-version, the times of kernel and plain version (the step kernel's per
-step, device-paced: the isotherm's spec at B=1024, resv and tricl at
-B=1), and the bound: the least time the card could take for the same
+and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b, 7d and
+9d), the largest error against the plain version, the times of kernel and
+plain version (the step kernel's per step, device-paced: the isotherm's
+spec at B=1024, resv and tricl at B=1; the resync's device-paced), and the
+bound: the least time the card could take for the same
 work, the larger of the bytes the call must move (each input read once,
 each output written once; a whole step reads each replica's amplitudes
 at the weighted modes, its live positions and uniform row, and writes the
@@ -447,7 +457,7 @@ def _main_path(tag, spec, state, gen, label):
                recip_energy(spec, ref_re, ref_im))
     rate = Bm * n_steps * MAIN_BLOCKS / elapsed
     ms_main, bound_main = _main_block(spec, states, gen)
-    ms_main_resync = _cuda_ms(lambda: resync_grouped(spec, states), 10)
+    ms_main_resync = device_ms(lambda: resync_grouped(spec, states), 20)
     mean_n = {r: round(float(n[:, r].float().mean()), 2)
               for r in range(spec.R) if spec.active_list[r]}
     extra = (f", mean reservoir "
@@ -458,7 +468,7 @@ def _main_path(tag, spec, state, gen, label):
           f"type {mean_n}{extra}; launches {launches}; one block "
           f"kernel call ({n_steps} steps) {ms_main:.3f} ms, bound "
           f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
-          f"{ms_main_resync:.3f} ms")
+          f"{ms_main_resync:.4f} ms device-paced")
     # both kernels against their plain versions at the main path's batch
     u = draw_uniforms(spec, Bm, 10, gen)
     k_blk = run_block_kernel(spec, states, u)
@@ -469,17 +479,20 @@ def _main_path(tag, spec, state, gen, label):
     ms_block_plain = _cuda_ms(lambda: steps_plain(spec, states, u), 1)
     bound_block = _block_bound(spec, states, k_blk, u)
     k_rs = resync_grouped(spec, k_blk)
-    err_resync = _amp_check(f"{tag}: resync B={Bm} kernel vs plain",
-                            *_resync_pair(k_rs, resync_plain(spec, k_blk),
-                                          E_RECIP))
-    ms_resync = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
+    err_resync = max(
+        _amp_check(f"{tag}: resync B={Bm} kernel vs plain",
+                   *_resync_pair(k_rs, resync_plain(spec, k_blk), E_RECIP)),
+        _resync_edges(f"{tag}: resync B={Bm}", spec, k_blk))
+    ms_resync = device_ms(lambda: resync_grouped(spec, k_blk), 20)
+    ms_resync_host = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
     ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
     bound_resync = _resync_bound(spec, k_blk, k_rs)
     print(f"{tag}: B={Bm}: block kernel {ms_block:.3f} ms, plain "
           f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.4f} ms by "
-          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.3f} ms, "
-          f"plain {ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms "
-          f"by {bound_resync[1]} ({label})")
+          f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.4f} ms "
+          f"device-paced, {ms_resync_host:.4f} ms host-paced, plain "
+          f"{ms_resync_plain:.3f} ms, bound {bound_resync[0]:.4f} ms by "
+          f"{bound_resync[1]} ({label})")
     return states, dict(
         launches=launches, err_block=err_block, ms_block=ms_block,
         ms_block_plain=ms_block_plain, bound_block=bound_block,
@@ -525,7 +538,9 @@ def _amp_check(name, amp_re, amp_im, e_recip, ref_re, ref_im, ref_e):
                                                    ref_im.abs()))))
     err = float(torch.max(torch.maximum((amp_re - ref_re).abs(),
                                         (amp_im - ref_im).abs())))
-    rel_e = float(torch.max((e_recip - ref_e).abs() / ref_e.abs()))
+    # an exact match is no error, also where E_RECIP is 0 (no charges)
+    d_e = (e_recip - ref_e).abs()
+    rel_e = float(torch.max(torch.where(d_e == 0, 0.0, d_e / ref_e.abs())))
     print(f"{name}: max|dA| {err:.3e} (bound {1e-4 * scale:.3e}), "
           f"max rel dE_RECIP {rel_e:.3e} (bound 1e-05)")
     if not err <= 1e-4 * scale or not rel_e <= 1e-5:
@@ -537,6 +552,73 @@ def _resync_pair(k, p, e_recip):
     """_amp_check arguments for kernel (k) vs plain (p) resync outputs."""
     return (k.amp_re, k.amp_im, k.energy[:, e_recip], p.amp_re, p.amp_im,
             p.energy[:, e_recip])
+
+
+def _resync_edges(name, spec, states):
+    """The resync kernel on the edge replicas of ``states``
+    (tools/resync_times.edge_replicas: no guests, every covered type at
+    capacity, a charged-site count that is not a multiple of the kernel's
+    chunk with each covered type at a different count; at B = 1 each
+    alone) against its plain version, phase 1's bounds; the replica
+    without guests must hold fw_amp exactly, and two launches on the same
+    input must give the same bits. Returns max |dA|."""
+    from maniac_tpu_torch import replicate
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.system import E_RECIP
+    from maniac_tpu_torch.tools.resync_times import edge_replicas, replica
+    single = states.B < 3
+    edges = edge_replicas(spec, replicate(spec, states, 3) if single
+                          else states, seed=states.B)
+    batches = [replica(edges, i) for i in range(3)] if single else [edges]
+    err = 0.0
+    for i, st in enumerate(batches):
+        k, again = resync_grouped(spec, st), resync_grouped(spec, st)
+        if not all(torch.equal(getattr(k, f), getattr(again, f))
+                   for f in ("amp_re", "amp_im", "energy")):
+            raise AssertionError(f"{name}: two launches on one input differ")
+        if i == 0 and not (torch.equal(k.amp_re[0], spec.fw_amp_re)
+                           and torch.equal(k.amp_im[0], spec.fw_amp_im)):
+            raise AssertionError(f"{name}: no guests, but A != fw_amp")
+        err = max(err, _amp_check(
+            f"{name}: edge replicas{f' {i}' if single else ''}",
+            *_resync_pair(k, resync_plain(spec, st), E_RECIP)))
+    return err
+
+
+def _k4_phase(tag, system, spec, state, gen, label):
+    """K4, the resync kernel at B = 1 (a single chain's replicated block):
+    driven once through mc/driver.resync_amplitudes after CHECK_STEPS plain
+    steps, with the count set to 0 just before (it must launch once), held
+    against its plain version (phase 1's bounds) with the edge replicas
+    alone, then timed device-paced (tools/kernel_times.device_ms) and
+    host-paced beside its bound. Returns its kernels line row (the
+    flagship's, system None, named resync_grouped/B1)."""
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
+                                            steps_plain)
+    from maniac_tpu_torch.system import E_RECIP
+    st1 = steps_plain(spec, state, draw_uniforms(spec, 1, CHECK_STEPS, gen))
+    resync_grouped.launches = 0
+    k_one = resync_amplitudes(spec, st1)
+    launches = resync_grouped.launches
+    if launches != 1:
+        raise AssertionError(f"{tag}: resync_amplitudes launched the kernel "
+                             f"{launches} times")
+    err = max(_amp_check(f"{tag}: resync B=1 kernel vs plain",
+                         *_resync_pair(k_one, resync_plain(spec, st1),
+                                       E_RECIP)),
+              _resync_edges(f"{tag}: resync B=1", spec, st1))
+    ms = device_ms(lambda: resync_amplitudes(spec, st1), 100)
+    ms_host = _cuda_ms(lambda: resync_amplitudes(spec, st1), 20)
+    ms_plain = _cuda_ms(lambda: resync_plain(spec, st1), 5)
+    bound = _resync_bound(spec, st1, k_one)
+    print(f"{tag}: resync B=1: kernel {ms:.4f} ms device-paced, "
+          f"{ms_host:.4f} ms host-paced; plain {ms_plain:.3f} ms; bound "
+          f"{bound[0]:.6f} ms by {bound[1]} ({label})")
+    return _row(f"resync_grouped{f'/{system}' if system else ''}/B1",
+                RESYNC_SRC,
+                "maniac_tpu/kernels/resync.py:44", launches, err, ms,
+                ms_plain, bound)
 
 
 def _block_check(name, k, p, max_diverged):
@@ -704,11 +786,13 @@ def _resv_phase(dev, gen, label):
           f"pops {int(c[:, 1, 0].sum())}, pushes {int(c[:, 1, 1].sum())}, "
           f"drops {int(k_blk.extras[:, 1].sum())}")
 
-    # d. the resync kernel on that state
-    err_resync = _amp_check(
-        f"phase 7d: resync B={B} kernel vs plain",
-        *_resync_pair(resync_grouped(spec, k_blk),
-                      resync_plain(spec, k_blk), E_RECIP))
+    # d. the resync kernel on that state, its edge replicas, and K4 (B = 1)
+    err_resync = max(
+        _amp_check(f"phase 7d: resync B={B} kernel vs plain",
+                   *_resync_pair(resync_grouped(spec, k_blk),
+                                 resync_plain(spec, k_blk), E_RECIP)),
+        _resync_edges(f"phase 7d: resync B={B}", spec, k_blk))
+    k4 = _k4_phase("phase 7d", "resv", spec, rv.state, gen, label)
 
     # e. the step kernel against the plain steps; timed at B = 1 (the single
     # chain's shape, phase 7h)
@@ -761,6 +845,7 @@ def _resv_phase(dev, gen, label):
         _row("run_steps_kernel/resv", STEPG_SRC,
              "maniac_tpu/kernels/stepg.py:65", chain_launches, err_step,
              ms_step, ms_step_plain, bound_step),
+        k4,
     ]
 
 
@@ -1179,12 +1264,13 @@ def main() -> int:
           f"[{int(n.min())}, {int(n.max())}]")
     k_out = resync_grouped(spec, states)
     p_out = resync_plain(spec, states)
-    err_rs1 = _amp_check("phase 1: resync kernel vs plain",
-                         *_resync_pair(k_out, p_out, E_RECIP))
-    ms_rs = _cuda_ms(lambda: resync_grouped(spec, states), 10)
+    err_rs1 = max(_amp_check("phase 1: resync kernel vs plain",
+                             *_resync_pair(k_out, p_out, E_RECIP)),
+                  _resync_edges("phase 1: resync", spec, states))
+    ms_rs = device_ms(lambda: resync_grouped(spec, states), 20)
     ms_rs_plain = _cuda_ms(lambda: resync_plain(spec, states), 3)
-    print(f"phase 1: resync B={B}: kernel {ms_rs:.3f} ms, plain "
-          f"{ms_rs_plain:.3f} ms ({name}, {smi})")
+    print(f"phase 1: resync B={B}: kernel {ms_rs:.4f} ms device-paced, "
+          f"plain {ms_rs_plain:.3f} ms ({name}, {smi})")
 
     # ---- phase 2: block kernel vs plain ------------------------------------
     st0 = p_out
@@ -1239,23 +1325,8 @@ def main() -> int:
         sweep, states, gen, max(1, MAIN_REPLICAS // 64), n_check, label)
     err_step = max(err_step, err)
 
-    # ---- phase 4b: the resync kernel at B = 1 (a single chain) -------------
-    st1 = steps_plain(spec, sysm.state, draw_uniforms(spec, 1, n_check, gen))
-    resync_grouped.launches = 0
-    k_one = resync_amplitudes(spec, st1)
-    launches_one = resync_grouped.launches
-    if launches_one != 1:
-        raise AssertionError(f"phase 4b: resync_amplitudes launched the "
-                             f"kernel {launches_one} times")
-    _amp_check("phase 4b: resync B=1 kernel vs plain",
-                         *_resync_pair(k_one, resync_plain(spec, st1),
-                                       E_RECIP))
-    ms_one = _cuda_ms(lambda: resync_amplitudes(spec, st1), 20)
-    ms_one_plain = _cuda_ms(lambda: resync_plain(spec, st1), 5)
-    bound_one = _resync_bound(spec, st1, k_one)
-    print(f"phase 4b: resync B=1: kernel {ms_one:.3f} ms, plain "
-          f"{ms_one_plain:.3f} ms, bound {bound_one[0]:.6f} ms by "
-          f"{bound_one[1]} ({label})")
+    # ---- phase 4b: the resync kernel at B = 1 (K4) --------------------------
+    k4 = _k4_phase("phase 4b", None, spec, sysm.state, gen, label)
 
     # ---- phases 5-6: the command line -------------------------------------
     fugs = [float(f) for f in ISOTHERM.split(",")]
@@ -1327,17 +1398,19 @@ def main() -> int:
     tricl_sys, tricl = _form_phase("phase 9", "tricl", make_triclinic_water,
                                    TRICL_BOX, dev, gen, label)
     tricl_step = _tricl_step_phase(tricl_sys, dev, gen, label)
+    tricl_k4 = _k4_phase("phase 9d", "tricl", tricl_sys.spec,
+                         tricl_sys.state, gen, label)
 
     # ---- phases 10-11: hardware precision, the sentinel, the tools -------
     onehot = _precision_phase(spec, sysm.state, dev, gen, label)
     micro = _microbench_phase(dev, label)
 
     print(json.dumps({"kernels": [
-        *_main_rows(None, main, err_blk2, err_rs1),
+        *_main_rows(None, main, err_blk2, err_rs1), k4,
         _row("run_steps_kernel", STEPG_SRC,
              "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
              err_step, ms_step, ms_step_plain, bound_step),
-        *resv, *mixed, *tricl, tricl_step, onehot, *micro,
+        *resv, *mixed, *tricl, tricl_step, tricl_k4, onehot, *micro,
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,11 @@ Differences from the JAX data model:
 * The far table (``far_coef``, ``far_rows``, ``far_units``) is derived from
   the far-field coefficients: their nonzero entries laid out for the
   footprint kernels' separable contraction (physics/fwsplit.py FarTable).
+* The charge table (``q_regions``, ``q_offsets``, ``q_mixed_types``) is
+  derived from ``site_q``: the charged atoms of the molecules of each type
+  the resync kernel covers (those at or above ``guest_base`` with the
+  framework split, every type without), the only sites it synthesizes
+  (``_charge_table``).
 
 ``build_spec_and_state`` runs in float64 numpy on the host; ``to_device``
 casts the float tables to the working dtype and moves everything to the
@@ -56,7 +61,7 @@ _META_FIELDS = (
     "Mtot", "K", "box_kind", "is_triclinic", "dtype_name", "has_reservoir",
     "kmax_xyz", "amp_shape", "fw_split", "S_frozen", "guest_base",
     "kmax2_xyz", "amp2_shape", "site_base_list", "use_table", "gg_cut",
-    "gg_rcut", "res_cap_list")
+    "gg_rcut", "res_cap_list", "q_mixed_types")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -126,6 +131,12 @@ class SystemSpec:
     far_coef: torch.Tensor        # (n_tiles, 8, FAR_TCH, 32, 2)
     far_rows: torch.Tensor        # (n_groups * 32, 4) int32
     far_units: torch.Tensor       # (n_tiles, 8, 4) int32
+    # the charge table (_charge_table): per type the resync covers (site
+    # base, atoms per molecule, charged atoms per molecule, first entry of
+    # q_offsets, type), and the charged atoms' offsets within a molecule,
+    # type by type
+    q_regions: torch.Tensor       # (n_types, 5) int32
+    q_offsets: torch.Tensor       # (max(1, n),) int32
     alpha2: torch.Tensor
     rcut2: torch.Tensor
     fw_d0: torch.Tensor
@@ -164,6 +175,7 @@ class SystemSpec:
     gg_cut: bool
     gg_rcut: float
     res_cap_list: tuple
+    q_mixed_types: tuple  # covered types whose molecules differ in charges
 
     @property
     def dtype(self) -> torch.dtype:
@@ -257,12 +269,37 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dt, order="C"))
 
 
+def _charge_table(site_q, base_list, A_list, cap_list, lo):
+    """The charged atoms of the molecules the resync kernel synthesizes: the
+    types whose sites start at ``lo`` or above (guest_base with the
+    framework split, 0 without), each read off its first molecule slot.
+    Returns ((n_types, 5) int32 rows (site base, atoms per molecule,
+    charged atoms per molecule, first entry of the offsets, type), (n,)
+    int32 offsets of the charged atoms within a molecule, type by type (one
+    0 when there are none), and those types whose molecule slots do not all
+    carry the first slot's charges)."""
+    q = np.asarray(site_q)
+    rows, offsets, mixed = [], [], []
+    for r, (base, A, cap) in enumerate(zip(base_list, A_list, cap_list)):
+        if base < lo:
+            continue
+        slots = q[base:base + cap * A].reshape(cap, A)
+        off = np.flatnonzero(slots[0] != 0)
+        if not (slots == slots[0]).all():
+            mixed.append(r)
+        rows.append((base, A, len(off), len(offsets), r))
+        offsets.extend(off)
+    return (np.asarray(rows, dtype=np.int32).reshape(-1, 5),
+            np.asarray(offsets or [0], dtype=np.int32), tuple(mixed))
+
+
 def _spec_from_leaves(leaves: dict) -> SystemSpec:
     """Assemble a host (float64 / int32) SystemSpec from numpy arrays and
     meta values keyed by field name."""
     kw = {}
     derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy",
-               "far_coef", "far_rows", "far_units")
+               "far_coef", "far_rows", "far_units", "q_regions", "q_offsets",
+               "q_mixed_types")
     for f in dataclasses.fields(SystemSpec):
         if f.name not in _META_FIELDS and f.name not in derived:
             kw[f.name] = _host_tensor(leaves[f.name])
@@ -276,7 +313,14 @@ def _spec_from_leaves(leaves: dict) -> SystemSpec:
                           leaves["kmax2_xyz"][2])
     for name in ("coef", "rows", "units"):
         kw[f"far_{name}"] = _host_tensor(getattr(far, name))
-    kw.update({name: leaves[name] for name in _META_FIELDS})
+    regions, offsets, kw["q_mixed_types"] = _charge_table(
+        leaves["site_q"], leaves["site_base_list"], leaves["A_list"],
+        leaves["cap_list"],
+        leaves["guest_base"] if leaves["fw_split"] else 0)
+    kw["q_regions"] = torch.from_numpy(regions)
+    kw["q_offsets"] = torch.from_numpy(offsets)
+    kw.update({name: leaves[name] for name in _META_FIELDS
+               if name not in derived})
     kw["dtype_name"] = "float64"
     return SystemSpec(**kw)
 

@@ -3,8 +3,11 @@ hardware-precision probe), ``gpass_bench`` (the guest pair pass),
 ``vpu_bench`` (chained f32 primitives and the framework Coulomb pass's
 plane math), ``section_split`` (the block kernel's time by section, from a
 clock64-instrumented build), ``launch_cost`` (the host's cost of a
-kernel launch) and ``kernel_times`` (the step and one-hot kernels, each
-timed two ways), each run as ``python -m maniac_tpu_torch.tools.<name>``.
+kernel launch), ``kernel_times`` (the step and one-hot kernels, each
+timed two ways), ``resync_times`` (the resync kernel at B = 1024 and
+B = 1, and its time by section) and ``cli_times`` (the command line's
+isotherm and single chain, run after run in one process), each run as
+``python -m maniac_tpu_torch.tools.<name>``.
 They need a CUDA device and exit 1 without one; every time they print
 comes with the card's name and power limit.
 """

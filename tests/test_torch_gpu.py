@@ -7,6 +7,8 @@ without the suite's conftest:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +29,7 @@ from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
 from maniac_tpu_torch.kernels import build
-from maniac_tpu_torch.system import E_RECIP
+from maniac_tpu_torch.system import E_RECIP, E_TOT
 from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_framework_water,
                                       make_mixed_reservoir, make_mixed_sizes,
@@ -36,6 +38,9 @@ from maniac_tpu_torch.systems import (make_framework_mixed,
                                       tiny_system)
 from maniac_tpu_torch.tools.gpass_bench import check_inputs
 from maniac_tpu_torch.tools.gpass_bench import inputs as gpass_inputs
+from maniac_tpu_torch.tools.resync_times import SYSTEMS as RESYNC_SYSTEMS
+from maniac_tpu_torch.tools.resync_times import (edge_replicas, load_cell,
+                                                 replica)
 from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
 from maniac_tpu_torch.utils.hwprobe import onehot_operands, probe_onehot_exact
 
@@ -112,19 +117,66 @@ def test_block_kernel_capacity_overflow(tmp_path):
     assert int(k.extras[:, 0].sum()) > 0
 
 
-def test_resync_kernel_matches_plain(tmp_path):
+@functools.cache
+def _bench_cell(name):
+    """bench.py's system ``name`` (tools/resync_times.SYSTEMS) on the card,
+    loaded once."""
+    return load_cell(name, torch.device("cuda"))
+
+
+def _resync_cases():
+    """(system, B) of the resync checks: bench.py's four systems at B = 1,
+    7 and 1024, and the small framework fixture at B = 8."""
+    return [(name, B) for name in RESYNC_SYSTEMS for B in (1, 7, 1024)] + [
+        ("zif_small", 8)]
+
+
+@pytest.mark.parametrize("system,B", _resync_cases())
+def test_resync_kernel_matches_plain(tmp_path, system, B):
+    """The resync kernel against its plain version: amplitudes within
+    AMP_TOL, E_RECIP within E_RTOL relative. The small framework fixture
+    after 30 plain steps at B = 8 (every energy within E_RTOL relative and
+    0.05 K); bench.py's four systems after 10 plain steps with the edge
+    replicas (no guests, every covered type at capacity, a charged-site
+    count that is not a multiple of the kernel's chunk; at B = 1 each
+    alone, and a fourth), where E_TOT moves by E_RECIP's change and the
+    other energies stay as they came in, the replica without guests holds
+    fw_amp exactly, and two launches on one input give the same bits."""
     dev = _device()
-    make_zif_like(str(tmp_path), n_cells=4, a=5.66, n_water=10,
-                  fugacity=50.0, cutoff=6.0)
-    sysm = _load(str(tmp_path), dev, 16)
-    states = replicate(sysm.spec, sysm.state, 8)
-    states = steps_plain(sysm.spec, states,
-                         draw_uniforms(sysm.spec, 8, 30, _gen(dev, 3)))
-    k = resync_grouped(sysm.spec, states)
-    p = resync_plain(sysm.spec, states)
-    torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
-    torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
-    torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
+    if system == "zif_small":
+        _zif_small(str(tmp_path))
+        sysm = _load(str(tmp_path), dev, 16)
+        states = replicate(sysm.spec, sysm.state, B)
+        states = steps_plain(sysm.spec, states,
+                             draw_uniforms(sysm.spec, B, 30, _gen(dev, 3)))
+        k = resync_grouped(sysm.spec, states)
+        p = resync_plain(sysm.spec, states)
+        torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
+        torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
+        torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
+        return
+    sysm = _bench_cell(system)
+    spec = sysm.spec
+    n = B if B >= 3 else 4
+    states = steps_plain(spec, replicate(spec, sysm.state, n),
+                         draw_uniforms(spec, n, 10, _gen(dev, 3)))
+    states = edge_replicas(spec, states, seed=B)
+    batches = [replica(states, i) for i in range(n)] if B == 1 else [states]
+    for k_in, st in enumerate(batches):
+        k, again = resync_grouped(spec, st), resync_grouped(spec, st)
+        for f in ("amp_re", "amp_im", "energy"):
+            assert torch.equal(getattr(k, f), getattr(again, f)), f
+        p = resync_plain(spec, st)
+        torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
+        torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
+        torch.testing.assert_close(k.energy[:, E_RECIP],
+                                   p.energy[:, E_RECIP], rtol=E_RTOL, atol=0)
+        assert torch.equal(k.energy[:, 1:5], st.energy[:, 1:5])
+        assert torch.equal(k.energy[:, E_TOT], st.energy[:, E_TOT] + (
+            k.energy[:, E_RECIP] - st.energy[:, E_RECIP]))
+        if k_in == 0:
+            assert torch.equal(k.amp_re[0], spec.fw_amp_re)
+            assert torch.equal(k.amp_im[0], spec.fw_amp_im)
 
 
 def test_launch_counts_and_refusals(tmp_path):

@@ -32,7 +32,9 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.tools.vpu_bench, "
             "maniac_tpu_torch.tools.launch_cost, "
             "maniac_tpu_torch.tools.section_split, "
-            "maniac_tpu_torch.tools.kernel_times; "
+            "maniac_tpu_torch.tools.kernel_times, "
+            "maniac_tpu_torch.tools.resync_times, "
+            "maniac_tpu_torch.tools.cli_times; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "
             "assert not bad, bad")
