@@ -114,15 +114,23 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      PASS;
  11. the micro-benchmarks at the JAX tools' default shapes, each driven
      through its tool's entry point (main) with the launch counts set to 0
-     just before, then held against its plain version and timed: K6
+     just before, then held against its plain version and timed
+     device-paced (the kernels line; the smallest of three passes) and
+     host-paced: K6
      (tools/gpass_bench: cur, noerfc, nowrap, read; G 64, NC 47, FL 2, FQ
      6, 100 steps; its Coulomb rows alone, FL 0; its LJ rows alone, FQ 0,
      on gpass_bench.check_inputs: eps and sigma^2 per row, no site within
-     2 A of the footprint) within 1e-5 of the plain version's sum of
-     |terms|; K7
+     2 A of the footprint; all three also at G 61, S 1000, 10 steps, off
+     a CTA's 128 pairs and 128 sites) within 1e-5 of the plain
+     version's sum of |terms|, and two calls on the same inputs with the
+     same bits; K7
      (tools/vpu_bench: the nine ops on a (128, 1280) plane, n 512) within
-     1e-4 relative per element; K8 (cpass, cpassT, n 512) within 5e-5
-     relative per element.
+     1e-4 relative per element; K8 (cpass, cpassT, n 512; also n 1, 6, 7
+     and 13, and a (7, 1001) plane at n 512) within 5e-5 relative per
+     element. K6's cur, noerfc and nowrap and K8's two forms must take at
+     least 1.8 times as long, device-paced, at twice the steps or
+     iterations (tools/micro_times.growth): a kernel that hoisted a term
+     out of its loop would not.
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
@@ -130,7 +138,8 @@ kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
 and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b, 7d and
 9d), the largest error against the plain version, the times of kernel and
 plain version (the step kernel's per step, device-paced: the isotherm's
-spec at B=1024, resv and tricl at B=1; the resync's device-paced), and the
+spec at B=1024, resv and tricl at B=1; the resync's and K6-K8's
+device-paced), and the
 bound: the least time the card could take for the same
 work, the larger of the bytes the call must move (each input read once,
 each output written once; a whole step reads each replica's amplitudes
@@ -195,8 +204,14 @@ TRICL_BOX = dict(n_water=24, L=22.0, tilt=(2.0, 1.2, 0.8), cutoff=7.0,
 # phase 10: the command line's sentinel runs
 SENTINEL_REPLICAS = 64
 # phase 11: the micro-benchmarks' bounds against their plain versions are
-# the kernel modules' GPASS_RTOL, VPU_RTOL and CPASS_RTOL
+# the kernel modules' GPASS_RTOL, VPU_RTOL and CPASS_RTOL; the edge shapes:
+# K6 (G, S) with S and G S not multiples of a CTA's 128 pairs, and its
+# steps; K8's n under and across the seven offsets, and an (R, C) plane
+# whose rows and R C are not multiples of a CTA's 256 elements
 GPASS_CHECKED = ("cur", "noerfc", "nowrap", "read")
+GPASS_EDGE, GPASS_EDGE_STEPS = (61, 1000), 10
+CPASS_EDGE_N = (1, 6, 7, 13)
+CPASS_EDGE = (7, 1001)
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -1108,15 +1123,50 @@ def _elementwise(name, k, p, rtol):
     return float(diff.max()), worst
 
 
-def _microbench_phase(dev, label):
-    """Phase 11: K6, K7 and K8 through their tools, then against their
-    plain versions at the tools' default shapes. Returns their rows."""
+def _gpass_check(tag, v, args, n_steps, fq):
+    """K6 of variant v on args against plain within GPASS_RTOL of the sum
+    of |terms|: |kernel - plain|."""
     from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, gpass,
                                                 gpass_plain, gpass_scale)
+    G, S = args[0].shape
+    k = float(gpass(*args, n_steps, fq, v))
+    p = float(gpass_plain(*args, n_steps, fq, v))
+    scale = gpass_scale(*args, n_steps, fq, v)
+    print(f"phase 11: gpass {v} {tag} (G {G}, S {S}, FL "
+          f"{args[4].shape[0]}, FQ {fq}, {n_steps} steps): kernel "
+          f"{k:.9e}, plain {p:.9e}, |diff| {abs(k - p):.3e} (bound "
+          f"{GPASS_RTOL:g} x sum|terms| {scale:.3e})")
+    if not (math.isfinite(k) and abs(k - p) <= GPASS_RTOL * scale):
+        raise AssertionError(f"phase 11: gpass {v} {tag} disagrees with "
+                             f"plain")
+    return abs(k - p)
+
+
+def _growth_check(name, fn, reps):
+    """fn(1) and fn(2) (twice the steps or iterations) device-paced: raise
+    unless the time grows GROWTH_MIN-fold (a kernel that computes every
+    term takes twice as long)."""
+    from maniac_tpu_torch.tools.micro_times import GROWTH_MIN, growth
+    a, b, ratio = growth(fn, reps)
+    print(f"phase 11: {name}: {a:.4f} ms, twice the work {b:.4f} ms, "
+          f"x{ratio:.3f} (at least x{GROWTH_MIN:g})")
+    if ratio < GROWTH_MIN:
+        raise AssertionError(f"phase 11: {name} grew only x{ratio:.3f} "
+                             f"at twice the work: terms are not computed")
+
+
+def _microbench_phase(dev, label):
+    """Phase 11: K6, K7 and K8 through their tools, then against their
+    plain versions at the tools' default shapes and at edge shapes, K6
+    twice on the same inputs (the same bits), each timed device-paced
+    (the row's time) and host-paced, and K6 and K8 at twice the work.
+    Returns their rows."""
+    from maniac_tpu_torch.kernels.gpass import gpass, gpass_plain
     from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
                                               cpass, cpass_plain, vpu_chain,
                                               vpu_chain_plain)
     from maniac_tpu_torch.tools import gpass_bench, vpu_bench
+    from maniac_tpu_torch.tools.micro_times import device_min_ms
 
     rows = []
     # K6
@@ -1126,33 +1176,39 @@ def _microbench_phase(dev, label):
     # the full pass on the tool's inputs, whose closest pairs' LJ terms
     # (some 1e15 in all) hide every other term in its bound; so also the
     # Coulomb rows alone (FL 0), and the LJ rows alone (FQ 0) on inputs
-    # with eps and sigma^2 per row and no site within 2 A of the footprint
-    checks = ((ins, fq), ((*ins[:4], ins[4][:0], ins[5][:0]), fq),
-              (gpass_bench.check_inputs(G, S, fl, 0, n_steps, dev), 0))
+    # with eps and sigma^2 per row and no site within 2 A of the footprint;
+    # each also at the edge shape (S and G S not multiples of 128)
+    checks = []
+    for (g, s), steps in (((G, S), n_steps), (GPASS_EDGE, GPASS_EDGE_STEPS)):
+        full = gpass_bench.inputs(g, s, fl, dev) if g != G else ins
+        checks += [("full", full, steps, fq),
+                   ("coulomb", (*full[:4], full[4][:0], full[5][:0]), steps,
+                    fq),
+                   ("lj", gpass_bench.check_inputs(g, s, fl, 0, steps, dev),
+                    steps, 0)]
     for v in GPASS_CHECKED:
         gpass.launches = 0
         rc, out = _tool_main(gpass_bench.main, [v])
         launches = gpass.launches
-        diffs = []
-        for args, nq in checks:
-            k = float(gpass(*args, n_steps, nq, v))
-            p = float(gpass_plain(*args, n_steps, nq, v))
-            scale = gpass_scale(*args, n_steps, nq, v)
-            print(f"phase 11: gpass {v} (FL {args[4].shape[0]}, FQ {nq}): "
-                  f"kernel {k:.9e}, plain {p:.9e}, |diff| {abs(k - p):.3e} "
-                  f"(bound {GPASS_RTOL:g} x sum|terms| {scale:.3e})")
-            if not (math.isfinite(k) and abs(k - p) <= GPASS_RTOL * scale):
-                raise AssertionError(f"phase 11: gpass {v} disagrees with "
-                                     f"plain")
-            diffs.append(abs(k - p))
-        ms = _cuda_ms(lambda: gpass(*ins, n_steps, fq, v), 3)
+        diffs = [_gpass_check(tag, v, args, steps, nq)
+                 for tag, args, steps, nq in checks]
+        one, two = (gpass(*ins, n_steps, fq, v) for _ in range(2))
+        if not torch.equal(one, two):
+            raise AssertionError(f"phase 11: gpass {v}: two calls differ "
+                                 f"({float(one)!r}, {float(two)!r})")
+        ms = device_min_ms(lambda: gpass(*ins, n_steps, fq, v), 20)
+        ms_host = _cuda_ms(lambda: gpass(*ins, n_steps, fq, v), 20)
         ms_plain = _cuda_ms(lambda: gpass_plain(*ins, n_steps, fq, v), 1)
+        if v != "read":   # read's time is its one read, not its steps
+            _growth_check(f"gpass {v} at {n_steps} and {2 * n_steps} steps",
+                          lambda k: gpass(*ins, k * n_steps, fq, v), 20)
         bound = _bound(_nbytes(*ins) + 8,
                        _gpass_ops(v, G, S, fl, fq, n_steps))
         print(f"phase 11: gpass {v}: tool exit {rc}, {_last(out)}; "
-              f"launches {launches}; kernel {ms:.3f} ms, plain "
-              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-              f"({label})")
+              f"launches {launches}; two calls the same bits; kernel "
+              f"{ms:.4f} ms device-paced, {ms_host:.4f} ms host-paced, "
+              f"plain {ms_plain:.3f} ms, bound {bound[0]:.4f} ms by "
+              f"{bound[1]} ({label})")
         if rc != 0 or launches < 1:
             raise AssertionError(f"phase 11: gpass {v} failed its checks")
         rows.append(_row(f"gpass/{v}", GPASS_SRC, "tools/gpass_bench.py:60",
@@ -1166,20 +1222,22 @@ def _microbench_phase(dev, label):
         launches = vpu_chain.launches
         err, rel = _elementwise(f"phase 11: vpu {op}", vpu_chain(x, op, n),
                                 vpu_chain_plain(x, op, n), VPU_RTOL)
-        ms = _cuda_ms(lambda: vpu_chain(x, op, n), 20)
+        ms = device_min_ms(lambda: vpu_chain(x, op, n), 20)
+        ms_host = _cuda_ms(lambda: vpu_chain(x, op, n), 20)
         ms_plain = _cuda_ms(lambda: vpu_chain_plain(x, op, n), 2)
         bound = _bound(2 * _nbytes(x), float(n * R * C * OPS_VPU[op]))
         print(f"phase 11: vpu {op}: tool exit {rc}, {_last(out)}; "
               f"launches {launches}; max|dx| {err:.3e}, max rel {rel:.3e} "
-              f"(bound {VPU_RTOL:g}); kernel {ms:.4f} ms, plain "
-              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-              f"({label})")
+              f"(bound {VPU_RTOL:g}); kernel {ms:.4f} ms device-paced, "
+              f"{ms_host:.4f} ms host-paced, plain {ms_plain:.3f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({label})")
         if rc != 0 or launches < 1:
             raise AssertionError(f"phase 11: vpu {op} failed its checks")
         rows.append(_row(f"vpu/{op}", VPU_SRC, "tools/vpu_bench.py:57",
                          launches, err, ms, ms_plain, bound))
     # K8
     cins = vpu_bench.cpass_inputs(R, C, dev)
+    edge = vpu_bench.cpass_inputs(*CPASS_EDGE, dev)
     for name in ("cpass", "cpassT"):
         tr = name == "cpassT"
         cpass.launches = 0
@@ -1187,15 +1245,27 @@ def _microbench_phase(dev, label):
         launches = cpass.launches
         err, rel = _elementwise(f"phase 11: {name}", cpass(*cins, n, tr),
                                 cpass_plain(*cins, n, tr), CPASS_RTOL)
-        ms = _cuda_ms(lambda: cpass(*cins, n, tr), 20)
+        # n not a multiple of the seven offsets, or under one group; a row
+        # not a multiple of a CTA's elements
+        for args, nn in [(cins, k) for k in CPASS_EDGE_N] + [(edge, n)]:
+            e, r = _elementwise(f"phase 11: {name} {tuple(args[0].shape)} "
+                                f"n {nn}", cpass(*args, nn, tr),
+                                cpass_plain(*args, nn, tr), CPASS_RTOL)
+            print(f"phase 11: {name} {tuple(args[0].shape)} n {nn}: max|d| "
+                  f"{e:.3e}, max rel {r:.3e} (bound {CPASS_RTOL:g})")
+            err, rel = max(err, e), max(rel, r)
+        ms = device_min_ms(lambda: cpass(*cins, n, tr), 20)
+        ms_host = _cuda_ms(lambda: cpass(*cins, n, tr), 20)
         ms_plain = _cuda_ms(lambda: cpass_plain(*cins, n, tr), 2)
+        _growth_check(f"{name} at n {n} and {2 * n}",
+                      lambda k: cpass(*cins, k * n, tr), 20)
         bound = _bound(_nbytes(*cins) + _nbytes(cins[0]),
                        float(n * R * C * OPS_CPASS))
         print(f"phase 11: {name}: tool exit {rc}, {_last(out)}; "
               f"launches {launches}; max|d| {err:.3e}, max rel {rel:.3e} "
-              f"(bound {CPASS_RTOL:g}); kernel {ms:.4f} ms, plain "
-              f"{ms_plain:.3f} ms, bound {bound[0]:.4f} ms by {bound[1]} "
-              f"({label})")
+              f"(bound {CPASS_RTOL:g}); kernel {ms:.4f} ms device-paced, "
+              f"{ms_host:.4f} ms host-paced, plain {ms_plain:.3f} ms, bound "
+              f"{bound[0]:.4f} ms by {bound[1]} ({label})")
         if rc != 0 or launches < 1:
             raise AssertionError(f"phase 11: {name} failed its checks")
         rows.append(_row(name, VPU_SRC, "tools/vpu_bench.py:108", launches,

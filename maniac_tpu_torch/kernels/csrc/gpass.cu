@@ -20,18 +20,34 @@
 // for them).
 //
 // Bound on the H100: operations (some 30-45 per pair against one read of
-// the positions). Design: one thread per (guest, site) element; it reads
-// its x, y, z, q once and loops over the steps and the FL + FQ rows of its
-// guest in registers, summing in f32 as the pair pass does; the CTA sums
-// its threads in f64 and adds one f64 atomic to the result. The total is
-// kept in f64: the closest pairs' LJ terms reach 1e17 and more, where an
-// f32 total would lose every other term.
+// the positions) by the bound's count; on the card the issue slots,
+// since the IEEE reciprocal, rsqrtf and expf each issue 5-10
+// instructions (40 for an LJ pair, 67 for a Coulomb pair). Design: each
+// thread takes one (guest, site) pair (g, c) and reads its position, q[c]
+// and each row's eps and sigma^2 at c once, into registers. It loops over
+// the rows, then the steps. What does not depend on the step is taken out
+// of the step loop: the row's float (f G + g) and the loads; (float)s is
+// a float counter, exact below 2^24. A term's float operations are fixed:
+// col = fmaf(f G + g, 0.003, s 0.01) is the contraction nvcc makes of
+// (f G + g) 0.003 + s 0.01 within one block, written out so that hoisting
+// the product out of the step loop cannot change its rounding. The thread
+// sums its terms in f32, row by row. 128 threads a CTA; PERF.md's K6
+// finding has the CTA sizes, guests a thread, register caps and persistent
+// grid that were slower.
+// Each CTA sums its threads in f64 in a fixed order into a scratch the
+// wrapper allocates (one partial a CTA), and a second kernel sums the
+// CTAs' partials in a fixed order: no atomics, the same bits on every
+// call. The total is kept in f64: the closest pairs' LJ terms reach 1e17
+// and more, where an f32 total would lose every other term.
 #include "common.cuh"
 
 namespace {
 
-enum GpassPtr { GP_X, GP_Y, GP_Z, GP_Q, GP_EPS, GP_SIG, GP_OUT, GP_COUNT };
-enum GpassInt { GI_G, GI_S, GI_FL, GI_FQ, GI_NSTEP, GI_VARIANT, GI_COUNT };
+enum GpassPtr { GP_X, GP_Y, GP_Z, GP_Q, GP_EPS, GP_SIG, GP_PARTIAL, GP_OUT,
+                GP_COUNT };
+// GI_PARTIALS: the scratch's length, one f64 a CTA
+enum GpassInt { GI_G, GI_S, GI_FL, GI_FQ, GI_NSTEP, GI_VARIANT, GI_PARTIALS,
+                GI_COUNT };
 enum GpassFloat { GF_L, GF_RC2, GF_GGR2, GF_ALPHA, GF_COUNT };
 // kernels/gpass.py::GPASS_VARIANTS order
 enum GpassVariant { GV_CUR, GV_NOERFC, GV_NOWRAP, GV_READ, GV_COUNT };
@@ -43,12 +59,13 @@ struct GpassArgs {
   const float* q;
   const float* eps;
   const float* sig;
-  double* out;
+  double* partial;
   int G, S, FL, FQ, nstep;
   float L, rc2, ggr2, alpha;
 };
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;       // a CTA; kernels/gpass.py GPASS_THREADS
+constexpr int SUM_THREADS = 256;
 
 __device__ __forceinline__ float erfc_as(float x) {
   const float t = 1.f / (1.f + 0.3275911f * x);
@@ -71,40 +88,47 @@ __device__ __forceinline__ float pair_r2(float x, float y, float z,
   return fmaxf(dx * dx + dy * dy + dz * dz, 1e-8f);
 }
 
-// Sum of the CTA's per-thread f32 totals, in f64, added to *out.
-__device__ __forceinline__ void add_block_total(float part, double* out) {
+// The CTA's per-thread totals summed in f64, lanes then warps in order,
+// into partial[blockIdx.x].
+__device__ __forceinline__ void store_block_total(double v, double* partial) {
   __shared__ double red[THREADS / 32];
-  double v = part;
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x == 0) {
     double total = 0.0;
     for (int w = 0; w < THREADS / 32; ++w) total += red[w];
-    atomicAdd(out, total);
+    partial[blockIdx.x] = total;
   }
 }
 
 template <bool WRAP, bool ERFC>
 __global__ void __launch_bounds__(THREADS) gpass_kernel(GpassArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  double total = 0.0;
   if (i < a.G * a.S) {
     const int g = i / a.S, c = i - g * a.S;
     const float x = a.x[i], y = a.y[i], z = a.z[i], qc = a.q[c];
     const float inv_l = 1.f / a.L;
-    for (int s = 0; s < a.nstep; ++s) {
-      const float sf = (float)s * 0.01f;
-      for (int f = 0; f < a.FL; ++f) {
-        const float col = (float)(f * a.G + g) * 0.003f + sf;
+    float acc = 0.f;
+    for (int f = 0; f < a.FL; ++f) {
+      const float ep = a.eps[f * a.S + c], sg = a.sig[f * a.S + c];
+      const float rf = (float)(f * a.G + g);
+      float sc = 0.f;
+      for (int s = 0; s < a.nstep; ++s, sc += 1.f) {
+        const float col = fmaf(rf, 0.003f, sc * 0.01f);
         const float r2 = pair_r2<WRAP>(x, y, z, col, a.L, inv_l);
-        const float sr2 = a.sig[f * a.S + c] * (1.f / r2);
+        const float sr2 = sg * (1.f / r2);
         const float sr6 = sr2 * sr2 * sr2;
-        const float lj = 4.f * a.eps[f * a.S + c] * (sr6 * sr6 - sr6);
+        const float lj = 4.f * ep * (sr6 * sr6 - sr6);
         acc += r2 < a.rc2 ? lj : 0.f;
       }
-      for (int f = 0; f < a.FQ; ++f) {
-        const float col = (float)(f * a.G + g) * 0.003f + sf;
+    }
+    for (int f = 0; f < a.FQ; ++f) {
+      const float rf = (float)(f * a.G + g);
+      float sc = 0.f;
+      for (int s = 0; s < a.nstep; ++s, sc += 1.f) {
+        const float col = fmaf(rf, 0.003f, sc * 0.01f);
         const float r2 = pair_r2<WRAP>(x, y, z, col, a.L, inv_l);
         const float inv_r = rsqrtf(r2);
         const float scr = ERFC ? erfc_as(a.alpha * (r2 * inv_r)) : 1.f;
@@ -112,23 +136,44 @@ __global__ void __launch_bounds__(THREADS) gpass_kernel(GpassArgs a) {
         acc += r2 < a.ggr2 ? coul : 0.f;
       }
     }
+    total = acc;
   }
-  add_block_total(acc, a.out);
+  store_block_total(total, a.partial);
 }
 
+// The TPU kernel re-reads every chunk each step and adds its sum to the FL
+// + FQ row accumulators; here the element is read once, a step adds it in
+// a register and the rows scale the total, so this times the one read and
+// the reduction, not a per-step read. Its time is two launches: this and
+// gpass_sum_kernel (an earlier form, with atomics, had one).
 __global__ void __launch_bounds__(THREADS) gpass_read_kernel(GpassArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float acc = 0.f;
+  const int i = blockIdx.x * THREADS + threadIdx.x;
+  double total = 0.0;
   if (i < a.G * a.S) {
-    // the TPU kernel re-reads every chunk each step and adds its sum to
-    // the FL + FQ row accumulators; here the element is read once, a step
-    // adds it in a register and the rows scale the total, so this times
-    // the one read and the reduction, not a per-step read
     const float v = a.x[i] + a.y[i] + a.z[i] + a.q[i % a.S];
+    float acc = 0.f;
     for (int s = 0; s < a.nstep; ++s) acc += v;
     acc *= (float)(a.FL + a.FQ);
+    total = acc;
   }
-  add_block_total(acc, a.out);
+  store_block_total(total, a.partial);
+}
+
+// out = the CTAs' partials summed in a fixed order: strided by thread,
+// then a tree over the threads.
+__global__ void __launch_bounds__(SUM_THREADS)
+gpass_sum_kernel(const double* __restrict__ partial, int n,
+                 double* __restrict__ out) {
+  __shared__ double red[SUM_THREADS];
+  double v = 0.0;
+  for (int i = threadIdx.x; i < n; i += SUM_THREADS) v += partial[i];
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = SUM_THREADS / 2; w > 0; w >>= 1) {
+    if ((int)threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = red[0];
 }
 
 }  // namespace
@@ -145,7 +190,8 @@ extern "C" int gpass_launch(void* const* ptrs, int nptr, const int* ints,
   a.q = static_cast<const float*>(ptrs[GP_Q]);
   a.eps = static_cast<const float*>(ptrs[GP_EPS]);
   a.sig = static_cast<const float*>(ptrs[GP_SIG]);
-  a.out = static_cast<double*>(ptrs[GP_OUT]);
+  a.partial = static_cast<double*>(ptrs[GP_PARTIAL]);
+  double* out = static_cast<double*>(ptrs[GP_OUT]);
   a.G = ints[GI_G];
   a.S = ints[GI_S];
   a.FL = ints[GI_FL];
@@ -155,9 +201,11 @@ extern "C" int gpass_launch(void* const* ptrs, int nptr, const int* ints,
   a.rc2 = floats[GF_RC2];
   a.ggr2 = floats[GF_GGR2];
   a.alpha = floats[GF_ALPHA];
-  if (a.G < 1 || a.S < 1 || a.FL < 0 || a.FQ < 0 || a.nstep < 0)
+  if (a.G < 1 || a.S < 1 || a.FL < 0 || a.FQ < 0 || a.nstep < 0
+      || (long long)a.G * a.S > 0x7fffffff)
     return MANIAC_ERR_SHAPE;
   const int blocks = (a.G * a.S + THREADS - 1) / THREADS;
+  if (ints[GI_PARTIALS] != blocks) return MANIAC_ERR_SHAPE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ints[GI_VARIANT]) {
     case GV_CUR: gpass_kernel<true, true><<<blocks, THREADS, 0, s>>>(a); break;
@@ -170,5 +218,8 @@ extern "C" int gpass_launch(void* const* ptrs, int nptr, const int* ints,
     case GV_READ: gpass_read_kernel<<<blocks, THREADS, 0, s>>>(a); break;
     default: return MANIAC_ERR_SHAPE;
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gpass_sum_kernel<<<1, SUM_THREADS, 0, s>>>(a.partial, blocks, out);
   return (int)cudaGetLastError();
 }

@@ -78,55 +78,98 @@ int launch_chain(const float* x, float* out, int count, int n,
   return (int)cudaGetLastError();
 }
 
-// K8: one thread per (row, column) element. The per-row scalars (bx, by,
-// bz, qw) come from column 0 of the planes, or with TRANSPOSED from the
-// (4, R) table, where qw takes the iteration's offset t too (as
-// vpu_bench.py:119-123 adds t to the whole table).
-template <bool TRANSPOSED>
-__global__ void __launch_bounds__(THREADS)
-cpass_kernel(const float* __restrict__ px, const float* __restrict__ py,
-             const float* __restrict__ pz, const float* __restrict__ q,
-             const float* __restrict__ rows, float* __restrict__ out, int R,
-             int C, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R * C) return;
-  const int r = i / C;
+// K8. One thread an element (r, c); the row's scalars (bx, by, bz, qw)
+// come from column 0 of the planes, or with TRANSPOSED from the (4, R)
+// table, where qw takes the iteration's offset t too (as
+// vpu_bench.py:119-123 adds t to the whole table). Iteration k's offset is
+// t_(k % 7), so the n iterations run as n / 7 groups of the seven offsets
+// (the wrapper's CPASS_OFFSETS, f32), then the first n % 7 of them; the
+// element still adds its terms in the order k = 0, 1, ... The sums bx +
+// t_j, by + t_j, bz + t_j (and qw + t_j) are the f32 additions each
+// iteration made, taken once a thread into registers. A group's term j is
+// the same function of the same inputs in every group, so each group adds
+// the opaque zero a.zero (0, but a kernel argument the compiler cannot
+// see) to the element's x, y, z and q: every group is then new work, and
+// no part of a term (such as the y wrap, which ptxas hoists when only x
+// changes) leaves the loop. 256 threads a CTA; PERF.md's K8 finding has
+// the CTA sizes, elements a thread and register caps that were slower.
+constexpr int CPASS_T = 7;              // distinct offsets: (k % 7) * 0.1
+
+struct CpassArgs {
+  const float* px;
+  const float* py;
+  const float* pz;
+  const float* q;
+  const float* rows;
+  float* out;
+  int R, C, n, zero;
+  float t[CPASS_T];
+};
+
+// One iteration's term of an element at (x, y, z) with charge qi against
+// the row's offset scalars (ox, oy, oz) and weight w.
+__device__ __forceinline__ float cpass_term(float x, float y, float z,
+                                            float qi, float ox, float oy,
+                                            float oz, float w) {
   const float ll = 34.f, il = (float)(1.0 / 34.0);
   const float a2 = 0.52f, rc2 = 72.25f;
+  float dx = x - ox;
+  float dy = y - oy;
+  const float dz = z - oz;
+  dx -= ll * rintf(dx * il);
+  dy -= ll * rintf(dy * il);
+  // r2 unfused: each product and sum rounded as the plain version's torch
+  // ops round them, so both take the same side of the cut-off select
+  const float r2 = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                             __fmul_rn(dy, dy)),
+                                   __fmul_rn(dz, dz)), 1e-18f);
+  const float inv_r = rsqrtf(r2);
+  const float xab = a2 * (r2 * inv_r);
+  const float e = erfc_probe(xab);
+  const float coulf = w * qi * e * inv_r;
+  return r2 < rc2 ? coulf : 0.f;
+}
+
+template <bool TRANSPOSED>
+__global__ void __launch_bounds__(THREADS) cpass_kernel(CpassArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.R * a.C) return;
+  const int r = i / a.C;
   float bx, by, bz, qw;
   if (TRANSPOSED) {
-    bx = rows[r];
-    by = rows[R + r];
-    bz = rows[2 * R + r];
-    qw = rows[3 * R + r];
+    bx = a.rows[r];
+    by = a.rows[a.R + r];
+    bz = a.rows[2 * a.R + r];
+    qw = a.rows[3 * a.R + r];
   } else {
-    bx = px[r * C];
-    by = py[r * C];
-    bz = pz[r * C];
-    qw = q[r * C];
+    bx = a.px[r * a.C];
+    by = a.py[r * a.C];
+    bz = a.pz[r * a.C];
+    qw = a.q[r * a.C];
   }
-  const float x = px[i], y = py[i], z = pz[i], qi = q[i];
+  float ox[CPASS_T], oy[CPASS_T], oz[CPASS_T], ow[CPASS_T];
+#pragma unroll
+  for (int j = 0; j < CPASS_T; ++j) {
+    ox[j] = bx + a.t[j];
+    oy[j] = by + a.t[j];
+    oz[j] = bz + a.t[j];
+    ow[j] = TRANSPOSED ? qw + a.t[j] : qw;
+  }
+  const float x = a.px[i], y = a.py[i], z = a.pz[i], qi = a.q[i];
   float acc = 0.f;
-  for (int k = 0; k < n; ++k) {
-    const float t = (float)(k % 7) * 0.1f;
-    float dx = x - (bx + t);
-    float dy = y - (by + t);
-    const float dz = z - (bz + t);
-    const float w = TRANSPOSED ? qw + t : qw;
-    dx -= ll * rintf(dx * il);
-    dy -= ll * rintf(dy * il);
-    // r2 unfused: each product and sum rounded as the plain version's torch
-    // ops round them, so both take the same side of the cut-off select
-    const float r2 = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                               __fmul_rn(dy, dy)),
-                                     __fmul_rn(dz, dz)), 1e-18f);
-    const float inv_r = rsqrtf(r2);
-    const float xab = a2 * (r2 * inv_r);
-    const float e = erfc_probe(xab);
-    const float coulf = w * qi * e * inv_r;
-    acc += r2 < rc2 ? coulf : 0.f;
+  const int m = a.n / CPASS_T;
+  for (int g = 0; g < m; ++g) {
+    const float z0 = __int_as_float(g & a.zero);
+    const float xg = x + z0, yg = y + z0, zg = z + z0, qg = qi + z0;
+#pragma unroll
+    for (int j = 0; j < CPASS_T; ++j)
+      acc += cpass_term(xg, yg, zg, qg, ox[j], oy[j], oz[j], ow[j]);
   }
-  out[i] = acc;
+  const int rem = a.n - m * CPASS_T;
+#pragma unroll
+  for (int j = 0; j < CPASS_T - 1; ++j)
+    if (j < rem) acc += cpass_term(x, y, z, qi, ox[j], oy[j], oz[j], ow[j]);
+  a.out[i] = acc;
 }
 
 enum CpassPtr { KP_PX, KP_PY, KP_PZ, KP_Q, KP_ROWS, KP_OUT, KP_COUNT };
@@ -162,24 +205,26 @@ extern "C" int vpu_chain_launch(void* const* ptrs, int nptr, const int* ints,
 extern "C" int cpass_launch(void* const* ptrs, int nptr, const int* ints,
                             int nint, const float* floats, int nfloat,
                             void* stream) {
-  (void)floats;
-  if (nptr != KP_COUNT || nint != KI_COUNT || nfloat != 0)
+  if (nptr != KP_COUNT || nint != KI_COUNT || nfloat != CPASS_T)
     return MANIAC_ERR_TABLES;
-  const int R = ints[KI_R], C = ints[KI_C], n = ints[KI_N];
-  if (R < 1 || C < 1 || n < 0) return MANIAC_ERR_SHAPE;
-  const float* px = static_cast<const float*>(ptrs[KP_PX]);
-  const float* py = static_cast<const float*>(ptrs[KP_PY]);
-  const float* pz = static_cast<const float*>(ptrs[KP_PZ]);
-  const float* q = static_cast<const float*>(ptrs[KP_Q]);
-  const float* rows = static_cast<const float*>(ptrs[KP_ROWS]);
-  float* out = static_cast<float*>(ptrs[KP_OUT]);
-  const int blocks = (R * C + THREADS - 1) / THREADS;
+  CpassArgs a;
+  a.px = static_cast<const float*>(ptrs[KP_PX]);
+  a.py = static_cast<const float*>(ptrs[KP_PY]);
+  a.pz = static_cast<const float*>(ptrs[KP_PZ]);
+  a.q = static_cast<const float*>(ptrs[KP_Q]);
+  a.rows = static_cast<const float*>(ptrs[KP_ROWS]);
+  a.out = static_cast<float*>(ptrs[KP_OUT]);
+  a.R = ints[KI_R];
+  a.C = ints[KI_C];
+  a.n = ints[KI_N];
+  a.zero = 0;
+  for (int j = 0; j < CPASS_T; ++j) a.t[j] = floats[j];
+  if (a.R < 1 || a.C < 1 || a.n < 0) return MANIAC_ERR_SHAPE;
+  const int blocks = (a.R * a.C + THREADS - 1) / THREADS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ints[KI_TRANSPOSED])
-    cpass_kernel<true><<<blocks, THREADS, 0, s>>>(px, py, pz, q, rows, out, R,
-                                                  C, n);
+    cpass_kernel<true><<<blocks, THREADS, 0, s>>>(a);
   else
-    cpass_kernel<false><<<blocks, THREADS, 0, s>>>(px, py, pz, q, rows, out,
-                                                   R, C, n);
+    cpass_kernel<false><<<blocks, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,11 @@ rows and FQ * G Coulomb rows against the S sites of (G, S) coordinate
 planes, summed to one scalar (csrc/gpass.cu says what a row computes).
 FL is the number of rows of ``eps`` and ``sig`` (sig holds sigma^2, as
 the JAX tool's); row r of the pass takes guest r % G and eps row r // G.
-For CUDA tensors it launches csrc/gpass.cu; for CPU tensors it runs
-``gpass_plain``, a loop over the steps of torch plane ops. Both sum in
-f64 (the TPU kernel sums in f32).
+For CUDA tensors it launches csrc/gpass.cu, one (guest, site) pair a
+thread, and sums the CTAs' partials in a fixed order, so two calls on the
+same inputs give the same bits; for CPU tensors it runs ``gpass_plain``,
+a loop over the steps of torch plane ops. Both sum in f64 (the TPU kernel
+sums in f32).
 
 ``GPASS_VARIANTS`` are the JAX tool's variants that compute distinct
 numbers: ``cur`` (the live kernel's math), ``noerfc`` (1/r in place of
@@ -38,6 +40,8 @@ ERFC_AS = (0.254829592, -0.284496736, 1.421413741, -1.453152027,
 # plain version and in per-thread f32 sums of some n_steps * (FL + FQ)
 # terms by the kernel; a bound relative to the sum of |terms| (gpass_scale)
 GPASS_RTOL = 1e-5
+# csrc/gpass.cu's threads a CTA (its THREADS): one partial sum a CTA
+GPASS_THREADS = 128
 
 
 def _erfc_as(x: torch.Tensor) -> torch.Tensor:
@@ -119,18 +123,28 @@ def gpass(x, y, z, q, eps, sig, n_steps: int, fq: int,
                          f"{', '.join(GPASS_VARIANTS)})")
     if x.device.type == "cpu":
         return gpass_plain(x, y, z, q, eps, sig, n_steps, fq, variant)
+    out = _launch(x, y, z, q, eps, sig, n_steps, fq, variant)
+    gpass.launches += 1
+    return out
+
+
+def _launch(x, y, z, q, eps, sig, n_steps: int, fq: int,
+            variant: str) -> torch.Tensor:
+    """Check the inputs and launch csrc/gpass.cu (the pass, then the sum of
+    its CTAs' partials, allocated here)."""
     (G, S), fl = x.shape, eps.shape[0]
     for name, t in (("x", x), ("y", y), ("z", z)):
         _check(name, t, (G, S), torch.float32, x.device)
     _check("q", q, (S,), torch.float32, x.device)
     _check("eps", eps, (fl, S), torch.float32, x.device)
     _check("sig", sig, (fl, S), torch.float32, x.device)
-    out = torch.zeros((), dtype=torch.float64, device=x.device)
+    ctas = -(-G * S // GPASS_THREADS)
+    partial = torch.empty(ctas, dtype=torch.float64, device=x.device)
+    out = torch.empty((), dtype=torch.float64, device=x.device)
     build.launch("gpass_launch", [t.data_ptr() for t in (x, y, z, q, eps, sig,
-                                                         out)],
-                 [G, S, fl, fq, n_steps, GPASS_VARIANTS.index(variant)],
-                 [BOX_L, RC2, GGR2, ALPHA])
-    gpass.launches += 1
+                                                         partial, out)],
+                 [G, S, fl, fq, n_steps, GPASS_VARIANTS.index(variant),
+                  ctas], [BOX_L, RC2, GGR2, ALPHA])
     return out
 
 

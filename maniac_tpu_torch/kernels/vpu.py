@@ -9,7 +9,8 @@ kernel (``kern``): n passes of the framework Coulomb plane math, with the
 per-row scalars from column 0 of the planes or, ``transposed``, from a
 (4, R) table. For CUDA tensors both launch csrc/vpu.cu; for CPU tensors
 they run ``vpu_chain_plain`` and ``cpass_plain``, loops of torch ops with
-the JAX tool's constants.
+the JAX tool's constants. ``cpass``'s kernel takes one element a thread
+and runs the n passes as groups of the seven offsets CPASS_OFFSETS.
 """
 
 from __future__ import annotations
@@ -92,27 +93,49 @@ def _offset(i: int) -> float:
     return float(np.float32(i % 7) * np.float32(0.1))
 
 
+# the seven offsets iteration k takes as CPASS_OFFSETS[k % 7]: the kernel's
+# float table
+CPASS_OFFSETS = tuple(_offset(j) for j in range(7))
+
+
+def _cpass_term(px, py, pz, q, rows, t: float, transposed: bool):
+    """One pass's (R, C) cut-off Coulomb terms at offset t."""
+    if transposed:
+        rr = rows + t
+        bx, by, bz, qw = (rr[k][:, None] for k in range(4))
+    else:
+        bx, by, bz = px[:, :1] + t, py[:, :1] + t, pz[:, :1] + t
+        qw = q[:, :1]
+    inv_box = 1.0 / CPASS_BOX
+    dx, dy, dz = px - bx, py - by, pz - bz
+    dx = dx - CPASS_BOX * torch.round(dx * inv_box)
+    dy = dy - CPASS_BOX * torch.round(dy * inv_box)
+    r2 = torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-18)
+    inv_r = torch.rsqrt(r2)
+    e = _erfc_probe(CPASS_ALPHA * (r2 * inv_r))
+    coulf = qw * q * e * inv_r
+    return torch.where(r2 < CPASS_RC2, coulf, 0.0)
+
+
 def cpass_plain(px, py, pz, q, rows, n: int, transposed: bool):
     """Plain torch version of ``cpass``: the n passes as plane ops."""
     acc = torch.zeros_like(px)
-    inv_box = 1.0 / CPASS_BOX
     for i in range(n):
-        t = _offset(i)
-        if transposed:
-            rr = rows + t
-            bx, by, bz, qw = (rr[k][:, None] for k in range(4))
-        else:
-            bx, by, bz = px[:, :1] + t, py[:, :1] + t, pz[:, :1] + t
-            qw = q[:, :1]
-        dx, dy, dz = px - bx, py - by, pz - bz
-        dx = dx - CPASS_BOX * torch.round(dx * inv_box)
-        dy = dy - CPASS_BOX * torch.round(dy * inv_box)
-        r2 = torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-18)
-        inv_r = torch.rsqrt(r2)
-        e = _erfc_probe(CPASS_ALPHA * (r2 * inv_r))
-        coulf = qw * q * e * inv_r
-        acc = acc + torch.where(r2 < CPASS_RC2, coulf, 0.0)
+        acc = acc + _cpass_term(px, py, pz, q, rows, _offset(i), transposed)
     return acc
+
+
+def _cpass_launch(px, py, pz, q, rows, n: int, transposed: bool):
+    """Check the planes and launch csrc/vpu.cu's cpass_kernel."""
+    R, C = px.shape
+    for name, t in (("px", px), ("py", py), ("pz", pz), ("q", q)):
+        _check(name, t, (R, C), torch.float32, px.device)
+    _check("rows", rows, (4, R), torch.float32, px.device)
+    out = torch.empty_like(px)
+    build.launch("cpass_launch", [t.data_ptr() for t in (px, py, pz, q, rows,
+                                                         out)],
+                 [R, C, n, int(transposed)], CPASS_OFFSETS)
+    return out
 
 
 def cpass(px, py, pz, q, rows, n: int, transposed: bool) -> torch.Tensor:
@@ -121,14 +144,7 @@ def cpass(px, py, pz, q, rows, n: int, transposed: bool) -> torch.Tensor:
     the (R, C) sum of the cut-off Coulomb terms."""
     if px.device.type == "cpu":
         return cpass_plain(px, py, pz, q, rows, n, transposed)
-    R, C = px.shape
-    for name, t in (("px", px), ("py", py), ("pz", pz), ("q", q)):
-        _check(name, t, (R, C), torch.float32, px.device)
-    _check("rows", rows, (4, R), torch.float32, px.device)
-    out = torch.empty_like(px)
-    build.launch("cpass_launch", [t.data_ptr() for t in (px, py, pz, q, rows,
-                                                         out)],
-                 [R, C, n, int(transposed)], [])
+    out = _cpass_launch(px, py, pz, q, rows, n, transposed)
     cpass.launches += 1
     return out
 

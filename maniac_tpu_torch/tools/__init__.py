@@ -4,8 +4,9 @@ hardware-precision probe), ``gpass_bench`` (the guest pair pass),
 plane math), ``section_split`` (the block kernel's time by section, from a
 clock64-instrumented build), ``launch_cost`` (the host's cost of a
 kernel launch), ``kernel_times`` (the step and one-hot kernels, each
-timed two ways), ``resync_times`` (the resync kernel at B = 1024 and
-B = 1, and its time by section) and ``cli_times`` (the command line's
+timed two ways), ``micro_times`` (the micro-benchmark kernels timed two
+ways and their loops' SASS), ``resync_times`` (the resync kernel at B =
+1024 and B = 1, and its time by section) and ``cli_times`` (the command line's
 isotherm and single chain, run after run in one process), each run as
 ``python -m maniac_tpu_torch.tools.<name>``.
 They need a CUDA device and exit 1 without one; every time they print

@@ -414,27 +414,36 @@ def test_vpu_chain_kernel_matches_plain(op):
                                rtol=VPU_RTOL, atol=0)
 
 
+@pytest.mark.parametrize("shape,n", [((128, 1280), 512), ((128, 1280), 1),
+                                     ((128, 1280), 6), ((128, 1280), 7),
+                                     ((128, 1280), 13), ((7, 1001), 512)],
+                         ids=["default", "n1", "n6", "n7", "n13", "7x1001"])
 @pytest.mark.parametrize("transposed", [False, True],
                          ids=["cpass", "cpassT"])
-def test_cpass_kernel_matches_plain(transposed):
-    """K8 at the tool's (128, 1280) planes, n = 512, elementwise."""
+def test_cpass_kernel_matches_plain(transposed, shape, n):
+    """K8 at the tool's (128, 1280) planes, n = 512, elementwise; also at n
+    under one group of the seven offsets and across groups, and on rows
+    that are not a multiple of a CTA's 256 elements."""
     dev = _device()
-    ins = cpass_inputs(128, 1280, dev)
+    ins = cpass_inputs(*shape, dev)
     n0 = cpass.launches
-    k = cpass(*ins, 512, transposed)
+    k = cpass(*ins, n, transposed)
     assert cpass.launches == n0 + 1
-    torch.testing.assert_close(k, cpass_plain(*ins, 512, transposed),
+    torch.testing.assert_close(k, cpass_plain(*ins, n, transposed),
                                rtol=CPASS_RTOL, atol=0)
 
 
+@pytest.mark.parametrize("shape", [(64, 8 * 128), (61, 1000)],
+                         ids=["default", "61x1000"])
 @pytest.mark.parametrize("variant", GPASS_VARIANTS)
 @pytest.mark.parametrize("fl", [2, 0], ids=["full", "coulomb"])
-def test_gpass_kernel_matches_plain(variant, fl):
+def test_gpass_kernel_matches_plain(variant, fl, shape):
     """K6 at G 64, 8 chunks, 10 steps, with its LJ rows and without them
     (whose closest pairs' terms would hide the Coulomb rows): the scalar
-    within 1e-5 of the sum of |terms|."""
+    within 1e-5 of the sum of |terms|; also at an S and a G S that are not
+    multiples of a CTA's 128 pairs."""
     dev = _device()
-    ins = gpass_inputs(64, 8 * 128, fl, dev)
+    ins = gpass_inputs(*shape, fl, dev)
     n0 = gpass.launches
     k = float(gpass(*ins, 10, 6, variant))
     assert gpass.launches == n0 + 1
@@ -443,14 +452,26 @@ def test_gpass_kernel_matches_plain(variant, fl):
 
 
 @pytest.mark.parametrize("variant", GPASS_VARIANTS)
-def test_gpass_kernel_lj_rows_match_plain(variant):
+def test_gpass_kernel_is_deterministic(variant):
+    """K6 sums its CTAs' partials in a fixed order: two calls on the tool's
+    inputs (G 64, 47 chunks, 100 steps) give the same bits."""
+    dev = _device()
+    ins = gpass_inputs(64, 47 * 128, 2, dev)
+    one, two = (gpass(*ins, 100, 6, variant) for _ in range(2))
+    assert torch.equal(one, two), (float(one), float(two))
+
+
+@pytest.mark.parametrize("shape", [(64, 8 * 128), (61, 1000)],
+                         ids=["default", "61x1000"])
+@pytest.mark.parametrize("variant", GPASS_VARIANTS)
+def test_gpass_kernel_lj_rows_match_plain(variant, shape):
     """K6's LJ rows alone (FQ 0) at G 64, 8 chunks, 10 steps, on inputs
     whose eps and sigma^2 differ per row and whose sites all lie 2 A or
     more from the footprint: the sum of |terms| then comes from the typical
     pairs, and a planted LJ fault misses the bound more than 100 times over
-    (tests/test_torch_microbench.py)."""
+    (tests/test_torch_microbench.py); also at G 61, S 1000."""
     dev = _device()
-    ins = check_inputs(64, 8 * 128, 2, 0, 10, dev)
+    ins = check_inputs(*shape, 2, 0, 10, dev)
     n0 = gpass.launches
     k = float(gpass(*ins, 10, 0, variant))
     assert gpass.launches == n0 + 1

@@ -4,7 +4,9 @@ tables are refilled with exactly the bytes the per-call ctypes arrays of
 the earlier path held, a refusal raises, a variant build takes the
 launches only within build.variant, the block and step wrappers' tables
 have the lengths and entries of the kernels' enums (csrc/*.cu), and the
-step wrapper launches each step of a block on one clone of the state."""
+step wrapper launches each step of a block on one clone of the state; the
+micro-benchmarks K6 and K8 pass their shapes, K6 a scratch of one partial
+a CTA and K8 its seven offsets."""
 
 import ctypes
 import re
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from maniac_tpu_torch import load_system, replicate
-from maniac_tpu_torch.kernels import blockg, build, stepg
+from maniac_tpu_torch.kernels import blockg, build, gpass, stepg, vpu
 from maniac_tpu_torch.mc.driver import draw_uniforms
 from maniac_tpu_torch.parallel.replicas import perturb_activity
 from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
@@ -312,3 +314,60 @@ def test_launch_cost_tables_match_the_kernels():
     assert TABLES["K2"] == (_enum("blockg.cu", "BlockPtr")["BP_COUNT"],
                             _enum("blockg.cu", "BlockInt")["BI_COUNT"],
                             sh["SF_COUNT"])
+
+
+@pytest.mark.parametrize("shape", [(128, 1280), (7, 1001)],
+                         ids=["default", "7x1001"])
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["cpass", "cpassT"])
+def test_cpass_tables_match_the_kernel(stub, transposed, shape):
+    """K8's tables against csrc/vpu.cu's enums: the planes, the row table
+    and the output in order, the shape, n and the form, and the seven
+    offsets as the float table."""
+    R, C = shape
+    ins = [torch.zeros((R, C)) for _ in range(4)] + [torch.zeros((4, R))]
+    out = vpu._cpass_launch(*ins, 13, transposed)
+    ptrs, ints, floats = _unpack(stub.calls[-1])
+    kp, ki = _enum("vpu.cu", "CpassPtr"), _enum("vpu.cu", "CpassInt")
+    n_t = int(re.search(r"constexpr int CPASS_T = (\d+);",
+                        (CSRC / "vpu.cu").read_text()).group(1))
+    assert stub.calls[-1][0] == "cpass_launch"
+    assert (len(ptrs), len(ints), len(floats)) == (kp["KP_COUNT"],
+                                                   ki["KI_COUNT"], n_t)
+    assert ptrs == [t.data_ptr() for t in ins + [out]]
+    assert ints == [R, C, 13, int(transposed)]
+    assert floats == list(vpu.CPASS_OFFSETS)
+
+
+@pytest.mark.parametrize("shape", [(64, 47 * 128), (61, 1000), (1, 1)],
+                         ids=["default", "61x1000", "1x1"])
+@pytest.mark.parametrize("variant", gpass.GPASS_VARIANTS)
+def test_gpass_tables_match_the_kernel(stub, variant, shape):
+    """K6's tables against csrc/gpass.cu's enums: the inputs, a scratch of
+    one f64 partial a CTA of THREADS (a pair a thread) and the 0-d f64
+    result, the shape, steps, variant and the scratch's length, and the
+    box, cut-offs and alpha."""
+    (G, S), fl = shape, 2
+    ins = [torch.zeros((G, S)) for _ in range(3)] + [torch.zeros(S)] \
+        + [torch.zeros((fl, S)) for _ in range(2)]
+    out = gpass._launch(*ins, 10, 6, variant)
+    ptrs, ints, floats = _unpack(stub.calls[-1])
+    gp, gi = _enum("gpass.cu", "GpassPtr"), _enum("gpass.cu", "GpassInt")
+    gf = _enum("gpass.cu", "GpassFloat")
+    threads = int(re.search(r"constexpr int THREADS = (\d+);",
+                            (CSRC / "gpass.cu").read_text()).group(1))
+    assert gpass.GPASS_THREADS == threads
+    assert stub.calls[-1][0] == "gpass_launch"
+    assert (len(ptrs), len(ints), len(floats)) == (
+        gp["GP_COUNT"], gi["GI_COUNT"], gf["GF_COUNT"])
+    assert ptrs[:gp["GP_PARTIAL"]] == [t.data_ptr() for t in ins]
+    assert ptrs[gp["GP_OUT"]] == out.data_ptr()
+    assert out.shape == () and out.dtype == torch.float64
+    ctas = -(-G * S // threads)
+    assert ints == [G, S, fl, 6, 10, gpass.GPASS_VARIANTS.index(variant),
+                    ctas]
+    assert ints[gi["GI_VARIANT"]] == _enum("gpass.cu", "GpassVariant")[
+        "GV_" + variant.upper()]
+    assert ints[gi["GI_PARTIALS"]] == ctas
+    assert floats == pytest.approx([gpass.BOX_L, gpass.RC2, gpass.GGR2,
+                                    gpass.ALPHA], rel=1e-7)

@@ -3,7 +3,8 @@ kernels/vpu.py) on the CPU against the JAX tools' Pallas kernels in
 interpret mode (tools/gpass_bench.py, tools/vpu_bench.py), at small shapes
 on the same inputs. The tools' module globals set the shapes; the kernel
 of run_cpass, a closure, is captured by a stand-in for ``pl`` and run
-here."""
+here. Also K8's bookkeeping: the seven offsets its kernel takes and its
+passes in groups of seven."""
 
 import functools
 import importlib.util
@@ -20,7 +21,10 @@ from jax.experimental import pallas as pl
 from maniac_tpu_torch.kernels import gpass as gp
 from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, GPASS_VARIANTS,
                                             gpass, gpass_scale)
-from maniac_tpu_torch.kernels.vpu import CPASS_RTOL, VPU_OPS, cpass, vpu_chain
+from maniac_tpu_torch.kernels import vpu
+from maniac_tpu_torch.kernels.vpu import (CPASS_OFFSETS, CPASS_RTOL,
+                                          VPU_OPS, cpass, cpass_plain,
+                                          vpu_chain)
 from maniac_tpu_torch.tools.gpass_bench import check_inputs
 from maniac_tpu_torch.tools.gpass_bench import inputs as gpass_inputs
 from maniac_tpu_torch.tools.gpass_bench import kernel_variant
@@ -191,3 +195,36 @@ def test_cpass_plain_matches_jax(transposed, monkeypatch):
     assert np.count_nonzero(got) > 100    # elements inside the cut-off
     np.testing.assert_allclose(got, np.asarray(want), rtol=CPASS_RTOL,
                                atol=0)
+
+
+def test_cpass_offsets_match_jax():
+    """The seven offsets K8's kernel takes (CPASS_OFFSETS, its float
+    table, iteration k taking CPASS_OFFSETS[k % 7]) are the plain
+    version's _offset(k) and the JAX tool's (i % 7).astype(f32) * 0.1, bit
+    for bit, over three groups."""
+    i = jnp.arange(21, dtype=jnp.int32)
+    want = np.asarray((i % 7).astype(jnp.float32) * 0.1)
+    got = np.array([CPASS_OFFSETS[k % 7] for k in range(21)], np.float32)
+    assert got.tobytes() == want.tobytes()
+    assert [vpu._offset(k) for k in range(21)] == [CPASS_OFFSETS[k % 7]
+                                                   for k in range(21)]
+
+
+@pytest.mark.parametrize("n", [1, 6, 7, 13, 20])
+@pytest.mark.parametrize("transposed", [False, True],
+                         ids=["cpass", "cpassT"])
+def test_cpass_plain_sums_in_groups_of_seven(n, transposed):
+    """cpass_plain over n = 7 m + r passes equals, in f64, the sum taken in
+    the kernel's loop order: m groups of the seven offsets, then the first
+    r of them (the regrouping's bookkeeping; each element adds its terms
+    in the same order either way, so the sums are equal)."""
+    ins = tuple(t.double() for t in cpass_inputs(8, 128, "cpu"))
+    m, r = divmod(n, 7)
+    acc = torch.zeros_like(ins[0])
+    for _ in range(m):
+        for j in range(7):
+            acc = acc + vpu._cpass_term(*ins, CPASS_OFFSETS[j], transposed)
+    for j in range(r):
+        acc = acc + vpu._cpass_term(*ins, CPASS_OFFSETS[j], transposed)
+    assert torch.equal(acc, cpass_plain(*ins, n, transposed))
+    assert np.count_nonzero(acc.numpy()) > 100
