@@ -130,13 +130,32 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      element. K6's cur, noerfc and nowrap and K8's two forms must take at
      least 1.8 times as long, device-paced, at twice the steps or
      iterations (tools/micro_times.growth): a kernel that hoisted a term
-     out of its loop would not.
+     out of its loop would not. Then K7 and csrc/prims.cuh's branch-free
+     primitives through tools/micro_times (--kernels K7 --prims: K7's nine
+     ops device- and host-paced, each primitive's exhaustive check over its
+     domain and over every positive finite float), and each primitive's
+     exhaustive check (kernels/vpu.prim_check: every f32 bit pattern of
+     its domain through the primitive and the expression it replaces, the
+     reciprocal, root and reciprocal root as nvcc builds them) with its
+     count set to 0 just before: 0 mismatches, every value of the domain
+     checked, the same count as its plain version (the correctly rounded
+     value from f64 against torch's f32 expression), timed beside it;
+ 12. the command line's single chain on the flagship deck with Widom and
+     checkpoints (2 blocks of 400 steps, the step kernel): with --widom 256
+     energy.dat is the same text as without it and widom.dat holds 2
+     finite rows (factors >= 0, a positive cumulative factor at the end);
+     a 1-block run with --checkpoint,
+     then --resume on the 2-block deck, writes block 2's energy.dat row as
+     the uninterrupted run does; each run launches the step kernel once a
+     step it runs.
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block and resync
 kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
 and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b, 7d and
-9d), the largest error against the plain version, the times of kernel and
+9d; K6-K8 and the primitive check, a checking kernel whose error is its
+mismatch count against the plain version's, phase 11), the largest error
+against the plain version, the times of kernel and
 plain version (the step kernel's per step, device-paced: the isotherm's
 spec at B=1024, resv and tricl at B=1; the resync's and K6-K8's
 device-paced), and the
@@ -212,6 +231,9 @@ GPASS_CHECKED = ("cur", "noerfc", "nowrap", "read")
 GPASS_EDGE, GPASS_EDGE_STEPS = (61, 1000), 10
 CPASS_EDGE_N = (1, 6, 7, 13)
 CPASS_EDGE = (7, 1001)
+# phase 12: Widom trials a block and species on the flagship chain (most
+# ghosts there overlap a framework site: a block of 8 can find B = 0)
+WIDOM_TRIALS = 256
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -256,6 +278,10 @@ OPS_CPASS = 38
 OPS_GPASS_PAIR, OPS_GPASS_WRAP = 9, 12
 OPS_GPASS_LJ, OPS_GPASS_COUL, OPS_GPASS_NOERFC = 10, 23, 5
 OPS_GPASS_READ = 4
+# the primitive check, per value: the branch-free form (rcp: MUFU and two
+# FMA; sqrt: MUFU, two products, two FMA; rsqrt: MUFU), the expression it
+# replaces (one operation), the compare and the tally
+OPS_PRIM_CHECK = dict(rcp=6, sqrt=8, rsqrt=4)
 
 
 def _nbytes(*tensors) -> int:
@@ -1159,13 +1185,16 @@ def _microbench_phase(dev, label):
     """Phase 11: K6, K7 and K8 through their tools, then against their
     plain versions at the tools' default shapes and at edge shapes, K6
     twice on the same inputs (the same bits), each timed device-paced
-    (the row's time) and host-paced, and K6 and K8 at twice the work.
-    Returns their rows."""
+    (the row's time) and host-paced, and K6 and K8 at twice the work; K7
+    and the primitives through tools/micro_times, and each primitive's
+    exhaustive check against its plain version. Returns their rows."""
     from maniac_tpu_torch.kernels.gpass import gpass, gpass_plain
-    from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
-                                              cpass, cpass_plain, vpu_chain,
-                                              vpu_chain_plain)
-    from maniac_tpu_torch.tools import gpass_bench, vpu_bench
+    from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS,
+                                              PRIMS, VPU_OPS, VPU_RTOL,
+                                              cpass, cpass_plain, f32_bits,
+                                              prim_check, prim_check_plain,
+                                              vpu_chain, vpu_chain_plain)
+    from maniac_tpu_torch.tools import gpass_bench, micro_times, vpu_bench
     from maniac_tpu_torch.tools.micro_times import device_min_ms
 
     rows = []
@@ -1270,7 +1299,97 @@ def _microbench_phase(dev, label):
             raise AssertionError(f"phase 11: {name} failed its checks")
         rows.append(_row(name, VPU_SRC, "tools/vpu_bench.py:108", launches,
                          err, ms, ms_plain, bound))
+    # K7 and the primitives through tools/micro_times
+    vpu_chain.launches = prim_check.launches = 0
+    rc, out = _tool_main(micro_times.main, ["--kernels", "K7", "--prims"])
+    for line in out.splitlines():
+        if line.startswith(("K7 ", "prims ")):
+            print(f"phase 11: micro_times: {line}")
+    if rc != 0 or vpu_chain.launches < 1 or prim_check.launches < 1:
+        raise AssertionError("phase 11: micro_times --kernels K7 --prims "
+                             "failed")
+    # the primitives' exhaustive check
+    for name in PRIMS:
+        lo, hi = PRIM_DOMAINS[name]
+        values = f32_bits(hi) - f32_bits(lo) + 1
+        prim_check.launches = 0
+        k = prim_check(name, dev)
+        launches = prim_check.launches
+        p = prim_check_plain(name, device=dev)
+        ms = _cuda_ms(lambda: prim_check(name, dev), 3)
+        ms_plain = _cuda_ms(lambda: prim_check_plain(name, device=dev), 1)
+        bound = _bound(4 * 8, float(values * OPS_PRIM_CHECK[name]))
+        print(f"phase 11: prim_check {name} on [{lo.hex()}, {hi.hex()}]: "
+              f"{k['mismatches']} mismatches of {k['checked']} values "
+              f"(plain: {p['mismatches']} of {p['checked']}); launches "
+              f"{launches}; kernel {ms:.3f} ms, plain {ms_plain:.1f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]} ({label})")
+        if (k["mismatches"] != 0 or k["checked"] != values
+                or p["checked"] != values or p["mismatches"] != 0
+                or launches != 1):
+            raise AssertionError(f"phase 11: prim_check {name} failed")
+        rows.append(_row(f"prim_check/{name}", VPU_SRC,
+                         "tools/vpu_bench.py:57", launches,
+                         float(abs(k["mismatches"] - p["mismatches"])), ms,
+                         ms_plain, bound))
     return rows
+
+
+def _chain_options_phase(label):
+    """Phase 12: the command line's single chain on the flagship deck with
+    --widom, and with --checkpoint then --resume; each run's step-kernel
+    launches."""
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.systems import make_zif_like
+    with tempfile.TemporaryDirectory() as tmp:
+        d = f"{tmp}/chain"
+        make_zif_like(d, n_cells=6, a=5.66, n_water=32, fugacity=30.0,
+                      nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS)
+        deck, one = f"{d}/input.maniac", f"{tmp}/one.maniac"
+        with open(deck) as f:
+            text = f.read()
+        with open(one, "w") as f:
+            f.write(text.replace(f"nb_block {CHAIN_BLOCKS}\n",
+                                 "nb_block 1\n"))
+        ck = f"{tmp}/ck.npz"
+        base = ["-d", f"{d}/topology.data", "-p", f"{d}/parameters.inc",
+                "--capacity", str(CAPACITY), "--seed", str(SEED)]
+        energy = {}
+        for tag, dk, extra, blocks in (
+                ("plain", deck, [], CHAIN_BLOCKS),
+                ("widom", deck, ["--widom", str(WIDOM_TRIALS)], CHAIN_BLOCKS),
+                ("checkpoint", one, ["--checkpoint", ck], 1),
+                ("resume", deck, ["--resume", ck], CHAIN_BLOCKS - 1)):
+            run_steps_kernel.launches = 0
+            rc, sec, log = _cli(["-i", dk] + base + extra, f"{tmp}/{tag}")
+            launches = run_steps_kernel.launches
+            with open(f"{tmp}/{tag}/energy.dat") as f:
+                energy[tag] = f.read()
+            print(f"phase 12: {tag}: exit {rc} in {sec:.2f} s, step kernel "
+                  f"launches {launches} ({label})")
+            if (rc != 0 or "Simulation Completed" not in log
+                    or launches != blocks * MAIN_STEPS
+                    or (tag == "resume" and "Resumed" not in log)):
+                raise AssertionError(f"phase 12: the {tag} run failed")
+        widom = _rows(f"{tmp}/widom/widom.dat")
+        print(f"phase 12: widom.dat rows {widom}")
+        plain, resumed = ([r for r in energy[t].splitlines()
+                           if not r.startswith("#")]
+                          for t in ("plain", "resume"))
+        print(f"phase 12: energy.dat with --widom the same text: "
+              f"{energy['widom'] == energy['plain']}; resumed rows "
+              f"{resumed[1:]} against {plain[CHAIN_BLOCKS:]}")
+        if (energy["widom"] != energy["plain"] or len(widom) != CHAIN_BLOCKS
+                or not all(math.isfinite(float(v)) for r in widom
+                           for v in r[1:])
+                or not all(float(r[1]) >= 0 for r in widom)
+                or not float(widom[-1][2]) > 0):
+            raise AssertionError("phase 12: --widom perturbed the chain or "
+                                 "wrote no finite factors")
+        if ([r.split()[0] for r in resumed] != ["0", str(CHAIN_BLOCKS)]
+                or resumed[1:] != plain[CHAIN_BLOCKS:]):
+            raise AssertionError("phase 12: the resumed block differs from "
+                                 "the uninterrupted run's")
 
 
 def main() -> int:
@@ -1474,6 +1593,9 @@ def main() -> int:
     # ---- phases 10-11: hardware precision, the sentinel, the tools -------
     onehot = _precision_phase(spec, sysm.state, dev, gen, label)
     micro = _microbench_phase(dev, label)
+
+    # ---- phase 12: the command line with --widom, --checkpoint, --resume --
+    _chain_options_phase(label)
 
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1), k4,

@@ -21,12 +21,15 @@ Counterpart of maniac_tpu/cli.py with the same flags and output files:
                      --replicas chains -> isotherm_<RES>.dat, isotherm.dat
     --sentinel N     every N blocks, replay replica 0's block on the plain
                      path and compare (mc/driver.py::sentinel_check)
+    --widom N        N Widom ghost insertions per block per active species
+                     into replica 0 -> widom.dat (mc/widom.py; their own
+                     generator, seeded from the seed and the block)
+    --checkpoint F   write a full checkpoint (.npz, io/checkpoint.py) every
+                     block, the chain's generator state included
+    --resume F       continue from such a checkpoint
 
 With -r, insertions take their geometry from the reservoir and deletions
 push back into it; reservoir.lammpstrj is written beside the trajectory.
-
-Not ported yet (a logged abort with exit code 1): --widom, --checkpoint
-and --resume.
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ import torch
 from .utils.errors import ManiacError
 from .utils.logger import Logger
 
-_NOT_PORTED = (("widom", "--widom"), ("checkpoint", "--checkpoint"),
-               ("resume", "--resume"))
 # the JAX package's benign rate of sentinel divergences (one per ~500
 # checked blocks, maniac_tpu/cli.py); not a rate measured on this card
 SENTINEL_BENIGN_RATE = 1 / 500
@@ -67,7 +68,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--platform", choices=["cpu", "cuda"], default="cuda")
     p.add_argument("--audit", action="store_true")
     p.add_argument("--widom", type=int, default=0, metavar="N",
-                   help="not ported yet")
+                   help="N Widom ghost insertions per block per active "
+                        "species (excess chemical potential -> widom.dat)")
     p.add_argument("--profile", type=int, default=0, metavar="BINS",
                    help="per-block COM density histogram with BINS bins "
                         "per active species -> profile_<RES>.dat")
@@ -82,8 +84,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "points, --replicas chains per point -> "
                         "isotherm_<RES>.dat series + isotherm.dat summary")
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--checkpoint", default=None, help="not ported yet")
-    p.add_argument("--resume", default=None, help="not ported yet")
+    p.add_argument("--checkpoint", default=None,
+                   help="write a full checkpoint (.npz) every block")
+    p.add_argument("--resume", default=None,
+                   help="resume from a checkpoint written by --checkpoint")
     return p
 
 
@@ -125,10 +129,6 @@ def _run(args, outdir: str, logger) -> int:
     from .parallel.replicas import replicate, run_block_uniforms
     from .system import E_TOT
 
-    for name, flag in _NOT_PORTED:
-        if getattr(args, name):
-            logger.abort(f"{flag} is not ported to the torch package yet "
-                         f"(maniac_tpu.cli has it)", 1)
     device = _device(args, logger)
     dtype_name = args.dtype or ("f32" if device.type == "cuda" else "f64")
     dtype = torch.float64 if dtype_name == "f64" else torch.float32
@@ -156,9 +156,21 @@ def _run(args, outdir: str, logger) -> int:
     if args.isotherm:
         return _run_isotherm(args, outdir, logger, sysm, gen, t0)
 
+    start_block = 0
+    if args.resume:
+        from .io.checkpoint import load_checkpoint
+        try:
+            state, start_block = load_checkpoint(args.resume, spec, gen)
+        except ValueError as e:
+            logger.abort(f"--resume: {e}", 1)
+        logger.info(f"Resumed from {args.resume} at block {start_block}")
+
     replicated = args.replicas > 1
-    if replicated:
+    if replicated and state.B == 1:
         state = replicate(spec, state, args.replicas)
+    if args.resume and state.B != max(args.replicas, 1):
+        logger.abort(f"--resume: the checkpoint holds {state.B} replicas "
+                     f"and --replicas asks for {args.replicas}", 1)
     writer = OutputWriter(outdir, deck, sysm.parsed, logger)
 
     def res_snap():
@@ -178,7 +190,11 @@ def _run(args, outdir: str, logger) -> int:
     f32 = spec.dtype == torch.float32
     total_steps = 0
     sentinel_fail = 0
-    for block in range(1, deck.nb_block + 1):
+    if args.widom > 0:
+        from .mc.widom import widom_block, widom_factor, widom_generator
+        widom_sum = np.zeros(len(act_names))
+        widom_blocks = 0
+    for block in range(start_block + 1, deck.nb_block + 1):
         # the block's uniforms are drawn here, as run_block_replicated and
         # run_block draw them, so that --sentinel can replay them
         u = draw_uniforms(spec, state.B, deck.nb_step, gen)
@@ -227,10 +243,24 @@ def _run(args, outdir: str, logger) -> int:
         if args.profile > 0:
             writer.write_profile(snap, block, args.profile,
                                  args.profile_axis)
+        if args.widom > 0:
+            # ghosts in replica 0's current (refreshed) configuration, drawn
+            # from a generator of the block's own: the chain's is not
+            # advanced, so the diagnostic never perturbs the trajectory
+            B_blk = widom_factor(widom_block(
+                spec, state, args.widom,
+                generator=widom_generator(seed, block, device)))
+            widom_sum += B_blk
+            widom_blocks += 1
+            writer.write_widom(block, act_names, B_blk,
+                               widom_sum / widom_blocks, float(spec.temp_K))
         if args.audit and not replicated:
             rep = drift_report(spec, state)
             logger.log(f"  audit: |E_running - E_fresh| = "
                        f"{rep['drift_K']:.3e} K")
+        if args.checkpoint:
+            from .io.checkpoint import save_checkpoint
+            save_checkpoint(args.checkpoint, spec, state, block, gen)
 
     elapsed = time.time() - t0
     snap = snapshot(spec, state)
@@ -243,7 +273,9 @@ def _run(args, outdir: str, logger) -> int:
             logger.log(f"  replica <N({name})> = {n[:, r].mean():.3f}"
                        f" +- {n[:, r].std():.3f}")
     if args.sentinel > 0:
-        checked = deck.nb_block // args.sentinel
+        # multiples of N in (start_block, nb_block]
+        checked = (deck.nb_block // args.sentinel
+                   - start_block // args.sentinel)
         expected = checked * SENTINEL_BENIGN_RATE
         logger.log(f"  sentinel: {checked} cross-checked blocks, "
                    f"{sentinel_fail} divergences (~{expected:.2f} benign "
@@ -291,8 +323,10 @@ def _run_isotherm(args, outdir: str, logger, sysm, gen, t0: float) -> int:
                          f"fugacity, and {deck.residues[r].name} has "
                          f"fugacity {deck.residues[r].fugacity} in the deck",
                          1)
-    for flag, name in ((args.sentinel, "--sentinel"), (args.audit, "--audit"),
-                       (args.profile, "--profile")):
+    for flag, name in ((args.resume, "--resume"),
+                       (args.checkpoint, "--checkpoint"),
+                       (args.widom, "--widom"), (args.sentinel, "--sentinel"),
+                       (args.audit, "--audit"), (args.profile, "--profile")):
         if flag:
             logger.warn(f"{name} is ignored in --isotherm mode (the sweep "
                         f"is a self-contained batched run)")

@@ -9,11 +9,10 @@ keep working (reference: src/write_utils.f90):
 * ``number_<RES>.dat`` - per active species population series
 * ``moves.dat`` - trial/accepted counts per move type
 * ``topology.data`` - full restart-capable LAMMPS data file
+* ``widom.dat`` - the Widom insertion factors and mu_ex, with ``--widom``
 
 Counterpart of maniac_tpu/io/writers.py, line for line the same formats;
-``snapshot`` reads one replica of a batched torch state to the host. Not
-ported yet: the Widom table (its command line option ``--widom`` is not
-ported).
+``snapshot`` reads one replica of a batched torch state to the host.
 
 Documented divergences:
 * The reference writes the current *input* nb_block as every frame's
@@ -177,6 +176,38 @@ class OutputWriter:
                     f"{c[0, TYPE_DELETION]:12d} {c[1, TYPE_DELETION]:12d} "
                     f"{c[0, TYPE_ROTATION]:12d} {c[1, TYPE_ROTATION]:12d} "
                     f"{c[0, TYPE_SWAP]:12d} {c[1, TYPE_SWAP]:12d}\n")
+
+    # --- Widom insertion diagnostic (extension; no reference analog - see
+    # mc/widom.py) -----------------------------------------------------------
+    def write_widom(self, block: int, names, B_block, B_cum,
+                    temp_K: float) -> None:
+        """Append one widom.dat row: per active species the block's Widom
+        factor <exp(-dU/T)>, the cumulative factor, and mu_ex (kcal/mol)
+        from the cumulative factor."""
+        from ..mc.widom import mu_excess_K
+        path = os.path.join(self.outdir, "widom.dat")
+        # a header when the file does not exist yet (also a resumed run into
+        # a fresh outdir); resuming IN PLACE appends a marker row instead,
+        # because the B_cum accumulator restarts from zero at the resume
+        # point and the series would otherwise read as continuous
+        first = block <= 1 or not os.path.exists(path)
+        resumed_in_place = (not first
+                            and not getattr(self, "_widom_started", False))
+        self._widom_started = True
+        with open(path, "w" if first else "a") as f:
+            if first:
+                cols = "".join(
+                    f"   B_block({n})      B_cum({n})   mu_ex({n})[kcal/mol]"
+                    for n in names)
+                f.write(f"#    block{cols}\n")
+            elif resumed_in_place:
+                f.write(f"# resumed at block {block}: B_cum restarts here\n")
+            row = f"{block:10d}"
+            for j in range(len(names)):
+                mu = mu_excess_K(B_cum[j], temp_K) * KB_KCALMOL
+                row += (f" {float(B_block[j]):14.6e} {float(B_cum[j]):14.6e}"
+                        f" {mu:14.6f}")
+            f.write(row + "\n")
 
     def write_replicas(self, block: int, names, mean_n, std_n,
                        mean_e, std_e) -> None:

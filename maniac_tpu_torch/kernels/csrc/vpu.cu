@@ -1,5 +1,5 @@
 // Micro-benchmarks of the f32 primitives the pair and framework passes are
-// built from.
+// built from, and the exhaustive check of the branch-free primitives.
 //
 // Replaces the two Pallas kernels of tools/vpu_bench.py:
 //   K7 `kernel` (:57, launched by run at :63, pallas_call :67): n
@@ -15,10 +15,16 @@
 // Bound on the H100: operations (n dependent ops per element against one
 // read and one write of the plane; transcendentals run on the SFU, 16
 // results per SM and clock against 128 FMAs, which the bound, counting
-// each as one operation, does not see). Design: one thread per element, the op chain
-// in registers; the ops are a template parameter, so each instantiation
-// is the bare chain.
+// each as one operation, does not see). K7's design: one thread per
+// element, the op chain in registers; the ops are a template parameter, so
+// each instantiation is the bare chain. Its reciprocal, root and
+// reciprocal root are prims.cuh's branch-free forms (the same bits on the
+// values the chain reaches: kernels/vpu.py vpu_chain states the range), so
+// the issue floor, not a branch region an op, sets its pace. One element a
+// thread in CTAs of 256: 128 and 512 threads, two elements a thread and a
+// grid that gives every SM the same elements were no faster (PERF.md).
 #include "common.cuh"
+#include "prims.cuh"
 
 namespace {
 
@@ -27,9 +33,12 @@ enum VpuOp { V_FMA, V_MUL2, V_DIV, V_RSQRT, V_SQRT, V_EXP, V_ROUND, V_CMPSEL,
              V_ERFC, V_COUNT };
 
 // the erfc cost probe of tools/vpu_bench.py:46-53, as written there: the
-// A&S 7.1.26 coefficients applied highest power first (not erfc)
+// A&S 7.1.26 coefficients applied highest power first (not erfc); K7 takes
+// the reciprocal branch-free (prim_rcp), K8 as 1.f / d
+template <bool BRANCH_FREE>
 __device__ __forceinline__ float erfc_probe(float x) {
-  const float t = 1.f / (1.f + 0.3275911f * x);
+  const float d = 1.f + 0.3275911f * x;
+  const float t = BRANCH_FREE ? prim_rcp(d) : 1.f / d;
   float acc = 0.254829592f;
   acc = acc * t + -0.284496736f;
   acc = acc * t + 1.421413741f;
@@ -42,13 +51,13 @@ template <int OP>
 __device__ __forceinline__ float apply_op(float x) {
   if constexpr (OP == V_FMA) return fmaf(x, 1.000001f, 1e-6f);
   if constexpr (OP == V_MUL2) return (x * 1.000001f) * 0.999999f;
-  if constexpr (OP == V_DIV) return 1.f / (x + 1.f);
-  if constexpr (OP == V_RSQRT) return rsqrtf(x + 1.f);
-  if constexpr (OP == V_SQRT) return sqrtf(x + 1.f);
+  if constexpr (OP == V_DIV) return prim_rcp(x + 1.f);
+  if constexpr (OP == V_RSQRT) return prim_rsqrt(x + 1.f);
+  if constexpr (OP == V_SQRT) return prim_sqrt(x + 1.f);
   if constexpr (OP == V_EXP) return expf(-x);
   if constexpr (OP == V_ROUND) return x - rintf(x * 0.3f);
   if constexpr (OP == V_CMPSEL) return x > 0.5f ? x * 0.999f : x * 1.001f;
-  if constexpr (OP == V_ERFC) return erfc_probe(x);
+  if constexpr (OP == V_ERFC) return erfc_probe<true>(x);
   return x;
 }
 
@@ -125,7 +134,7 @@ __device__ __forceinline__ float cpass_term(float x, float y, float z,
                                    __fmul_rn(dz, dz)), 1e-18f);
   const float inv_r = rsqrtf(r2);
   const float xab = a2 * (r2 * inv_r);
-  const float e = erfc_probe(xab);
+  const float e = erfc_probe<false>(xab);
   const float coulf = w * qi * e * inv_r;
   return r2 < rc2 ? coulf : 0.f;
 }
@@ -174,6 +183,85 @@ __global__ void __launch_bounds__(THREADS) cpass_kernel(CpassArgs a) {
 
 enum CpassPtr { KP_PX, KP_PY, KP_PZ, KP_Q, KP_ROWS, KP_OUT, KP_COUNT };
 enum CpassInt { KI_R, KI_C, KI_N, KI_TRANSPOSED, KI_COUNT };
+
+// The exhaustive check of prims.cuh: the f32 bit patterns lo, lo + stride,
+// ... (count of them, positive floats, so the order of the patterns is the
+// order of the values) through a branch-free primitive and the expression
+// it replaces, as nvcc builds the latter for the kernels. A grid-strided
+// loop a thread, the thread's tallies reduced over its warp, one atomic a
+// warp. Bound: operations (the two sides and the compare a value).
+enum PrimId { PR_RCP, PR_SQRT, PR_RSQRT, PR_COUNT };
+constexpr unsigned ONE_BITS = 0x3f800000u;   // 1.0f
+constexpr int CHECK_CTAS = 1056;             // 8 CTAs of 256 an SM
+
+template <int P>
+__device__ __forceinline__ void prim_pair(float y, float& a, float& b) {
+  if constexpr (P == PR_RCP) {
+    a = prim_rcp(y);
+    b = 1.f / y;
+  }
+  if constexpr (P == PR_SQRT) {
+    a = prim_sqrt(y);
+    b = sqrtf(y);
+  }
+  if constexpr (P == PR_RSQRT) {
+    a = prim_rsqrt(y);
+    b = rsqrtf(y);
+  }
+}
+
+// out: [mismatches, values checked, the largest mismatching pattern below
+// 1.0f, the smallest at or above it]; the wrapper sets [0, 0, 0,
+// 0xffffffff]
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+prim_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
+                  unsigned long long* __restrict__ out) {
+  unsigned long long bad = 0, seen = 0;
+  unsigned below = 0u, above = 0xffffffffu;
+  const unsigned long long step =
+      (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long k =
+           (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
+       k < count; k += step) {
+    const unsigned bits = lo + (unsigned)(k * stride);
+    float a, b;
+    prim_pair<P>(__uint_as_float(bits), a, b);
+    ++seen;
+    if (__float_as_uint(a) != __float_as_uint(b)) {
+      ++bad;
+      if (bits < ONE_BITS)
+        below = max(below, bits);
+      else
+        above = min(above, bits);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    bad += __shfl_down_sync(0xffffffffu, bad, o);
+    seen += __shfl_down_sync(0xffffffffu, seen, o);
+    below = max(below, __shfl_down_sync(0xffffffffu, below, o));
+    above = min(above, __shfl_down_sync(0xffffffffu, above, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&out[0], bad);
+    atomicAdd(&out[1], seen);
+    if (below != 0u) atomicMax(&out[2], (unsigned long long)below);
+    if (above != 0xffffffffu) atomicMin(&out[3], (unsigned long long)above);
+  }
+}
+
+enum CheckPtr { QP_OUT, QP_COUNT };
+enum CheckInt { QI_PRIM, QI_LO, QI_VALUES, QI_STRIDE, QI_COUNT };
+
+template <int P>
+int launch_check(unsigned lo, unsigned long long count, unsigned stride,
+                 unsigned long long* out, cudaStream_t s) {
+  const unsigned long long need = (count + THREADS - 1) / THREADS;
+  const int blocks = need < CHECK_CTAS ? (int)need : CHECK_CTAS;
+  prim_check_kernel<P><<<blocks, THREADS, 0, s>>>(lo, count, stride, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -227,4 +315,24 @@ extern "C" int cpass_launch(void* const* ptrs, int nptr, const int* ints,
   else
     cpass_kernel<false><<<blocks, THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+extern "C" int prim_check_launch(void* const* ptrs, int nptr, const int* ints,
+                                 int nint, const float* floats, int nfloat,
+                                 void* stream) {
+  (void)floats;
+  if (nptr != QP_COUNT || nint != QI_COUNT || nfloat != 0)
+    return MANIAC_ERR_TABLES;
+  const int lo = ints[QI_LO], count = ints[QI_VALUES];
+  const int stride = ints[QI_STRIDE];
+  if (lo < 0 || count < 1 || stride < 1) return MANIAC_ERR_SHAPE;
+  auto* out = static_cast<unsigned long long*>(ptrs[QP_OUT]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned l = (unsigned)lo, st = (unsigned)stride;
+  switch (ints[QI_PRIM]) {
+    case PR_RCP: return launch_check<PR_RCP>(l, count, st, out, s);
+    case PR_SQRT: return launch_check<PR_SQRT>(l, count, st, out, s);
+    case PR_RSQRT: return launch_check<PR_RSQRT>(l, count, st, out, s);
+    default: return MANIAC_ERR_SHAPE;
+  }
 }

@@ -4,7 +4,10 @@ block and step kernels are built from).
 
 ``vpu_chain`` replaces tools/vpu_bench.py::run's Pallas kernel
 (``kernel``): n loop-carried applications of one op of ``VPU_OPS`` to every
-element of a plane. ``cpass`` replaces tools/vpu_bench.py::run_cpass's
+element of a plane; its reciprocal, root and reciprocal root are the
+branch-free primitives of csrc/prims.cuh, which ``prim_check`` holds bit
+for bit to the expressions they replace over their domains
+(``PRIM_DOMAINS``). ``cpass`` replaces tools/vpu_bench.py::run_cpass's
 kernel (``kern``): n passes of the framework Coulomb plane math, with the
 per-row scalars from column 0 of the planes or, ``transposed``, from a
 (4, R) table. For CUDA tensors both launch csrc/vpu.cu; for CPU tensors
@@ -71,7 +74,14 @@ def vpu_chain_plain(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
 
 
 def vpu_chain(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
-    """op (one of VPU_OPS) applied n times to every element of x (f32)."""
+    """op (one of VPU_OPS) applied n times to every element of x (f32).
+
+    For elements in [0, 2^64] every input the chain gives a primitive of
+    csrc/prims.cuh stays inside its domain (PRIM_DOMAINS) for any n: the
+    kernel then gives the bits of the chain with the expressions the
+    primitives replace (div, rsqrt and sqrt take x + 1 >= 1, and their
+    results stay at or above 0; erfc's reciprocal takes 1 + 0.3275911 x,
+    and the probe's value lies in [0, 1.07])."""
     if op not in VPU_OPS:
         raise ValueError(f"unknown op {op!r} (one of {', '.join(VPU_OPS)})")
     if x.device.type == "cpu":
@@ -85,6 +95,112 @@ def vpu_chain(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
 
 
 vpu_chain.launches = 0
+
+
+# the branch-free primitives of csrc/prims.cuh, in vpu.cu's PrimId order,
+# with the domain each keeps the bits of its expression on (prims.cuh
+# states the same bounds)
+PRIMS = ("rcp", "sqrt", "rsqrt")
+PRIM_DOMAINS = {
+    "rcp": (float.fromhex("0x1p-126"), float.fromhex("0x1p+126")),
+    "sqrt": (float.fromhex("0x1p-102"), float.fromhex("0x1.fffffep+127")),
+    "rsqrt": (float.fromhex("0x1p-126"), float.fromhex("0x1.fffffep+127")),
+}
+_ONE_BITS = 0x3F800000
+_NO_BELOW, _NO_ABOVE = 0, 0xFFFFFFFF
+
+
+def f32_bits(v: float) -> int:
+    """The bit pattern of v rounded to f32."""
+    return int(np.float32(v).view(np.uint32))
+
+
+def _check_span(name: str, lo, hi, stride: int) -> tuple[int, int]:
+    """(first bit pattern, count of patterns) of the scan lo, lo + stride,
+    ..., <= hi over positive f32 values (default: the primitive's
+    domain)."""
+    if name not in PRIMS:
+        raise ValueError(f"unknown primitive {name!r} (one of "
+                         f"{', '.join(PRIMS)})")
+    d_lo, d_hi = PRIM_DOMAINS[name]
+    lo_b = f32_bits(d_lo if lo is None else lo)
+    hi_b = f32_bits(d_hi if hi is None else hi)
+    if not (0 <= lo_b <= hi_b < 0x7F800000 and stride >= 1):
+        raise ValueError(f"{name}: the scan must cover positive finite "
+                         f"floats, lo <= hi, stride >= 1")
+    return lo_b, (hi_b - lo_b) // stride + 1
+
+
+def _check_result(vals) -> dict:
+    bad, seen, below, above = (int(v) for v in vals)
+    return {"mismatches": bad, "checked": seen,
+            "below": None if below == _NO_BELOW else below,
+            "above": None if above == _NO_ABOVE else above}
+
+
+def prim_check_plain(name: str, lo=None, hi=None, stride: int = 1,
+                     device="cpu", chunk: int = 1 << 24) -> dict:
+    """Plain torch version of ``prim_check``. torch has no branch-free
+    form, so its two sides are the correctly rounded value (computed in
+    f64, then rounded to f32: exact for a reciprocal and a root of an f32,
+    whose f64 result is never an f32 rounding midpoint) and the f32
+    expression; rsqrt, an approximation, is the f32 expression both
+    sides."""
+    lo_b, count = _check_span(name, lo, hi, stride)
+    bad = 0
+    below, above = _NO_BELOW, _NO_ABOVE
+    for k0 in range(0, count, chunk):
+        bits = (lo_b + stride * torch.arange(
+            k0, min(count, k0 + chunk), dtype=torch.int64,
+            device=device)).to(torch.int32)
+        y = bits.view(torch.float32)
+        if name == "rcp":
+            a, b = (1.0 / y.double()).float(), 1.0 / y
+        elif name == "sqrt":
+            a, b = torch.sqrt(y.double()).float(), torch.sqrt(y)
+        else:
+            a = b = torch.rsqrt(y)
+        miss = bits[a.view(torch.int32) != b.view(torch.int32)].to(
+            torch.int64)
+        bad += int(miss.numel())
+        lo_miss, hi_miss = miss[miss < _ONE_BITS], miss[miss >= _ONE_BITS]
+        if lo_miss.numel():
+            below = max(below, int(lo_miss.max()))
+        if hi_miss.numel():
+            above = min(above, int(hi_miss.min()))
+    return _check_result((bad, count, below, above))
+
+
+def _prim_check_launch(name: str, out: torch.Tensor, lo, hi,
+                       stride: int) -> None:
+    """Launch csrc/vpu.cu's prim_check_kernel over the scan into ``out``
+    (four int64: the kernel's tallies, set as prim_check sets them)."""
+    lo_b, count = _check_span(name, lo, hi, stride)
+    build.launch("prim_check_launch", [out.data_ptr()],
+                 [PRIMS.index(name), lo_b, count, stride], [])
+
+
+def prim_check(name: str, device, lo=None, hi=None,
+               stride: int = 1) -> dict:
+    """The exhaustive check of csrc/prims.cuh's primitive ``name`` (one of
+    PRIMS): every positive f32 bit pattern lo, lo + stride, ... up to hi
+    (default: the primitive's domain, PRIM_DOMAINS) through the primitive
+    and the expression it replaces (1.f / y, sqrtf, rsqrtf as nvcc builds
+    them for the kernels). Returns {"mismatches", "checked", "below" (the
+    largest mismatching pattern under 1.0, or None), "above" (the smallest
+    at or over it, or None)}. On a CUDA device it launches csrc/vpu.cu's
+    prim_check_kernel; on the CPU it runs prim_check_plain."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return prim_check_plain(name, lo, hi, stride)
+    out = torch.tensor([0, 0, _NO_BELOW, _NO_ABOVE], dtype=torch.int64,
+                       device=device)
+    _prim_check_launch(name, out, lo, hi, stride)
+    prim_check.launches += 1
+    return _check_result(out.tolist())
+
+
+prim_check.launches = 0
 
 
 def _offset(i: int) -> float:

@@ -334,6 +334,14 @@ def _state_from_arrays(arrays: dict) -> SimState:
     return SimState(**kw)
 
 
+def state_from_numpy(state_arrays: dict, *, device, dtype) -> SimState:
+    """SimState leaves (numpy arrays keyed by field name) -> the port's
+    SimState on ``device``, floating fields in ``dtype``. Leaves the port
+    does not keep (the JAX PRNG key) are ignored; a single-chain state gains
+    B = 1."""
+    return to_device(_state_from_arrays(state_arrays), device, dtype)
+
+
 def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
     """JAX SystemSpec/SimState leaves (numpy arrays and meta values keyed by
     field name) -> the port's (SystemSpec, SimState) on ``device``.
@@ -341,8 +349,8 @@ def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
     Leaves the port does not keep (TPU window tables, the PRNG key) are
     ignored; a single-chain state gains B = 1."""
     spec = _spec_from_leaves(spec_arrays)
-    state = _state_from_arrays(state_arrays)
-    return to_device(spec, device, dtype), to_device(state, device, dtype)
+    return (to_device(spec, device, dtype),
+            state_from_numpy(state_arrays, device=device, dtype=dtype))
 
 
 def convert_fugacity(fugacity_atm: float, temp_K: float) -> float:

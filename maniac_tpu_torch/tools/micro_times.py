@@ -3,6 +3,7 @@
 package are timed alike.
 
     python -m maniac_tpu_torch.tools.micro_times [--reps 20] [--sass DIR]
+        [--kernels K6 K7 K8] [--prims]
 
 At the JAX tools' default shapes (K6: G 64, 47 x 128 sites, FL 2, FQ 6,
 100 steps, tools/gpass_bench.inputs; K7 and K8: (128, 1280) planes,
@@ -14,13 +15,21 @@ enqueues them); device-paced times are the smallest of three passes
 timed device-paced at twice the work (200 steps; n 1024), with the ratio,
 which is near 2 when every step and iteration is computed (GROWTH_MIN is
 the least chip_smoke.py accepts). ``--sass DIR`` writes
-``cuobjdump -sass`` of the K6 and K8 kernels into DIR and prints, for
-each innermost loop, its instructions a pair by class (FP32 pipe, MUFU,
-conversions, integer and the rest; the out-of-line slow paths that
-normal operands never run left out) and the issue-slot floor they give
-at 128 instructions and 16 MUFU or conversion results per SM a clock.
-It also reads the SM clock and power draw while K6 runs. A run that
-builds the library prints the K6 and K8 kernels' registers and spills.
+``cuobjdump -sass`` of the K6, K7 and K8 kernels into DIR and prints,
+for each innermost loop, its instructions a pair (K7: an application of
+the op) by class (FP32 pipe, MUFU, conversions, integer and the rest; the
+out-of-line slow paths that normal operands never run left out) and the
+issue-slot floor they give at 128 instructions and 16 MUFU or conversion
+results per SM a clock; for K7's nine chains also the pass's floor in ms
+(an application's floor times the plane's element-ops over the SMs, at
+the card's maximum SM clock) and the share of it the device-paced time
+reaches. When it times K6 it also reads the SM clock and power draw
+while K6 runs. A run that builds the library prints the K6 and
+K8 kernels' registers and spills. ``--kernels`` times only the kernels
+named. ``--prims`` runs the exhaustive check of csrc/prims.cuh's
+primitives (kernels/vpu.prim_check) over each stated domain and over
+every positive finite float, and prints the widest interval around 1
+with no mismatch.
 
 The file imports only what the package has had since K6-K8 were ported
 and kernel_times.device_ms, so a copy of it in an earlier tree times that
@@ -79,14 +88,16 @@ def _k8(dev):
         vpu_bench.N
 
 
-def kernel_times(dev, reps: int, label: str) -> None:
-    """K6, K8 and K7 at the tools' default shapes, both ways, and the
-    growth at twice the work."""
+def kernel_times(dev, reps: int, label: str,
+                 kernels=("K6", "K7", "K8")) -> dict:
+    """K6, K8 and K7 (those named) at the tools' default shapes, both
+    ways, and the growth at twice the work. Returns K7's device-paced ms
+    by op."""
     from ..kernels.gpass import GPASS_VARIANTS, gpass
     from ..kernels.vpu import VPU_OPS, cpass, vpu_chain
     from . import vpu_bench
     ins, n_steps, fq = _k6(dev)
-    for v in GPASS_VARIANTS:
+    for v in GPASS_VARIANTS if "K6" in kernels else ():
         dms = device_min_ms(lambda: gpass(*ins, n_steps, fq, v), reps)
         hms = cuda_ms(lambda: gpass(*ins, n_steps, fq, v), reps)
         line = f"K6 gpass {v:7s} device {dms:.4f} ms, host {hms:.4f} ms"
@@ -96,7 +107,7 @@ def kernel_times(dev, reps: int, label: str) -> None:
             line += f"; {2 * n_steps} steps {b:.4f} ms, x{ratio:.3f}"
         print(f"{line} ({label})", flush=True)
     cins, n = _k8(dev)
-    for name in CPASS_FORMS:
+    for name in CPASS_FORMS if "K8" in kernels else ():
         tr = name == "cpassT"
         dms = device_min_ms(lambda: cpass(*cins, n, tr), reps)
         hms = cuda_ms(lambda: cpass(*cins, n, tr), reps)
@@ -104,11 +115,13 @@ def kernel_times(dev, reps: int, label: str) -> None:
         print(f"K8 {name:6s} device {dms:.4f} ms, host {hms:.4f} ms; n "
               f"{2 * n} {b:.4f} ms, x{ratio:.3f} ({label})", flush=True)
     x = vpu_bench.plane(vpu_bench.ROWS, vpu_bench.COLS, dev)
-    for op in VPU_OPS:
-        dms = device_min_ms(lambda: vpu_chain(x, op, n), reps)
+    k7 = {}
+    for op in VPU_OPS if "K7" in kernels else ():
+        dms = k7[op] = device_min_ms(lambda: vpu_chain(x, op, n), reps)
         hms = cuda_ms(lambda: vpu_chain(x, op, n), reps)
         print(f"K7 {op:6s} device {dms:.4f} ms, host {hms:.4f} ms "
               f"({label})", flush=True)
+    return k7
 
 
 def clock_under_load(dev, seconds: float = 1.5) -> str:
@@ -237,21 +250,43 @@ def innermost_loops(insns) -> list:
             for s, e in sorted(set(inner))]
 
 
-def loop_mix(ops: collections.Counter) -> tuple[int, dict, float]:
-    """(pairs in the loop body: its MUFU.RSQ, else its MUFU.RCP; the
-    instructions a pair by class; the issue-slot floor in SM clocks a
-    pair: the larger of all instructions over 128 and the MUFU and
-    conversion results over 16)."""
-    pairs = ops.get("MUFU.RSQ", 0) or ops.get("MUFU.RCP", 0)
-    if not pairs:
+def _mix(ops: collections.Counter, units: int) -> tuple[int, dict, float]:
+    """(units; the loop's instructions a unit by class; the issue-slot
+    floor in SM clocks a unit: the larger of all instructions over 128 and
+    the MUFU and conversion results over 16)."""
+    if not units:
         return 0, {}, 0.0
     mix = collections.Counter()
     for op, k in ops.items():
         mix[_classify(op)] += k
-    per = {c: k / pairs for c, k in sorted(mix.items())}
+    per = {c: k / units for c, k in sorted(mix.items())}
     total = sum(per.values())
     slow = per.get("mufu", 0.0) + per.get("conversion", 0.0)
-    return pairs, per, max(total / 128.0, slow / 16.0)
+    return units, per, max(total / 128.0, slow / 16.0)
+
+
+def loop_mix(ops: collections.Counter) -> tuple[int, dict, float]:
+    """_mix a pair (K6, K8): the pairs in the loop body are its MUFU.RSQ,
+    else its MUFU.RCP."""
+    return _mix(ops, ops.get("MUFU.RSQ", 0) or ops.get("MUFU.RCP", 0))
+
+
+# K7: the instruction that marks one application of each chained op in its
+# loop, and how many of it an application issues
+CHAIN_MARK = {"fma": ("FFMA", 1), "mul2": ("FMUL", 2),
+              "div": ("MUFU.RCP", 1), "rsqrt": ("MUFU.RSQ", 1),
+              "sqrt": ("MUFU.RSQ", 1), "exp": ("MUFU.EX2", 1),
+              "round": ("FRND", 1), "cmpsel": ("FSETP", 1),
+              "erfc": ("MUFU.EX2", 1)}
+
+
+def chain_mix(ops: collections.Counter, op: str) -> tuple[int, dict, float]:
+    """_mix an application of K7's op: the applications in the loop body
+    are its marks (CHAIN_MARK) over the marks an application issues."""
+    mark, per_app = CHAIN_MARK[op]
+    marks = sum(k for o, k in ops.items()
+                if o == mark or o.startswith(mark + "."))
+    return _mix(ops, marks // per_app)
 
 
 def _cuobjdump() -> str:
@@ -277,9 +312,19 @@ def registers(log: str) -> None:
                   f"spilled", flush=True)
 
 
-def sass_report(out_dir: str) -> None:
-    """cuobjdump -sass of the K6 and K8 kernels into out_dir, and each
-    innermost loop's mix a pair."""
+def chain_op(fn: str):
+    """The VPU_OPS name of a chain_kernel<OP> instantiation, or None."""
+    from ..kernels.vpu import VPU_OPS
+    m = re.search(r"chain_kernelILi(\d+)E", fn)
+    return VPU_OPS[int(m.group(1))] if m else None
+
+
+def sass_report(out_dir: str) -> dict:
+    """cuobjdump -sass of the K6, K7 and K8 kernels into out_dir, each
+    innermost loop's mix a pair, and K7's an application. Returns {op: (the
+    loop's instructions an application, the issue floor in SM clocks an
+    application)} for K7's chains (their loop of the most
+    applications)."""
     from ..kernels import build
     text = subprocess.run(
         [_cuobjdump(), "-sass", str(build.library_path())],
@@ -287,12 +332,15 @@ def sass_report(out_dir: str) -> None:
     d = Path(out_dir)
     d.mkdir(parents=True, exist_ok=True)
     funcs = parse_sass(text)
-    keep = [f for f in funcs if "cpass_kernel" in f or "gpass_kernel" in f]
+    chains = {chain_op(f): f for f in funcs if chain_op(f)}
+    pair_fns = [f for f in funcs
+                if "cpass_kernel" in f or "gpass_kernel" in f]
+    keep = pair_fns + list(chains.values())
     blocks = text.split("Function : ")
     (d / "micro_kernels.sass").write_text("".join(
         "Function : " + b for b in blocks[1:]
         if any(b.startswith(f) for f in keep)))
-    for fn in keep:
+    for fn in pair_fns:
         for start, end, ops in innermost_loops(funcs[fn]):
             pairs, per, floor = loop_mix(ops)
             if not pairs:
@@ -304,6 +352,61 @@ def sass_report(out_dir: str) -> None:
                                          for c, v in per.items())
                   + f"; slow ops {mufu}; issue floor {floor:.4f} SM "
                     f"clocks a pair", flush=True)
+    k7 = {}
+    for op, fn in chains.items():
+        loops = [(chain_mix(ops, op), s0, e0, ops)
+                 for s0, e0, ops in innermost_loops(funcs[fn])]
+        if not loops:
+            continue
+        (apps, per, floor), start, end, ops = max(loops,
+                                                  key=lambda t: t[0][0])
+        if not apps:
+            continue
+        slow = {o: k for o, k in sorted(ops.items())
+                if o.split(".")[0] in SLOW}
+        total = sum(per.values())
+        k7[op] = (total, floor)
+        print(f"sass K7 {op} loop 0x{start:x}-0x{end:x}: {apps} "
+              f"applications, an application " + ", ".join(
+                  f"{c} {v:.2f}" for c, v in per.items())
+              + f"; slow ops {slow}; {total:.2f} instructions, issue floor "
+                f"{floor:.4f} SM clocks an application", flush=True)
+    return k7
+
+
+def chain_floor_ms(clocks: float, elem_ops: int, sms: int,
+                   sm_mhz: float) -> float:
+    """A K7 pass's issue floor in ms: ``clocks`` SM clocks an application
+    times the pass's element-ops, spread over ``sms`` SMs at ``sm_mhz``."""
+    return clocks * elem_ops / sms / (sm_mhz * 1e3)
+
+
+def _hexf(bits: int) -> str:
+    import numpy as np
+    return float(np.uint32(bits).view(np.float32)).hex()
+
+
+def prims_report(dev, label: str) -> None:
+    """The exhaustive check of each primitive over its domain
+    (PRIM_DOMAINS) and over every positive finite float, timed (CUDA
+    events, one call), with the widest interval around 1 free of
+    mismatches."""
+    from ..kernels.vpu import PRIM_DOMAINS, PRIMS, prim_check
+    tiny, big = float.fromhex("0x1p-149"), float.fromhex("0x1.fffffep+127")
+    for name in PRIMS:
+        lo, hi = PRIM_DOMAINS[name]
+        dom = prim_check(name, dev)
+        ms = cuda_ms(lambda: prim_check(name, dev), 1)
+        full = prim_check(name, dev, tiny, big)
+        below = full["below"] + 1 if full["below"] is not None else 1
+        above = (full["above"] - 1 if full["above"] is not None
+                 else 0x7F7FFFFF)
+        print(f"prims {name}: domain [{lo.hex()}, {hi.hex()}] "
+              f"{dom['mismatches']} mismatches of {dom['checked']} values "
+              f"in {ms:.3f} ms; all positive finite floats "
+              f"{full['mismatches']} mismatches of {full['checked']}, the "
+              f"widest interval around 1 without one [{_hexf(below)}, "
+              f"{_hexf(above)}] ({label})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -312,8 +415,12 @@ def main(argv=None) -> int:
         description="K6-K8 on the card, device- and host-paced")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sass", metavar="DIR",
-                    help="write the K6 and K8 kernels' SASS into DIR and "
-                         "print their loops' instruction mix")
+                    help="write the K6, K7 and K8 kernels' SASS into DIR "
+                         "and print their loops' instruction mix")
+    ap.add_argument("--kernels", nargs="+", choices=("K6", "K7", "K8"),
+                    default=("K6", "K7", "K8"), help="time only these")
+    ap.add_argument("--prims", action="store_true",
+                    help="check csrc/prims.cuh's primitives exhaustively")
     args = ap.parse_args(argv)
     if not require_cuda("micro_times"):
         return 1
@@ -326,11 +433,25 @@ def main(argv=None) -> int:
     print(f"# device: {label}; SM clock, max: {clocks.strip()}", flush=True)
     build.library()
     registers(build.build_log)    # empty when the build was cached
-    kernel_times(dev, args.reps, label)
-    print(f"# SM clock, power draw under K6 cur: {clock_under_load(dev)}",
-          flush=True)
+    if args.prims:
+        prims_report(dev, label)
+    k7 = kernel_times(dev, args.reps, label, args.kernels)
+    if "K6" in args.kernels:
+        print(f"# SM clock, power draw under K6 cur: "
+              f"{clock_under_load(dev)}", flush=True)
     if args.sass:
-        sass_report(args.sass)
+        from . import vpu_bench
+        floors = sass_report(args.sass)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        mhz = float(clocks.split(",")[1].split()[0])
+        elem_ops = vpu_bench.ROWS * vpu_bench.COLS * vpu_bench.N
+        for op, (insns, floor) in floors.items():
+            fms = chain_floor_ms(floor, elem_ops, sms, mhz)
+            share = (f", {fms / k7[op]:.1%} of it reached ({k7[op]:.4f} ms)"
+                     if op in k7 else "")
+            print(f"K7 {op:6s} {insns:.2f} instructions an application, "
+                  f"issue floor {fms:.4f} ms at {mhz:g} MHz on {sms} "
+                  f"SMs{share} ({label})", flush=True)
     return 0
 
 

@@ -77,16 +77,10 @@ def test_cli_error_contract(tmp_path):
     assert "ERROR" in log or "Error" in log
 
 
-def test_cli_not_ported_and_missing_cuda(tmp_path):
-    """Options not ported abort with exit 1 and a logged message; the
-    default --platform cuda on a machine without a CUDA device is an error,
-    never a run on the CPU."""
+def test_cli_without_cuda_is_an_error(tmp_path):
+    """The default --platform cuda on a machine without a CUDA device is an
+    error (exit 1, a logged message), never a run on the CPU."""
     d = make_water_box(str(tmp_path / "sys"))
-    for i, extra in enumerate((["--widom", "4"], ["--checkpoint", "x.npz"],
-                               ["--resume", "x.npz"])):
-        out = str(tmp_path / f"out{i}")
-        assert cli_main(_flags(d, out, "--platform", "cpu", *extra)) == 1
-        assert "not ported" in open(f"{out}/log.maniac").read()
     if not torch.cuda.is_available():
         out = str(tmp_path / "out_cuda")
         assert cli_main(_flags(d, out)) == 1

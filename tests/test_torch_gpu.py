@@ -21,9 +21,10 @@ from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, GPASS_VARIANTS,
 from maniac_tpu_torch.kernels.hwprobe import onehot_product
 from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
 from maniac_tpu_torch.kernels.stepg import run_steps_kernel
-from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, VPU_OPS, VPU_RTOL,
-                                          cpass, cpass_plain, vpu_chain,
-                                          vpu_chain_plain)
+from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS, PRIMS,
+                                          VPU_OPS, VPU_RTOL, cpass,
+                                          cpass_plain, f32_bits, prim_check,
+                                          vpu_chain, vpu_chain_plain)
 from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                         steps_plain)
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
@@ -412,6 +413,33 @@ def test_vpu_chain_kernel_matches_plain(op):
     assert vpu_chain.launches == n0 + 1
     torch.testing.assert_close(k, vpu_chain_plain(x, op, 512),
                                rtol=VPU_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("op", VPU_OPS)
+def test_vpu_chain_kernel_matches_plain_at_the_range_ends(op):
+    """K7 from the ends of vpu_chain's stated range [0, 2^64] and values
+    between, n = 512, elementwise (the branch-free primitives' inputs stay
+    in their domains from there)."""
+    dev = _device()
+    x = torch.tensor([0.0, 1e-30, 1e-3, 1.0, 7.5, 1e20, 2.0 ** 64],
+                     dtype=torch.float32, device=dev)
+    torch.testing.assert_close(vpu_chain(x, op, 512),
+                               vpu_chain_plain(x, op, 512), rtol=VPU_RTOL,
+                               atol=0)
+
+
+@pytest.mark.parametrize("name", PRIMS)
+def test_prim_check_finds_no_mismatch(name):
+    """The exhaustive check of csrc/prims.cuh: every f32 in the
+    primitive's domain gives the bits of the expression it replaces, and
+    every value of the domain is checked."""
+    dev = _device()
+    lo, hi = PRIM_DOMAINS[name]
+    n0 = prim_check.launches
+    res = prim_check(name, dev)
+    assert prim_check.launches == n0 + 1
+    assert res["mismatches"] == 0, res
+    assert res["checked"] == f32_bits(hi) - f32_bits(lo) + 1
 
 
 @pytest.mark.parametrize("shape,n", [((128, 1280), 512), ((128, 1280), 1),

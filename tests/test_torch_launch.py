@@ -6,7 +6,7 @@ launches only within build.variant, the block and step wrappers' tables
 have the lengths and entries of the kernels' enums (csrc/*.cu), and the
 step wrapper launches each step of a block on one clone of the state; the
 micro-benchmarks K6 and K8 pass their shapes, K6 a scratch of one partial
-a CTA and K8 its seven offsets."""
+a CTA and K8 its seven offsets, and the primitive check its scan."""
 
 import ctypes
 import re
@@ -337,6 +337,29 @@ def test_cpass_tables_match_the_kernel(stub, transposed, shape):
     assert ptrs == [t.data_ptr() for t in ins + [out]]
     assert ints == [R, C, 13, int(transposed)]
     assert floats == list(vpu.CPASS_OFFSETS)
+
+
+@pytest.mark.parametrize("span", [(None, None, 1), (1.0, 4.0, 3)],
+                         ids=["domain", "1-4"])
+@pytest.mark.parametrize("name", vpu.PRIMS)
+def test_prim_check_tables_match_the_kernel(stub, name, span):
+    """The primitive check's tables against csrc/vpu.cu's enums: the
+    tallies' buffer, then the primitive, its first bit pattern, the count
+    of values and the stride."""
+    lo, hi, stride = span
+    out = torch.zeros(4, dtype=torch.int64)
+    vpu._prim_check_launch(name, out, lo, hi, stride)
+    ptrs, ints, floats = _unpack(stub.calls[-1])
+    qp, qi = _enum("vpu.cu", "CheckPtr"), _enum("vpu.cu", "CheckInt")
+    d_lo, d_hi = vpu.PRIM_DOMAINS[name]
+    lo_b = vpu.f32_bits(d_lo if lo is None else lo)
+    hi_b = vpu.f32_bits(d_hi if hi is None else hi)
+    assert stub.calls[-1][0] == "prim_check_launch"
+    assert (len(ptrs), len(ints), len(floats)) == (qp["QP_COUNT"],
+                                                   qi["QI_COUNT"], 0)
+    assert ptrs == [out.data_ptr()]
+    assert ints == [vpu.PRIMS.index(name), lo_b,
+                    (hi_b - lo_b) // stride + 1, stride]
 
 
 @pytest.mark.parametrize("shape", [(64, 47 * 128), (61, 1000), (1, 1)],

@@ -1,7 +1,8 @@
 """tools/micro_times's readers on the CPU: the SASS parser, the slow-path
 and innermost-loop finders, the instruction mix a pair with its issue-slot
-floor, and the ptxas register lines, on small hand-written listings in
-cuobjdump's and ptxas's formats."""
+floor, K7's mix an application of its op and its pass floor, and the ptxas
+register lines, on small hand-written listings in cuobjdump's and ptxas's
+formats."""
 
 import collections
 
@@ -115,3 +116,36 @@ def test_registers_reads_the_pass_kernels(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out == [f"ptxas {cpass}: 55 registers, 0 bytes spilled",
                    f"ptxas {gpass}: 37 registers, 4 bytes spilled"]
+
+
+@pytest.mark.parametrize("op,ops,apps,floor", [
+    # the reciprocal chain: FADD, MUFU.RCP and two FFMA an application;
+    # 16 SFU results over 16 a clock
+    ("div", {"FADD": 16, "MUFU.RCP": 16, "FFMA": 32, "IADD3": 1, "BRA": 1},
+     16, 1 / 16),
+    # two FMUL an application, issue-bound
+    ("mul2", {"FMUL": 32, "ISETP.GE.AND": 1, "BRA": 1}, 16, 34 / 16 / 128),
+    # erfc marks its applications by its exp
+    ("erfc", {"MUFU.EX2": 16, "MUFU.RCP": 16, "FFMA": 240}, 16,
+     272 / 16 / 128),
+    ("round", {"FMUL": 16, "FRND": 16, "FADD": 16}, 16, 1 / 16),
+    ("cmpsel", {"FSETP.GT.AND": 8, "FSEL": 8, "FMUL": 8}, 8, 3 / 128),
+    ("fma", {"FADD": 4}, 0, 0.0)])
+def test_chain_mix_an_application(op, ops, apps, floor):
+    """K7's loop mix: the applications are the op's marks over the marks
+    an application issues; the floor in SM clocks an application."""
+    n, per, f = mt.chain_mix(collections.Counter(ops), op)
+    assert n == apps and f == pytest.approx(floor)
+    if apps:
+        assert sum(per.values()) == pytest.approx(sum(ops.values()) / apps)
+
+
+def test_chain_op_and_pass_floor():
+    """A chain_kernel<OP> instantiation's op, and a pass's floor in ms."""
+    assert mt.chain_op("_ZN38_GLOBAL__N__6_vpu_cu12chain_kernelILi8EEEvPKfPfii"
+                       ) == "erfc"
+    assert mt.chain_op("_Z12cpass_kernelILb0EEv9CpassArgs") is None
+    # 1/16 clock an application, 128 x 1280 x 512 element-ops on 132 SMs
+    # at 1980 MHz: the SFU floor of 0.020 ms
+    assert mt.chain_floor_ms(1 / 16, 128 * 1280 * 512, 132, 1980.0) == \
+        pytest.approx(0.02007, rel=1e-3)

@@ -22,8 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_leaves_jax_out():
     """The package and the modules outside its import (the probes, the
-    micro-benchmark kernels and the tools) import neither jax nor the JAX
-    package."""
+    micro-benchmark kernels, the tools, Widom and checkpoints) import
+    neither jax nor the JAX package."""
     code = ("import sys, maniac_tpu_torch, maniac_tpu_torch.utils.hwprobe, "
             "maniac_tpu_torch.kernels.hwprobe, maniac_tpu_torch.kernels.vpu, "
             "maniac_tpu_torch.kernels.gpass, "
@@ -34,7 +34,9 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.tools.section_split, "
             "maniac_tpu_torch.tools.kernel_times, "
             "maniac_tpu_torch.tools.resync_times, "
-            "maniac_tpu_torch.tools.cli_times; "
+            "maniac_tpu_torch.tools.cli_times, "
+            "maniac_tpu_torch.tools.micro_times, "
+            "maniac_tpu_torch.mc.widom, maniac_tpu_torch.io.checkpoint; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "
             "assert not bad, bad")
