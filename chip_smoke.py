@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py    # some two and a half minutes on an H100
 
-Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
+Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then
+runs the phases below. Every system is loaded with the seed SEED, and every
+block draws its uniforms from its replicas' threefry keys (the JAX
+package's stream; on the card the threefry kernel, csrc/threefry.cu):
 
   0. device, power limit, versions, TF32 off (asserted), kernel build time;
   1. resync kernel vs its plain torch version on the flagship system
@@ -22,10 +25,15 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      energy components within 5 K;
   3. the main path: load_system -> replicate(B=1024) ->
      run_block_replicated(400 steps, resync=True), one warm-up block and
-     three timed blocks; both kernels must have launched, the state must be
+     three timed blocks; the threefry, block and resync kernels must have
+     launched, the state must be
      finite and within capacity, and replica 0's amplitudes and E_RECIP
      must match a fresh synthesis (phase-1 bounds); one block kernel call
-     of 400 steps is timed beside its bound; the far table's size is
+     of 400 steps is timed beside its bound; the three blocks are run
+     again from the same state in turns, drawing their uniforms or on
+     them drawn ahead (DRAW_TURNS; the same decisions each time), so that
+     the difference in time, the order cancelled, is what the draw costs
+     the path; the far table's size is
      printed (rows, live modes, tiles, bytes). Then both kernels
      are held against their plain versions at the main path's batch (10
      block steps, at most B/64 replicas diverged; the resync of the result
@@ -147,29 +155,45 @@ Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then:
      a 1-block run with --checkpoint,
      then --resume on the 2-block deck, writes block 2's energy.dat row as
      the uninterrupted run does; each run launches the step kernel once a
-     step it runs.
+     step it runs;
+ 13. the threefry stream and tabulated potentials: (a) the threefry kernel
+     (kernels/threefry.split_uniform: split each replica's key, draw its
+     (400, 21) uniforms) against its plain version on phase 3's 1024 keys
+     (rows 0-2 edge keys of all-zero and all-one words) in f32, and on 64
+     of them in f64: every new key and uniform with the same bits, 0
+     mismatches; (b) its device-paced time at the main path's shape beside
+     torch.rand of that shape on the card (another function, the stream
+     the port drew from before: a reference) and its bound; (c)
+     tests/test_tabulated.py's GCMC water box with use_table on the card,
+     f64, B=16, two blocks of 100 steps: dispatch_report names the
+     tabulated potentials (the plain torch step, as the JAX package runs
+     XLA), every replica's drift_report within 1e-6 K, and the energies
+     within 1e-9 relative of the same seed's run on the CPU.
 
 Prints one JSON line with, per kernel and system, the launch count on the
-main path that runs it (phase 3 for the flagship's block and resync
-kernels, phase 5 for the step kernel, phase 7g and 7h on resv, phases 8c
-and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b, 7d and
-9d; K6-K8 and the primitive check, a checking kernel whose error is its
-mismatch count against the plain version's, phase 11), the largest error
-against the plain version, the times of kernel and
-plain version (the step kernel's per step, device-paced: the isotherm's
-spec at B=1024, resv and tricl at B=1; the resync's and K6-K8's
-device-paced), and the
-bound: the least time the card could take for the same
-work, the larger of the bytes the call must move (each input read once,
-each output written once; a whole step reads each replica's amplitudes
-at the weighted modes, its live positions and uniform row, and writes the
-accepted steps' amplitudes at the real modes) over 3.35 TB/s and its f32 operations, counted from this
-run's inputs (_trial_ops, _steps_bound, _resync_bound), over 67 TFLOP/s
-(one H100 SXM at 700 W; TF32 is off by design). The far field counts one complex multiply-add per
-nonzero coefficient and charged footprint atom, the work the separable
-contraction needs. No single PyTorch call computes any of these
-functions but K5's (torch.matmul), so library_ms is null on every other
-row. Then the card's name and power limit,
+main path that runs it (phase 3 for the flagship's block, resync and
+threefry kernels, phase 5 for the step kernel, phase 7g and 7h on resv,
+phases 8c and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b,
+7d and 9d; K6-K8 and the primitive check, a checking kernel whose error is
+its mismatch count against the plain version's, phase 11), the largest
+error against the plain version, the times of kernel and plain version
+(the step kernel's per step, device-paced: the isotherm's spec at B=1024,
+resv and tricl at B=1; the resync's and K6-K8's device-paced), and the
+bound: the least time the card could take for the same work, the larger of
+the bytes the call must move (each input read once, each output written
+once; a whole step reads each replica's amplitudes at the weighted modes,
+its live positions and uniform row, and writes the accepted steps'
+amplitudes at the real modes) over 3.35 TB/s and its f32 operations,
+counted from this run's inputs (_trial_ops, _steps_bound, _resync_bound),
+over 67 TFLOP/s (one H100 SXM at 700 W; TF32 is off by design; the
+threefry kernel's shifts and logic over a quarter of that rate, the ALU's,
+or all its operations over half of it, the issue rate: _threefry_bound).
+The far field counts one complex multiply-add per nonzero coefficient and
+charged footprint atom, the work the separable contraction needs. No
+single PyTorch call computes any of these functions but K5's
+(torch.matmul), so library_ms is null on every other row (torch.rand,
+printed beside the threefry kernel, draws another stream).
+Then the card's name and power limit,
 and as its last line {"ok": true, "device": {...}}. Any failure raises:
 the exit code is then non-zero and no result line is printed. It needs no
 network and only the files of this repository.
@@ -202,10 +226,14 @@ STEPG_SRC = "maniac_tpu_torch/kernels/csrc/stepg.cu"
 HWPROBE_SRC = "maniac_tpu_torch/kernels/csrc/hwprobe.cu"
 GPASS_SRC = "maniac_tpu_torch/kernels/csrc/gpass.cu"
 VPU_SRC = "maniac_tpu_torch/kernels/csrc/vpu.cu"
+THREEFRY_SRC = "maniac_tpu_torch/kernels/csrc/threefry.cu"
 # phases 1-2, 4: replicas and MC steps of the kernel-vs-plain comparisons
 CHECK_REPLICAS, CHECK_STEPS = 64, 50
 # phase 3: the flagship main path
 MAIN_REPLICAS, MAIN_STEPS, MAIN_BLOCKS = 1024, 400, 3
+# the reruns after the main path's (drawing) run: True on uniforms drawn
+# ahead, False drawing them
+DRAW_TURNS = (True, True, False, True, False, False, True)
 # phases 5-6: the command line on the flagship deck
 CAPACITY = 192
 ISOTHERM = ",".join(f"{f:g}" for f in ISOTHERM_FUGACITIES)
@@ -234,6 +262,15 @@ CPASS_EDGE = (7, 1001)
 # phase 12: Widom trials a block and species on the flagship chain (most
 # ghosts there overlap a framework site: a block of 8 can find B = 0)
 WIDOM_TRIALS = 256
+# phase 13: the f64 check of the threefry kernel and the tabulated water box
+# (tests/test_tabulated.py's GCMC box): replicas, blocks of steps, bounds
+THREEFRY_F64_REPLICAS = 64
+TABLE_BOX = dict(n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                 probs=(0.3, 0.2, 0.5, 0.0), fugacity=5000.0,
+                 use_table="true")
+TABLE_REPLICAS, TABLE_BLOCKS, TABLE_STEPS = 16, 2, 100
+TABLE_DRIFT_K = 1e-6
+TABLE_RTOL = 1e-9
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -282,6 +319,24 @@ OPS_GPASS_READ = 4
 # FMA; sqrt: MUFU, two products, two FMA; rsqrt: MUFU), the expression it
 # replaces (one operation), the compare and the tally
 OPS_PRIM_CHECK = dict(rcp=6, sqrt=8, rsqrt=4)
+
+
+# the integer issue of one H100 SXM SM: four partitions, each one warp
+# instruction a clock, so 128 lanes of issue, half of F32_OPS_PER_S (which
+# counts an FMA as two on 128 lanes); shifts and logic run only on the
+# integer ALU, 64 lanes, a quarter of it, while an add may also issue as
+# an IMAD on the FMA pipe
+DISPATCH_OPS_PER_S = F32_OPS_PER_S / 2
+ALU_OPS_PER_S = F32_OPS_PER_S / 4
+# one threefry2x32 (csrc/threefry.cu) at its fewest 32-bit operations: 20
+# funnel shifts and 20 xors (ALU only) and 27 adds: 20 rounds, 5 key
+# injections into x1 (key word plus group number, one constant a key),
+# x1's initial add and x0's last injection; x0's initial add and other
+# injections ride on the next round's three-input add, and the key
+# schedule's xors are one a key. The f32 uniform: the words' xor and a
+# shift-or (LEA.HI; ALU only), then a subtract and a max in floats
+THREEFRY_ALU_OPS, THREEFRY_ADDS = 40, 27
+TO_UNIFORM_F32_ALU_OPS, TO_UNIFORM_F32_FLOAT_OPS = 2, 2
 
 
 def _nbytes(*tensors) -> int:
@@ -432,18 +487,18 @@ def _far_table_line(spec) -> str:
             f"{_nbytes(spec.far_coef, spec.far_rows, spec.far_units)} bytes")
 
 
-def _main_block(spec, states, gen):
+def _main_block(spec, states):
     """One block kernel call at the main path's shape (MAIN_STEPS steps for
     every replica of ``states``): (ms, bound)."""
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.mc.driver import draw_uniforms
-    u = draw_uniforms(spec, states.B, MAIN_STEPS, gen)
+    _, u = draw_uniforms(spec, states, MAIN_STEPS)
     out = run_block_kernel(spec, states, u)
     ms = _cuda_ms(lambda: run_block_kernel(spec, states, u), 2)
     return ms, _block_bound(spec, states, out, u)
 
 
-def _main_path(tag, spec, state, gen, label):
+def _main_path(tag, spec, state, label):
     """The main path on one system: replicate(B=1024) ->
     run_block_replicated(400 steps, resync=True), one warm-up and
     MAIN_BLOCKS timed blocks, with the launch counts set to 0 just before;
@@ -457,7 +512,9 @@ def _main_path(tag, spec, state, gen, label):
     states, the numbers of the kernels line)."""
     from maniac_tpu_torch import replicate, run_block_replicated
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.parallel.replicas import run_block_uniforms
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.kernels.threefry import split_uniform
     from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.physics.energy import (active_site_mask,
                                                  full_amplitudes,
@@ -469,18 +526,47 @@ def _main_path(tag, spec, state, gen, label):
     total0 = _conserved(states)
     run_block_kernel.launches = 0
     resync_grouped.launches = 0
-    states = run_block_replicated(spec, states, n_steps, False, True, gen)
+    split_uniform.launches = 0
+    start = states = run_block_replicated(spec, states, n_steps, False,
+                                          True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(MAIN_BLOCKS):
-        states = run_block_replicated(spec, states, n_steps, False, True,
-                                      gen)
+        states = run_block_replicated(spec, states, n_steps, False, True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"blockg": run_block_kernel.launches,
-                "resync": resync_grouped.launches}
+                "resync": resync_grouped.launches,
+                "threefry": split_uniform.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"{tag}: a kernel never launched: {launches}")
+
+    def rerun(ahead):
+        """The timed blocks again from ``start``, drawing their uniforms or
+        on them drawn ahead: the same decisions; returns the seconds."""
+        s, us = start, []
+        for _ in range(MAIN_BLOCKS if ahead else 0):
+            s, u = draw_uniforms(spec, s, n_steps)
+            us.append(u)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(MAIN_BLOCKS):
+            s = (run_block_uniforms(spec, s, us[i], False, True) if ahead
+                 else run_block_replicated(spec, s, n_steps, False, True))
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        if not (torch.equal(s.n_mol, states.n_mol)
+                and torch.equal(s.counters, states.counters)):
+            raise AssertionError(f"{tag}: the same blocks walked another "
+                                 "chain")
+        return t
+    # in turns D A A D A D D A (D the main path's run), so that the order
+    # and its trends cancel: the difference is what the draw costs the path
+    turns = {True: [], False: [elapsed]}
+    for ahead in DRAW_TURNS:
+        turns[ahead].append(rerun(ahead))
+    draw_ms = ((sum(turns[False]) - sum(turns[True])) / len(turns[True])
+               / MAIN_BLOCKS * 1e3)
     for k, v in vars(states).items():
         if v.is_floating_point() and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{tag}: non-finite values in {k}")
@@ -497,7 +583,7 @@ def _main_path(tag, spec, state, gen, label):
                states.amp_im[:1], states.energy[:1, E_RECIP], ref_re, ref_im,
                recip_energy(spec, ref_re, ref_im))
     rate = Bm * n_steps * MAIN_BLOCKS / elapsed
-    ms_main, bound_main = _main_block(spec, states, gen)
+    ms_main, bound_main = _main_block(spec, states)
     ms_main_resync = device_ms(lambda: resync_grouped(spec, states), 20)
     mean_n = {r: round(float(n[:, r].float().mean()), 2)
               for r in range(spec.R) if spec.active_list[r]}
@@ -510,8 +596,15 @@ def _main_path(tag, spec, state, gen, label):
           f"kernel call ({n_steps} steps) {ms_main:.3f} ms, bound "
           f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
           f"{ms_main_resync:.4f} ms device-paced")
+    print(f"{tag}: the same {MAIN_BLOCKS} blocks from the same state in "
+          f"turns, drawing their uniforms (D) or on them drawn ahead (A), "
+          f"D A A D A D D A, the same decisions: D "
+          + ", ".join(f"{t:.4f}" for t in turns[False]) + " s; A "
+          + ", ".join(f"{t:.4f}" for t in turns[True])
+          + f" s; the draw costs the path {draw_ms:.3f} ms a block "
+            f"({draw_ms * 1e-3 * MAIN_BLOCKS / elapsed:.3%})")
     # both kernels against their plain versions at the main path's batch
-    u = draw_uniforms(spec, Bm, 10, gen)
+    states, u = draw_uniforms(spec, states, 10)
     k_blk = run_block_kernel(spec, states, u)
     err_block, _ = _block_check(f"{tag}: block B={Bm} x 10 steps", k_blk,
                                 steps_plain(spec, states, u),
@@ -626,7 +719,7 @@ def _resync_edges(name, spec, states):
     return err
 
 
-def _k4_phase(tag, system, spec, state, gen, label):
+def _k4_phase(tag, system, spec, state, label):
     """K4, the resync kernel at B = 1 (a single chain's replicated block):
     driven once through mc/driver.resync_amplitudes after CHECK_STEPS plain
     steps, with the count set to 0 just before (it must launch once), held
@@ -638,7 +731,8 @@ def _k4_phase(tag, system, spec, state, gen, label):
     from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                             steps_plain)
     from maniac_tpu_torch.system import E_RECIP
-    st1 = steps_plain(spec, state, draw_uniforms(spec, 1, CHECK_STEPS, gen))
+    state, u = draw_uniforms(spec, state, CHECK_STEPS)
+    st1 = steps_plain(spec, state, u)
     resync_grouped.launches = 0
     k_one = resync_amplitudes(spec, st1)
     launches = resync_grouped.launches
@@ -701,7 +795,7 @@ def _load(make, dev, reservoir=None, **kw):
         return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
                            f"{tmp}/parameters.inc", reservoir_file=res,
                            capacity=CAPACITY, dtype=torch.float32,
-                           device=dev)
+                           device=dev, seed=SEED)
 
 
 def _step_check(name, k, p, max_diverged):
@@ -715,7 +809,7 @@ def _step_check(name, k, p, max_diverged):
                       p.amp_im[same], p.energy[same, E_RECIP])
 
 
-def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
+def _step_phase(name, spec, states, max_diverged, n_steps, label):
     """Phase 4 on one system: the whole-step kernel (run_steps_kernel)
     against the plain steps (steps_plain) on the same uniforms, one step,
     then an n_steps chain, with phase 2's bounds and, on the matching
@@ -732,8 +826,9 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
     B = states.B
     before = {k: v.clone() for k, v in vars(states).items()}
     err = 0.0
+    keyed = states    # the uniforms' keys advance here, not in states
     for n in (1, n_steps) if n_steps else (1,):
-        u = draw_uniforms(spec, B, n, gen)
+        keyed, u = draw_uniforms(spec, keyed, n)
         n0 = run_steps_kernel.launches
         k = run_steps_kernel(spec, states, u)
         if run_steps_kernel.launches != n0 + n:
@@ -744,7 +839,7 @@ def _step_phase(name, spec, states, gen, max_diverged, n_steps, label):
                                    max_diverged))
     if not all(torch.equal(v, before[k]) for k, v in vars(states).items()):
         raise AssertionError(f"{name}: the step kernel wrote its input")
-    u = draw_uniforms(spec, B, STEPS_TIMED, gen)
+    _, u = draw_uniforms(spec, keyed, STEPS_TIMED)
 
     def kernel():
         return run_steps_kernel(spec, states, u)
@@ -782,7 +877,7 @@ def _rows(path):
         return [line.split() for line in f if not line.startswith("#")]
 
 
-def _resv_phase(dev, gen, label):
+def _resv_phase(dev, label):
     """Phase 7: reservoir GCMC on bench.py's resv. Returns the kernels
     line's rows of the block, resync and step kernels on this system."""
     from maniac_tpu_torch import replicate
@@ -811,8 +906,7 @@ def _resv_phase(dev, gen, label):
 
     # b-c. the reservoir form against the plain block; conservation
     B, n_check = CHECK_REPLICAS, CHECK_STEPS
-    st = replicate(spec, rv.state, B)
-    u = draw_uniforms(spec, B, n_check, gen)
+    st, u = draw_uniforms(spec, replicate(spec, rv.state, B), n_check)
     k_blk = run_block_kernel(spec, st, u)
     p_blk = steps_plain(spec, st, u)
     err_block, _ = _block_check(f"phase 7b: reservoir block B={B} x "
@@ -833,26 +927,25 @@ def _resv_phase(dev, gen, label):
                    *_resync_pair(resync_grouped(spec, k_blk),
                                  resync_plain(spec, k_blk), E_RECIP)),
         _resync_edges(f"phase 7d: resync B={B}", spec, k_blk))
-    k4 = _k4_phase("phase 7d", "resv", spec, rv.state, gen, label)
+    k4 = _k4_phase("phase 7d", "resv", spec, rv.state, label)
 
     # e. the step kernel against the plain steps; timed at B = 1 (the single
     # chain's shape, phase 7h)
-    err_step, _, _, _ = _step_phase("phase 7e: resv", spec, st, gen, 1,
-                                    n_check, label)
+    err_step, _, _, _ = _step_phase("phase 7e: resv", spec, st, 1, n_check,
+                                    label)
     _, ms_step, ms_step_plain, bound_step = _step_phase(
-        "phase 7e: resv", spec, replicate(spec, rv.state, 1), gen, 0, 0,
-        label)
+        "phase 7e: resv", spec, replicate(spec, rv.state, 1), 0, 0, label)
 
     # f. the no-split form alone: the same water box without its reservoir
     wb = _load(make_water_box, dev, **RESV_BOX)
-    stw = replicate(wb.spec, wb.state, B)
-    uw = draw_uniforms(wb.spec, B, n_check, gen)
+    stw, uw = draw_uniforms(wb.spec, replicate(wb.spec, wb.state, B),
+                            n_check)
     err_nosplit, _ = _block_check(
         f"phase 7f: no-split block (no reservoir) B={B} x {n_check} steps",
         run_block_kernel(wb.spec, stw, uw), steps_plain(wb.spec, stw, uw), 1)
 
     # g. the main path, then both kernels held and timed at its batch
-    _, main = _main_path("phase 7g: resv", spec, rv.state, gen, label)
+    _, main = _main_path("phase 7g: resv", spec, rv.state, label)
 
     # h. the command line's single chain with -r
     with tempfile.TemporaryDirectory() as tmp:
@@ -907,7 +1000,7 @@ def _main_rows(system, main, err_block, err_resync):
     ]
 
 
-def _form_phase(tag, system, make, kw, dev, gen, label):
+def _form_phase(tag, system, make, kw, dev, label):
     """Phases 8 and 9 (a)-(d) on one of bench.py's systems: the dispatch
     names the whole-block kernel; the block kernel's form for it against
     the plain block at B=64 x 50 steps (phase 2's bounds; with two active
@@ -934,8 +1027,7 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
     print(f"{tag}a: {system} {_far_table_line(spec)}")
 
     B, n_check = CHECK_REPLICAS, CHECK_STEPS
-    st = replicate(spec, sysm.state, B)
-    u = draw_uniforms(spec, B, n_check, gen)
+    st, u = draw_uniforms(spec, replicate(spec, sysm.state, B), n_check)
     k_blk = run_block_kernel(spec, st, u)
     err_block, _ = _block_check(f"{tag}b: {system} block B={B} x {n_check} "
                                 f"steps", k_blk, steps_plain(spec, st, u), 1)
@@ -944,11 +1036,11 @@ def _form_phase(tag, system, make, kw, dev, gen, label):
     if spec.n_active > 1 and swaps[0] < 1:
         raise AssertionError(f"{tag}b: no swap was tried")
 
-    _, main = _main_path(f"{tag}c-d: {system}", spec, sysm.state, gen, label)
+    _, main = _main_path(f"{tag}c-d: {system}", spec, sysm.state, label)
     return sysm, _main_rows(system, main, err_block, 0.0)
 
 
-def _tricl_step_phase(sysm, dev, gen, label):
+def _tricl_step_phase(sysm, dev, label):
     """Phase 9 (e)-(f): the step kernel on tricl against the plain steps at
     B=64 and, timed, at B=1 with no divergence allowed; the command line's
     single chain on a tricl deck. Returns its kernels line row."""
@@ -959,9 +1051,9 @@ def _tricl_step_phase(sysm, dev, gen, label):
     spec = sysm.spec
     err, _, _, _ = _step_phase("phase 9e: tricl", spec,
                                replicate(spec, sysm.state, CHECK_REPLICAS),
-                               gen, 1, CHECK_STEPS, label)
+                               1, CHECK_STEPS, label)
     err1, ms, ms_plain, bound = _step_phase(
-        "phase 9e: tricl", spec, replicate(spec, sysm.state, 1), gen, 0,
+        "phase 9e: tricl", spec, replicate(spec, sysm.state, 1), 0,
         CHECK_STEPS, label)
     with tempfile.TemporaryDirectory() as tmp:
         deck = f"{tmp}/tricl"
@@ -1003,7 +1095,7 @@ def _last(text):
     return lines[-1].strip() if lines else "(no output)"
 
 
-def _precision_phase(spec, state, dev, gen, label):
+def _precision_phase(spec, state, dev, label):
     """Phase 10: K5, the hardware-precision check, the sentinel on the
     flagship (spec, state), its command line and the probe tool. Returns
     K5's row."""
@@ -1065,9 +1157,9 @@ def _precision_phase(spec, state, dev, gen, label):
 
     # c. the sentinel on the flagship: its own block matches, a block
     # further on is flagged
-    st = replicate(spec, state, CHECK_REPLICAS)
-    u1 = draw_uniforms(spec, CHECK_REPLICAS, CHECK_STEPS, gen)
-    u2 = draw_uniforms(spec, CHECK_REPLICAS, CHECK_STEPS, gen)
+    st, u1 = draw_uniforms(spec, replicate(spec, state, CHECK_REPLICAS),
+                           CHECK_STEPS)
+    _, u2 = draw_uniforms(spec, st, CHECK_STEPS)
     post = run_block_uniforms(spec, st, u1, False, True)
     post2 = run_block_uniforms(spec, post, u2, False, True)
     same = sentinel_check(spec, st, post, u1, False, resync=True)
@@ -1335,6 +1427,119 @@ def _microbench_phase(dev, label):
     return rows
 
 
+def _threefry_bound(keys, u):
+    """(bound ms, "bytes" or "operations") of one split_uniform call in
+    f32: the keys read and written and the uniforms written over the
+    memory rate, against its operations (two threefry a replica for the
+    split, one a uniform and its conversion): the shifts and logic over
+    the ALU's rate, or all of them over the issue rate, the larger."""
+    B, n = keys.shape[0], u[0].numel()
+    assert u.dtype == torch.float32
+    fry, vals = 2 * B + B * n, B * n
+    alu = fry * THREEFRY_ALU_OPS + vals * TO_UNIFORM_F32_ALU_OPS
+    issued = (fry * (THREEFRY_ALU_OPS + THREEFRY_ADDS)
+              + vals * (TO_UNIFORM_F32_ALU_OPS + TO_UNIFORM_F32_FLOAT_OPS))
+    ms_bytes = _nbytes(keys, keys, u) / HBM_BYTES_PER_S * 1e3
+    ms_ops = max(alu / ALU_OPS_PER_S, issued / DISPATCH_OPS_PER_S) * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
+                                                           "operations")
+
+
+def _threefry_phase(keys, label):
+    """Phase 13 (a)-(b): the threefry kernel against its plain version on
+    the main path's keys (``keys``, B = 1024, with edge keys of all-zero
+    and all-one words in rows 0-2) at (B, 400, 21) f32 and on their first
+    64 at (64, 400, 21) f64: the next keys and every uniform with the same
+    bits (0 mismatches); then timed device-paced beside torch.rand of the
+    same shape on the card (another function: the stream the main path
+    drew from before, a reference only) and the bound. Returns (max |d|,
+    kernel ms, plain ms, bound)."""
+    from maniac_tpu_torch.kernels.threefry import (split_uniform,
+                                                   split_uniform_plain)
+    keys = keys.clone()
+    keys[0] = 0
+    keys[1] = 0xFFFFFFFF
+    keys[2, 0] = 0xFFFFFFFF
+    err = 0.0
+    for dtype, k in ((torch.float32, keys),
+                     (torch.float64, keys[:THREEFRY_F64_REPLICAS])):
+        new, u = split_uniform(k, MAIN_STEPS, dtype)
+        want_new, want_u = split_uniform_plain(k, MAIN_STEPS, dtype)
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        mismatches = (int((new != want_new).sum())
+                      + int((u.view(bits) != want_u.view(bits)).sum()))
+        err = max(err, float((u - want_u).abs().max()))
+        print(f"phase 13a: threefry {tuple(u.shape)} {dtype}: {mismatches} "
+              f"mismatches of {new.numel() + u.numel()} keys and uniforms "
+              f"against the plain version (bound 0)")
+        if mismatches or tuple(u.shape) != (k.shape[0], MAIN_STEPS,
+                                            N_UNIFORMS):
+            raise AssertionError("phase 13a: the threefry kernel disagrees "
+                                 "with its plain version")
+    shape = (keys.shape[0], MAIN_STEPS, N_UNIFORMS)
+    ms = device_ms(lambda: split_uniform(keys, MAIN_STEPS, torch.float32),
+                   50)
+    ms_rand = device_ms(lambda: torch.rand(shape, device=keys.device), 50)
+    ms_plain = _cuda_ms(lambda: split_uniform_plain(keys, MAIN_STEPS,
+                                                    torch.float32), 3)
+    bound = _threefry_bound(keys, split_uniform(keys, MAIN_STEPS,
+                                                torch.float32)[1])
+    print(f"phase 13b: threefry {shape} f32: kernel {ms:.4f} ms "
+          f"device-paced; torch.rand of the same shape {ms_rand:.4f} ms "
+          f"device-paced (a reference: another function); plain "
+          f"{ms_plain:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({label})")
+    return err, ms, ms_plain, bound
+
+
+def _table_phase(dev, label):
+    """Phase 13 (c): tests/test_tabulated.py's GCMC water box with
+    use_table on the card, f64, B = TABLE_REPLICAS, TABLE_BLOCKS blocks of
+    TABLE_STEPS steps from the keys of SEED: dispatch_report names the
+    tabulated potentials, every replica's bookkeeping is within
+    TABLE_DRIFT_K of a recompute, and the energies equal the same seed's
+    run on the CPU within TABLE_RTOL relative (decisions equal)."""
+    from maniac_tpu_torch import load_system, replicate, run_block_replicated
+    from maniac_tpu_torch.kernels import dispatch_report
+    from maniac_tpu_torch.mc.driver import drift_report
+    from maniac_tpu_torch.systems import make_water_box
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        make_water_box(tmp, **TABLE_BOX)
+        for where in (dev, "cpu"):
+            sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
+                               f"{tmp}/parameters.inc", dtype=torch.float64,
+                               device=where, seed=SEED)
+            spec = sysm.spec
+            states = replicate(spec, sysm.state, TABLE_REPLICAS)
+            t0 = time.perf_counter()
+            for _ in range(TABLE_BLOCKS):
+                states = run_block_replicated(spec, states, TABLE_STEPS, True)
+            sec = time.perf_counter() - t0
+            runs[torch.device(where).type] = (spec, states, sec)
+    spec, card, sec = runs["cuda"]
+    _, cpu, sec_cpu = runs["cpu"]
+    report = dispatch_report(spec, dev)
+    drift = max(drift_report(spec, card, b)["drift_K"]
+                for b in range(TABLE_REPLICAS))
+    e_card, e_cpu = card.energy.cpu(), cpu.energy
+    rel = float(((e_card - e_cpu).abs()
+                 / e_cpu.abs().clamp(min=1.0)).max())
+    same = (torch.equal(card.n_mol.cpu(), cpu.n_mol)
+            and torch.equal(card.counters.cpu(), cpu.counters))
+    print(f"phase 13c: tabulated water box f64 B={TABLE_REPLICAS} x "
+          f"{TABLE_BLOCKS} blocks of {TABLE_STEPS} steps: {sec:.2f} s on "
+          f"the card, {sec_cpu:.2f} s on the CPU; {report}; max drift "
+          f"{drift:.3e} K (bound {TABLE_DRIFT_K}); energies against the "
+          f"CPU's max relative {rel:.3e} (bound {TABLE_RTOL}); decisions "
+          f"the same: {same}; accepts {int(card.counters[:, 1].sum())} "
+          f"({label})")
+    if ("tabulated potentials" not in report or not drift <= TABLE_DRIFT_K
+            or not rel <= TABLE_RTOL or not same):
+        raise AssertionError("phase 13c: the tabulated run failed its "
+                             "checks")
+
+
 def _chain_options_phase(label):
     """Phase 12: the command line's single chain on the flagship deck with
     --widom, and with --checkpoint then --resume; each run's step-kernel
@@ -1429,7 +1634,7 @@ def main() -> int:
         t0 = time.perf_counter()
         sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
                            f"{tmp}/parameters.inc", capacity=192,
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float32, device=dev, seed=SEED)
         torch.cuda.synchronize()
         t_load = time.perf_counter() - t0
     spec = sysm.spec
@@ -1440,13 +1645,10 @@ def main() -> int:
           f"far grid {spec.amp2_shape}; load {t_load:.1f} s")
     print(f"phase 0: {dispatch_report(spec, dev)}")
     print(f"phase 3: flagship {_far_table_line(spec)}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
 
     # ---- phase 1: resync kernel vs plain -----------------------------------
     B, n_check = CHECK_REPLICAS, CHECK_STEPS
-    states = replicate(spec, sysm.state, B)
-    u = draw_uniforms(spec, B, n_check, gen)
+    states, u = draw_uniforms(spec, replicate(spec, sysm.state, B), n_check)
     states = steps_plain(spec, states, u)
     n = states.n_mol[:, 1]
     print(f"phase 1: B={B} after {n_check} plain steps, N in "
@@ -1462,8 +1664,7 @@ def main() -> int:
           f"plain {ms_rs_plain:.3f} ms ({name}, {smi})")
 
     # ---- phase 2: block kernel vs plain ------------------------------------
-    st0 = p_out
-    u = draw_uniforms(spec, B, n_check, gen)
+    st0, u = draw_uniforms(spec, p_out, n_check)
     k_blk = run_block_kernel(spec, st0, u)
     p_blk = steps_plain(spec, st0, u)
     err_blk2, _ = _block_check(f"phase 2: block B={B} x {n_check} steps",
@@ -1474,7 +1675,7 @@ def main() -> int:
           f"{ms_blk_plain:.3f} ms ({name}, {smi})")
 
     # ---- phase 3: the main path ------------------------------------------
-    states, main = _main_path("phase 3: flagship", spec, sysm.state, gen,
+    states, main = _main_path("phase 3: flagship", spec, sysm.state,
                               f"{name}, {smi}")
 
     # ---- phase 4: the whole-step kernel vs the plain steps -----------------
@@ -1493,29 +1694,29 @@ def main() -> int:
     for sname, sp, st in systems:
         print(f"phase 4: {sname}: {dispatch_report(sp, dev)}")
         st = replicate(sp, st, B)
-        err, _, _, _ = _step_phase(f"phase 4: {sname}", sp, st, gen, 1,
+        err, _, _, _ = _step_phase(f"phase 4: {sname}", sp, st, 1,
                                    n_check, label)
         err_step = max(err_step, err)
     # the single chain's shape (phase 6): B = 1, no divergence allowed
     err, _, _, _ = _step_phase("phase 4: flagship", spec,
-                               replicate(spec, sysm.state, 1), gen, 0,
+                               replicate(spec, sysm.state, 1), 0,
                                n_check, label)
     err_step = max(err_step, err)
     # the main path's batch (phase 3's states): the flagship's spec, then
     # the isotherm's (phase 5: 8 fugacities x 128 replicas, one activity
     # table a replica), whose time is the kernels line's
-    err, _, _, _ = _step_phase("phase 4: flagship", spec, states, gen,
+    err, _, _, _ = _step_phase("phase 4: flagship", spec, states,
                                max(1, MAIN_REPLICAS // 64), 0, label)
     err_step = max(err_step, err)
     sweep = isotherm_spec(spec)
     print(f"phase 4: isotherm spec: {dispatch_report(sweep, dev)}")
     err, ms_step, ms_step_plain, bound_step = _step_phase(
         f"phase 4: isotherm {len(ISOTHERM.split(','))} x {ISO_REPLICAS}",
-        sweep, states, gen, max(1, MAIN_REPLICAS // 64), n_check, label)
+        sweep, states, max(1, MAIN_REPLICAS // 64), n_check, label)
     err_step = max(err_step, err)
 
     # ---- phase 4b: the resync kernel at B = 1 (K4) --------------------------
-    k4 = _k4_phase("phase 4b", None, spec, sysm.state, gen, label)
+    k4 = _k4_phase("phase 4b", None, spec, sysm.state, label)
 
     # ---- phases 5-6: the command line -------------------------------------
     fugs = [float(f) for f in ISOTHERM.split(",")]
@@ -1579,23 +1780,28 @@ def main() -> int:
             raise AssertionError("phase 6: the single chain failed its "
                                  "checks")
 
-    resv = _resv_phase(dev, gen, label)
+    resv = _resv_phase(dev, label)
 
     # ---- phases 8-9: bench.py's mixed and tricl ---------------------------
     _, mixed = _form_phase("phase 8", "mixed", make_framework_mixed,
-                           MIXED_SYSTEM, dev, gen, label)
+                           MIXED_SYSTEM, dev, label)
     tricl_sys, tricl = _form_phase("phase 9", "tricl", make_triclinic_water,
-                                   TRICL_BOX, dev, gen, label)
-    tricl_step = _tricl_step_phase(tricl_sys, dev, gen, label)
+                                   TRICL_BOX, dev, label)
+    tricl_step = _tricl_step_phase(tricl_sys, dev, label)
     tricl_k4 = _k4_phase("phase 9d", "tricl", tricl_sys.spec,
-                         tricl_sys.state, gen, label)
+                         tricl_sys.state, label)
 
     # ---- phases 10-11: hardware precision, the sentinel, the tools -------
-    onehot = _precision_phase(spec, sysm.state, dev, gen, label)
+    onehot = _precision_phase(spec, sysm.state, dev, label)
     micro = _microbench_phase(dev, label)
 
     # ---- phase 12: the command line with --widom, --checkpoint, --resume --
     _chain_options_phase(label)
+
+    # ---- phase 13: the threefry kernel; tabulated potentials on the card -
+    err_tf, ms_tf, ms_tf_plain, bound_tf = _threefry_phase(
+        replicate(spec, sysm.state, MAIN_REPLICAS).key, label)
+    _table_phase(dev, label)
 
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1), k4,
@@ -1603,6 +1809,10 @@ def main() -> int:
              "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
              err_step, ms_step, ms_step_plain, bound_step),
         *resv, *mixed, *tricl, tricl_step, tricl_k4, onehot, *micro,
+        _row("threefry", THREEFRY_SRC,
+             "none: jax.random threefry, an XLA op "
+             "(maniac_tpu/mc/driver.py:69)", main["launches"]["threefry"],
+             err_tf, ms_tf, ms_tf_plain, bound_tf),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -40,17 +40,22 @@ def load_system(input_file: str, data_file: str, params_file: str,
                 dtype: torch.dtype = torch.float64,
                 device: str | torch.device = "cuda",
                 logger: Logger | None = None,
-                compute_initial_energy: bool = True) -> LoadedSystem:
+                compute_initial_energy: bool = True,
+                seed: int | None = None) -> LoadedSystem:
     """Parse the deck, data, pair-coefficient and (optional) reservoir
     files, set up Ewald, build the system and compute its initial energy on
     ``device`` (default: the CUDA card; pass ``device="cpu"`` for the
-    CPU). Raises RuntimeError for a CUDA device when there is none."""
+    CPU). ``seed`` replaces the deck's seed, as the JAX package's
+    load_system does; the state's key is its prng_key. Raises RuntimeError
+    for a CUDA device when there is none."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_system: no CUDA device is available (pass "
                            "device='cpu' to run on the CPU)")
     logger = logger or default_logger()
     deck = parse_deck(input_file, logger)
+    if seed is not None:
+        deck.seed = seed
     log_input_summary(deck, input_file, logger)
     parsed = parse_lammps_data(data_file, deck, logger, is_primary=True)
     reservoir = None

@@ -14,7 +14,8 @@ Counterpart of maniac_tpu/cli.py with the same flags and output files:
     --capacity N     per-active-type molecule capacity override
     --platform P     torch device: cuda (default) or cpu; a missing CUDA
                      device is an error, never a run on the CPU
-    --seed S         seeds the torch.Generator (default: the deck's seed)
+    --seed S         the seed of the chains' threefry keys (default: the
+                     deck's seed): one seed walks the JAX CLI's chain
     --audit          per-block energy-drift audit (full recompute)
     --profile BINS   per-block COM density histogram -> profile_<RES>.dat
     --isotherm F,..  adsorption-isotherm sweep: every fugacity a batch of
@@ -23,10 +24,10 @@ Counterpart of maniac_tpu/cli.py with the same flags and output files:
                      path and compare (mc/driver.py::sentinel_check)
     --widom N        N Widom ghost insertions per block per active species
                      into replica 0 -> widom.dat (mc/widom.py; their own
-                     generator, seeded from the seed and the block)
+                     key, replica 0's folded with a tag and the block)
     --checkpoint F   write a full checkpoint (.npz, io/checkpoint.py) every
-                     block, the chain's generator state included
-    --resume F       continue from such a checkpoint
+                     block, the chains' keys included
+    --resume F       continue from such a checkpoint (the JAX CLI's too)
 
 With -r, insertions take their geometry from the reservoir and deletions
 push back into it; reservoir.lammpstrj is written beside the trajectory.
@@ -146,21 +147,18 @@ def _run(args, outdir: str, logger) -> int:
     sysm = load_system(args.input, args.data, args.params,
                        reservoir_file=args.reservoir,
                        capacity=args.capacity, dtype=dtype, device=device,
-                       logger=logger)
+                       logger=logger, seed=args.seed)
     deck, spec, state = sysm.deck, sysm.spec, sysm.state
     logger.log(dispatch_report(spec, device))
-    seed = args.seed if args.seed is not None else (deck.seed or 0)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
 
     if args.isotherm:
-        return _run_isotherm(args, outdir, logger, sysm, gen, t0)
+        return _run_isotherm(args, outdir, logger, sysm, t0)
 
     start_block = 0
     if args.resume:
         from .io.checkpoint import load_checkpoint
         try:
-            state, start_block = load_checkpoint(args.resume, spec, gen)
+            state, start_block = load_checkpoint(args.resume, spec)
         except ValueError as e:
             logger.abort(f"--resume: {e}", 1)
         logger.info(f"Resumed from {args.resume} at block {start_block}")
@@ -191,13 +189,13 @@ def _run(args, outdir: str, logger) -> int:
     total_steps = 0
     sentinel_fail = 0
     if args.widom > 0:
-        from .mc.widom import widom_block, widom_factor, widom_generator
+        from .mc.widom import widom_block, widom_factor, widom_key
         widom_sum = np.zeros(len(act_names))
         widom_blocks = 0
     for block in range(start_block + 1, deck.nb_block + 1):
         # the block's uniforms are drawn here, as run_block_replicated and
-        # run_block draw them, so that --sentinel can replay them
-        u = draw_uniforms(spec, state.B, deck.nb_step, gen)
+        # block_body draw them, so that --sentinel can replay them
+        state, u = draw_uniforms(spec, state, deck.nb_step)
         state_pre = state
         if replicated:
             # f32: the amplitude resync bounds the incremental A(k) drift
@@ -245,11 +243,10 @@ def _run(args, outdir: str, logger) -> int:
                                  args.profile_axis)
         if args.widom > 0:
             # ghosts in replica 0's current (refreshed) configuration, drawn
-            # from a generator of the block's own: the chain's is not
+            # from a key folded off the chain's: the chain's key is not
             # advanced, so the diagnostic never perturbs the trajectory
             B_blk = widom_factor(widom_block(
-                spec, state, args.widom,
-                generator=widom_generator(seed, block, device)))
+                spec, state, args.widom, key=widom_key(state, block)))
             widom_sum += B_blk
             widom_blocks += 1
             writer.write_widom(block, act_names, B_blk,
@@ -260,7 +257,8 @@ def _run(args, outdir: str, logger) -> int:
                        f"{rep['drift_K']:.3e} K")
         if args.checkpoint:
             from .io.checkpoint import save_checkpoint
-            save_checkpoint(args.checkpoint, spec, state, block, gen)
+            save_checkpoint(args.checkpoint, spec, state, block,
+                            single_chain=not replicated)
 
     elapsed = time.time() - t0
     snap = snapshot(spec, state)
@@ -294,7 +292,7 @@ def _run(args, outdir: str, logger) -> int:
     return 0
 
 
-def _run_isotherm(args, outdir: str, logger, sysm, gen, t0: float) -> int:
+def _run_isotherm(args, outdir: str, logger, sysm, t0: float) -> int:
     """Adsorption-isotherm sweep: every listed fugacity is a batch of
     replica chains with its own per-replica activity
     (parallel/replicas.run_block_sweep). The reference produces an isotherm
@@ -354,7 +352,7 @@ def _run_isotherm(args, outdir: str, logger, sysm, gen, t0: float) -> int:
     prod_e = []                       # per-block (npts, reps) total energy
     for block in range(1, deck.nb_block + 1):
         states = run_block_sweep(spec_sweep, states, deck.nb_step,
-                                 deck.recalibrate_moves, f32, gen)
+                                 deck.recalibrate_moves, f32)
         n = states.n_mol[:, act_ids].cpu().numpy().reshape(npts, reps,
                                                            len(act_ids))
         mean_n = n.mean(axis=1)       # (npts, n_active)

@@ -21,6 +21,10 @@ Three kernels serve the MC paths on a CUDA device:
   resync for B replicas, the counterpart of maniac_tpu/kernels/resync.py
   ``_resyncg_kernel``, and at B = 1 of ``_resync_kernel``.
 
+Every block draws its uniforms through ``threefry.split_uniform``
+(csrc/threefry.cu, no gate: any spec, f32 or f64), which splits each
+replica's threefry key and writes the block's uniforms, JAX's stream.
+
 Beside them, off the MC paths and without a gate: ``hwprobe.onehot_product``
 (csrc/hwprobe.cu), stage 1 of the hardware-precision probe
 (utils/hwprobe.py), and the micro-benchmarks ``gpass.gpass``
@@ -77,11 +81,13 @@ def step_gate_failure(spec) -> str | None:
     None. It takes any number of active species, with the framework split
     on or off (an inactive type without the split included), an
     orthorhombic or a triclinic box, one activity table or one per replica,
-    and a reservoir."""
-    if spec.dtype_name != "float32":
-        return f"dtype {spec.dtype_name} (the kernels take float32)"
+    and a reservoir. Tabulated potentials (use_table) are named first, in
+    any dtype: they take the plain torch step on every device, as the JAX
+    package runs them on XLA (maniac_tpu/kernels/__init__.py)."""
     if spec.use_table:
         return "tabulated potentials"
+    if spec.dtype_name != "float32":
+        return f"dtype {spec.dtype_name} (the kernels take float32)"
     return _table_limit_failure(spec)
 
 

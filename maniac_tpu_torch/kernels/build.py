@@ -38,7 +38,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 LAUNCHERS = ("resync_launch", "blockg_launch", "stepg_launch", "onehot_launch",
              "vpu_chain_launch", "cpass_launch", "gpass_launch",
-             "noop_launch", "prim_check_launch")
+             "noop_launch", "prim_check_launch", "threefry_launch")
 
 # last build's wall time in seconds (0.0 when the cached library was used)
 # and the compiler's output (ptxas -v: registers, shared memory, spills)

@@ -2,8 +2,9 @@
 
 Counterpart of maniac_tpu/mc/driver.py (see there for the reference's
 block loop and the documented recalibration divergence). Every function
-works on a batched SimState (leading replica axis B). Uniforms come from an
-explicit ``torch.Generator`` or are passed in, shaped (B, n_steps, 21).
+works on a batched SimState (leading replica axis B). Uniforms come from
+each replica's threefry key (draw_uniforms, as the JAX package draws them)
+or are passed in, shaped (B, n_steps, 21).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..constants import (MAX_ROTATION_ANGLE, MAX_TRANSLATION_STEP,
 from ..physics.energy import (active_site_mask, full_amplitudes, recip_energy,
                               site_positions, system_energy)
 from ..system import E_RECIP, E_TOT, SimState, SystemSpec
-from .moves import N_UNIFORMS, _core_plain, mc_step_u
+from .moves import _core_plain, mc_step_u
 
 
 def initialize_state(spec: SystemSpec, state: SimState) -> SimState:
@@ -52,11 +53,15 @@ def _recalibrate(state: SimState, recalibrate: bool) -> SimState:
     return state.replace(trans_step=trans, rot_step=rot)
 
 
-def draw_uniforms(spec: SystemSpec, B: int, n_steps: int,
-                  generator: torch.Generator) -> torch.Tensor:
-    """(B, n_steps, 21) uniforms in the spec dtype on the spec device."""
-    return torch.rand((B, n_steps, N_UNIFORMS), generator=generator,
-                      device=spec.device, dtype=spec.dtype)
+def draw_uniforms(spec: SystemSpec, state: SimState, n_steps: int):
+    """One block's uniforms from the replicas' keys, as maniac_tpu/mc/
+    driver.py::run_steps draws them: per replica (key, sub) = split(key)
+    and uniform(sub, (n_steps, 21)) in the spec dtype. Returns (the state
+    with the next keys, the (B, n_steps, 21) uniforms); on the card one
+    launch of kernels/threefry.py's kernel."""
+    from ..kernels.threefry import split_uniform
+    key, u = split_uniform(state.key, n_steps, spec.dtype)
+    return state.replace(key=key), u
 
 
 def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
@@ -93,9 +98,10 @@ def block_body_u(spec: SystemSpec, state: SimState, uniforms,
 
 
 def block_body(spec: SystemSpec, state: SimState, n_steps: int,
-               recalibrate: bool, generator: torch.Generator) -> SimState:
-    """One block on the per-step path: n_steps MC steps + recalibration."""
-    u = draw_uniforms(spec, state.B, n_steps, generator)
+               recalibrate: bool) -> SimState:
+    """One block on the per-step path: n_steps MC steps from the state's
+    keys (draw_uniforms) + recalibration."""
+    state, u = draw_uniforms(spec, state, n_steps)
     return block_body_u(spec, state, u, recalibrate)
 
 

@@ -14,10 +14,10 @@ and the per-species Widom factor over n trials is
 
 The trials of all active species run as one batch through the plain torch
 energy path (the JAX package runs Widom on XLA; there is no kernel to
-port), on the caller's device. Their uniforms come from a generator of
-their own (``widom_generator``: seeded per block from the run's seed and
-the block number, so the chain's generator never advances and a resumed
-run draws the same ghosts) or are passed in.
+port), on the caller's device. Their uniforms come from a key of their
+own (``widom_key``: the reported replica's key folded with WIDOM_TAG and
+the block, as maniac_tpu/cli.py folds it, so the chain's key never
+advances and a resumed run draws the same ghosts) or are passed in.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ..physics.energy import (active_site_mask, amp_delta, intra_energy,
                               pair_energy_footprint, recip_energy_delta,
                               site_positions)
 from ..system import SimState, SystemSpec
+from ..utils.threefry import fold_in, uniform
 from .moves import _uniform_rotation
 
 N_WIDOM_UNIFORMS = 6       # fractional COM (3), the rotation draw (3)
@@ -73,30 +74,28 @@ def widom_delta_u(spec: SystemSpec, state: SimState, u, t_ins):
             + intra_energy(spec, P[:, 0], q[:, 0], mask[:, 0]))
 
 
-def widom_generator(seed: int, block: int, device) -> torch.Generator:
-    """The generator of block ``block``'s ghosts: seeded from the run's
-    seed, the block number and WIDOM_TAG, apart from the chain's stream."""
-    gen = torch.Generator(device=device)
-    entropy = [WIDOM_TAG, seed % 2**64, block]
-    gen.manual_seed(int(np.random.SeedSequence(entropy)
-                        .generate_state(1, np.uint64)[0]))
-    return gen
+def widom_key(state: SimState, block: int) -> torch.Tensor:
+    """The key of block ``block``'s ghosts, on the state's device:
+    fold_in(fold_in(key of replica 0, WIDOM_TAG), block), as
+    maniac_tpu/cli.py derives it. The tag keeps the draws apart from the
+    chain's split() stream."""
+    return fold_in(fold_in(state.key[0], WIDOM_TAG), block)
 
 
 def widom_block(spec: SystemSpec, state: SimState, n_trials: int,
-                generator: torch.Generator | None = None, uniforms=None):
+                key: torch.Tensor | None = None, uniforms=None):
     """Per-active-species LOG Widom factor ln< exp(-dU/T) > over n_trials
     ghost insertions into replica 0 of ``state``. Returns (n_active,).
 
-    The uniforms, (n_trials, n_active, 6) as the JAX package draws them,
-    come from ``generator`` or are passed as ``uniforms``. Max-shifted
+    The uniforms, (n_trials, n_active, 6), are uniform(key, ...) as
+    maniac_tpu/mc/widom.py::widom_block draws them (a few thousand values,
+    drawn where the key lies), or are passed as ``uniforms``. Max-shifted
     (log-sum-exp), so that one deeply attractive trial (exp(-dU/T)
     overflows f32 past -dU/T = 88) degrades the estimate instead of
     poisoning it with inf; hosts convert to B in f64 (widom_factor)."""
     shape = (n_trials, spec.n_active, N_WIDOM_UNIFORMS)
     if uniforms is None:
-        uniforms = torch.rand(shape, generator=generator, dtype=spec.dtype,
-                              device=spec.device)
+        uniforms = uniform(key, shape, spec.dtype)
     u = torch.as_tensor(uniforms, dtype=spec.dtype, device=spec.device)
     types = spec.active_type_ids.long().expand(n_trials, -1)
     du = widom_delta_u(spec, state, u.reshape(-1, N_WIDOM_UNIFORMS),

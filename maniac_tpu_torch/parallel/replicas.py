@@ -2,10 +2,11 @@
 
 Counterpart of maniac_tpu/parallel/replicas.py. Replicas are the leading
 axis of every SimState tensor; they start from one state and differ only
-through the uniforms each one consumes (and, in an isotherm sweep, their
-activities). A spec inside a kernel's gate goes through the kernel's
-wrapper, which launches kernels/csrc/blockg.cu or kernels/csrc/resync.cu
-for CUDA tensors and runs its plain version for CPU tensors; a block
+through the uniforms each one draws from its own key (and, in an isotherm
+sweep, their activities). A spec inside a kernel's gate goes through the
+kernel's wrapper, which launches kernels/csrc/blockg.cu or
+kernels/csrc/resync.cu for CUDA tensors and runs its plain version for
+CPU tensors; a block
 outside the whole-block gate runs the per-step path, whose steps are
 kernels/csrc/stepg.cu, one launch a step, under the same rule
 (kernels.dispatch_report says which).
@@ -21,12 +22,17 @@ from ..kernels import block_gate_failure
 from ..mc.driver import (_recalibrate, draw_uniforms, resync_amplitudes,
                          run_steps_u)
 from ..system import SimState, SystemSpec
+from ..utils.threefry import split
 
 
 def replicate(spec: SystemSpec, state: SimState, n_replicas: int) -> SimState:
-    """Broadcast replica 0 of ``state`` into n_replicas chains (copies)."""
-    return SimState(**{k: v[:1].expand(n_replicas, *v.shape[1:]).contiguous()
-                       for k, v in vars(state).items()})
+    """Broadcast replica 0 of ``state`` into n_replicas chains (copies),
+    each with its own key: split(replica 0's key, n_replicas), computed on
+    the host, as maniac_tpu/parallel/replicas.py::replicate does."""
+    out = SimState(**{k: v[:1].expand(n_replicas, *v.shape[1:]).contiguous()
+                      for k, v in vars(state).items()})
+    return out.replace(key=split(state.key[0].cpu(), n_replicas)
+                       .to(state.key.device))
 
 
 def perturb_activity(spec: SystemSpec, activities) -> SystemSpec:
@@ -52,11 +58,10 @@ def run_block_uniforms(spec: SystemSpec, states: SimState, uniforms,
 
 
 def run_block_replicated(spec: SystemSpec, states: SimState, n_steps: int,
-                         recalibrate: bool, resync: bool,
-                         generator: torch.Generator) -> SimState:
-    """One block over all replicas with uniforms drawn from ``generator``
-    (on the states' device)."""
-    u = draw_uniforms(spec, states.B, n_steps, generator)
+                         recalibrate: bool, resync: bool = False) -> SimState:
+    """One block over all replicas with uniforms drawn from their keys
+    (draw_uniforms)."""
+    states, u = draw_uniforms(spec, states, n_steps)
     return run_block_uniforms(spec, states, u, recalibrate, resync)
 
 
@@ -75,8 +80,8 @@ def run_block_sweep_uniforms(spec: SystemSpec, states: SimState, uniforms,
 
 
 def run_block_sweep(spec: SystemSpec, states: SimState, n_steps: int,
-                    recalibrate: bool, resync: bool,
-                    generator: torch.Generator) -> SimState:
-    """run_block_sweep_uniforms with uniforms drawn from ``generator``."""
-    u = draw_uniforms(spec, states.B, n_steps, generator)
+                    recalibrate: bool, resync: bool = False) -> SimState:
+    """run_block_sweep_uniforms with uniforms drawn from the replicas'
+    keys (draw_uniforms)."""
+    states, u = draw_uniforms(spec, states, n_steps)
     return run_block_sweep_uniforms(spec, states, u, recalibrate, resync)

@@ -37,9 +37,30 @@ def active_site_mask(spec: SystemSpec, n_mol) -> torch.Tensor:
     return spec.site_midx[None, :] < n_site
 
 
-def _check_plain(spec: SystemSpec):
-    if spec.use_table:
-        raise NotImplementedError("tabulated potentials are not ported yet")
+def tab_lookup(table, dx, r):
+    """Linear interpolation with the reference's LookupTabulated semantics
+    (src/tabulated_utils.f90:92-117), as maniac_tpu/physics/energy.py::
+    tab_lookup: r <= 0 gives f[0], r at or beyond the grid's end 0,
+    otherwise the lerp between the bracketing grid points."""
+    n = table.shape[0] - 1
+    x = r / dx
+    i = torch.clamp(torch.floor(x).long(), 0, n - 1)
+    t = x - i.to(r.dtype)
+    val = (1.0 - t) * table[i] + t * table[i + 1]
+    val = torch.where(r >= n * dx, 0.0, val)
+    return torch.where(r <= 0.0, table[0], val)
+
+
+def _tab_lj(spec: SystemSpec, eps, sig2, r):
+    """Tabulated LJ: sigma^12 / interp(r^12) - sigma^6 / interp(r^6)
+    (reference LennardJonesEnergy, src/energy_utils.f90:190-219), the
+    interpolated denominators floored against the r ~ 0 pole of masked
+    pairs, as the JAX package floors them."""
+    sig6 = sig2 * sig2 * sig2
+    den6 = torch.clamp(tab_lookup(spec.tab_r6, spec.tab_dx, r), min=_R2_FLOOR)
+    den12 = torch.clamp(tab_lookup(spec.tab_r12, spec.tab_dx, r),
+                        min=_R2_FLOOR)
+    return 4.0 * eps * (sig6 * sig6 / den12 - sig6 / den6)
 
 
 def pair_energy_footprint(spec: SystemSpec, others_pos, others_mask,
@@ -52,8 +73,9 @@ def pair_energy_footprint(spec: SystemSpec, others_pos, others_mask,
     (e_lj, e_coul), each (B, F), in Kelvin. Sites of molecule slots
     exclude_mol_a/b are skipped. With ``fw_split`` the frozen columns take
     the short erfc(alpha2 r)/r cut at rcut2 plus the far-field grid term;
-    with ``gg_cut`` the mobile-pair erfc(alpha r)/r is cut at gg_rcut."""
-    _check_plain(spec)
+    with ``gg_cut`` the mobile-pair erfc(alpha r)/r is cut at gg_rcut; with
+    ``use_table`` LJ and Coulomb come from the tables (tab_lookup), whose
+    Coulomb ends at the grid's end, the real-space cutoff."""
     delta = others_pos[:, None, None, :, :] - mov_pos[:, :, :, None, :]
     r2 = torch.clamp(min_image_dist2(delta, spec), min=_R2_FLOOR)  # (B,F,A,S)
 
@@ -68,13 +90,20 @@ def pair_energy_footprint(spec: SystemSpec, others_pos, others_mask,
     inv_r2 = 1.0 / r2
     inv_r = torch.sqrt(inv_r2)
     r = r2 * inv_r
-    sr2 = sig2 * inv_r2
-    sr6 = sr2 * sr2 * sr2
-    lj = 4.0 * eps * (sr6 * sr6 - sr6)
+    if spec.use_table:
+        lj = _tab_lj(spec, eps, sig2, r)
+    else:
+        sr2 = sig2 * inv_r2
+        sr6 = sr2 * sr2 * sr2
+        lj = 4.0 * eps * (sr6 * sr6 - sr6)
     lj_mask = mask & (r2 < spec.cutoff * spec.cutoff)
     e_lj = torch.where(lj_mask, lj, 0.0).sum(dim=(2, 3))
 
     qq = mov_q[..., None] * spec.site_q
+    if spec.use_table:
+        coul = qq * tab_lookup(spec.tab_erfc, spec.tab_dx, r)
+        e_coul = torch.where(mask, coul, 0.0).sum(dim=(2, 3)) * COULOMB_K
+        return e_lj, e_coul
     coul = qq * torch.erfc(spec.alpha * r) * inv_r
     if spec.gg_cut:
         coul = coul * (r2 < spec.gg_rcut * spec.gg_rcut)
@@ -294,7 +323,6 @@ def full_pair_energy(spec: SystemSpec, pos, active):
     chunked over rows (reference: ComputePairwiseEnergy,
     src/energy_utils.f90:83-187). pos (B, S, 3), active (B, S) -> (B,)
     twice."""
-    _check_plain(spec)
     S = spec.S
     chunk = _chunk_for(S)
     site_cls = spec.site_cls.long()
@@ -310,13 +338,19 @@ def full_pair_energy(spec: SystemSpec, pos, active):
         eps = spec.eps_cls[site_cls[i]][:, site_cls]             # (ch, S)
         sig = spec.sig_cls[site_cls[i]][:, site_cls]
         r = torch.sqrt(r2)
-        sr2 = (sig * sig) / r2
-        sr6 = sr2 * sr2 * sr2
-        lj = 4.0 * eps * (sr6 * sr6 - sr6)
+        if spec.use_table:
+            lj = _tab_lj(spec, eps, sig * sig, r)
+        else:
+            sr2 = (sig * sig) / r2
+            sr6 = sr2 * sr2 * sr2
+            lj = 4.0 * eps * (sr6 * sr6 - sr6)
         lj_mask = mask & (r2 < spec.cutoff * spec.cutoff)
         e_lj = e_lj + torch.where(lj_mask, lj, 0.0).sum(dim=(1, 2))
         qq = spec.site_q[i][:, None] * spec.site_q[None, :]
-        coul = qq * torch.erfc(spec.alpha * r) / r
+        if spec.use_table:
+            coul = qq * tab_lookup(spec.tab_erfc, spec.tab_dx, r)
+        else:
+            coul = qq * torch.erfc(spec.alpha * r) / r
         if spec.gg_cut:
             coul = coul * (r2 < spec.gg_rcut * spec.gg_rcut)
         if spec.fw_split:

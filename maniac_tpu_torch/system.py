@@ -9,14 +9,14 @@ Differences from the JAX data model:
 
 * ``SimState`` is batched: every field has a leading replica axis B
   (``pos`` is (B, 3, S), ``energy`` (B, 6), ...). A single chain is B = 1.
-  It holds no PRNG key; randomness comes from an explicit
-  ``torch.Generator``.
+  Its ``key`` holds each replica's threefry key, JAX's uint32 words as
+  int64 (utils/threefry.py), so one seed walks the JAX package's chain.
 * The spec keeps only the tables the port reads. The TPU layouts (ghost-
-  sorted framework windows, 8-row LJ slabs, row selectors) and the
-  tabulated-potential tables are not built. The 27 lattice image shifts
-  of the triclinic minimum image, the reservoir tables and the reservoir
-  state are the JAX package's, with the same minimal dummies (one slot per
-  type) when there is no reservoir.
+  sorted framework windows, 8-row LJ slabs, row selectors) are not built.
+  The 27 lattice image shifts of the triclinic minimum image, the
+  reservoir tables and state, and the tabulated potentials' tables are the
+  JAX package's, with the same minimal dummies (one slot per type, two
+  table points) when there is no reservoir or table.
 * Dense-grid column index tables (``k_col_jx``/``k_col_jy`` and the far-
   grid ``k2_col_*``) are derived from the 0/1 selectors ``ex_sel``/
   ``ey_sel``: the port reads phase powers by index instead of expanding
@@ -43,13 +43,16 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from scipy.special import erfc as erfc_np
 
-from .constants import ATM_TO_PA, A3_TO_M3, COULOMB_K, ERFC_DECAY, KB_JK, SQRTPI
+from .constants import (ATM_TO_PA, A3_TO_M3, COULOMB_K, ERFC_DECAY, KB_JK,
+                        SMALL, SQRTPI)
 from .ewald import EwaldSetup
 from .geometry import image_shifts
 from .io.deck import InputDeck
 from .io.lammps_data import ParsedSystem
 from .physics.fwsplit import build_far_table
+from .utils.threefry import prng_key
 
 # energy component indices (internal unit: Kelvin)
 E_RECIP, E_LJ, E_COUL, E_SELF, E_INTRA, E_TOT = range(6)
@@ -149,6 +152,13 @@ class SystemSpec:
     res_cap: torch.Tensor             # (R,) int32
     res_H: torch.Tensor               # (3,3) reservoir cell vectors
     res_bounds_lo: torch.Tensor       # (3,)
+    # tabulated pair potentials (use_table; maniac_tpu/system.py): (P+1,)
+    # grids over [0, cutoff] spaced tab_dx, read by physics/energy.py
+    # tab_lookup; size-2 dummies without a table
+    tab_erfc: torch.Tensor            # erfc(alpha r)/r; f(0) 2 alpha/sqrt(pi)
+    tab_r6: torch.Tensor              # r^6 (f(0) = 0)
+    tab_r12: torch.Tensor             # r^12 (f(0) = 0)
+    tab_dx: torch.Tensor              # () grid spacing
     # --- static metadata ---
     R: int
     A_list: tuple
@@ -208,6 +218,7 @@ class SimState:
     extras: torch.Tensor      # (B, 4) int32: overflow rejections, ...
     trans_step: torch.Tensor  # (B,)
     rot_step: torch.Tensor    # (B,)
+    key: torch.Tensor         # (B, 2) int64 threefry key words
     res_com: torch.Tensor     # (B, Mres+1, 3) reservoir molecule COMs
     res_offset: torch.Tensor  # (B, Sres, 3) reservoir site offsets
     res_n: torch.Tensor       # (B, R+1) int32 reservoir populations
@@ -330,15 +341,17 @@ def _state_from_arrays(arrays: dict) -> SimState:
     batched = np.ndim(arrays["pos"]) == 3
     for f in dataclasses.fields(SimState):
         a = np.asarray(arrays[f.name])
-        kw[f.name] = _host_tensor(a if batched else a[None])
+        a = a if batched else a[None]
+        # the key's uint32 words do not fit int32
+        kw[f.name] = (torch.from_numpy(a.astype(np.int64)) if f.name == "key"
+                      else _host_tensor(a))
     return SimState(**kw)
 
 
 def state_from_numpy(state_arrays: dict, *, device, dtype) -> SimState:
-    """SimState leaves (numpy arrays keyed by field name) -> the port's
-    SimState on ``device``, floating fields in ``dtype``. Leaves the port
-    does not keep (the JAX PRNG key) are ignored; a single-chain state gains
-    B = 1."""
+    """SimState leaves (numpy arrays keyed by field name, the JAX package's
+    uint32 key included) -> the port's SimState on ``device``, floating
+    fields in ``dtype``; a single-chain state gains B = 1."""
     return to_device(_state_from_arrays(state_arrays), device, dtype)
 
 
@@ -346,8 +359,8 @@ def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
     """JAX SystemSpec/SimState leaves (numpy arrays and meta values keyed by
     field name) -> the port's (SystemSpec, SimState) on ``device``.
 
-    Leaves the port does not keep (TPU window tables, the PRNG key) are
-    ignored; a single-chain state gains B = 1."""
+    Spec leaves the port does not keep (TPU window tables) are ignored; the
+    state's PRNG key is carried over; a single-chain state gains B = 1."""
     spec = _spec_from_leaves(spec_arrays)
     return (to_device(spec, device, dtype),
             state_from_numpy(state_arrays, device=device, dtype=dtype))
@@ -371,9 +384,9 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
                          ) -> tuple[SystemSpec, SimState]:
     """Host-side (float64) system assembly; same layout and values as
     maniac_tpu/system.py::build_spec_and_state. The state has B = 1 and
-    zero energies/amplitudes (driver.initialize_state fills them)."""
-    if bool(getattr(deck, "use_table", False)):
-        raise NotImplementedError("tabulated potentials are not ported yet")
+    zero energies/amplitudes (driver.initialize_state fills them) and
+    the key of the deck's seed (0 when it has none), as the JAX package's
+    state."""
     R = deck.n_residue_types
     A_list = tuple(int(r.nb_atoms) for r in deck.residues)
     active = [bool(r.active) for r in deck.residues]
@@ -513,6 +526,12 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
                 mol_rad = max(mol_rad, float(
                     np.max(np.linalg.norm(offs, axis=-1))))
     fw_mode = getattr(deck, "framework_split", "auto")
+    use_table = bool(getattr(deck, "use_table", False))
+    if use_table:
+        # tables replace the direct pair math wholesale, and the split's
+        # erfc(alpha2 r) short form has no table (io/deck.py aborts on
+        # framework_split on with use_table)
+        fw_mode = "off"
     from .physics.fwsplit import build_fwsplit
     fws = build_fwsplit(
         box, float(ewald.alpha), float(ewald.real_space_cutoff),
@@ -548,10 +567,28 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
 
     # ---- guest<->guest honest Coulomb cutoff (DIVERGENCES.md #22) --------
     gg_mode = getattr(deck, "guest_split", "auto")
-    gg_cut = gg_mode in ("auto", "on")
+    # a table returns 0 beyond its grid: its own cutoff, so no gate
+    gg_cut = gg_mode in ("auto", "on") and not use_table
     gg_rcut = float(getattr(deck, "gg_rcut", 0.0) or 0.0)
     if not gg_rcut:
         gg_rcut = ERFC_DECAY / float(ewald.alpha)
+
+    # ---- tabulated pair potentials (opt-in) ------------------------------
+    # P+1 points over [0, cutoff] in f64, as the reference builds them
+    # (src/tabulated_utils.f90:21-88): erfc(alpha r)/r with f(0) = 2
+    # alpha/sqrt(pi), r^6 and r^12 with f(0) = 0
+    if use_table:
+        P = int(getattr(deck, "tabulated_points", 5000))
+        tab_dx = float(ewald.real_space_cutoff) / P
+        r_grid = np.arange(P + 1) * tab_dx
+        with np.errstate(divide="ignore", invalid="ignore"):
+            tab_erfc = np.where(
+                r_grid < SMALL, 2.0 * ewald.alpha / SQRTPI,
+                erfc_np(ewald.alpha * r_grid) / np.maximum(r_grid, 1e-300))
+        tab_r6 = np.where(r_grid < SMALL, 0.0, r_grid ** 6)
+        tab_r12 = np.where(r_grid < SMALL, 0.0, r_grid ** 12)
+    else:
+        tab_dx, tab_erfc, tab_r6, tab_r12 = 1.0, *np.zeros((3, 2))
 
     arrays = dict(
         H=box.matrix, Hinv=box.reciprocal, bounds=box.bounds,
@@ -573,7 +610,8 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         type_cls_rows=type_cls_rows, active_type_ids=active_ids,
         p_cum=p_cum, res_type_site_base=res_site_base,
         res_type_mol_base=res_mol_base, res_cap=np.asarray(res_cap_list),
-        res_H=res_H, res_bounds_lo=res_lo, **fw)
+        res_H=res_H, res_bounds_lo=res_lo, tab_erfc=tab_erfc, tab_r6=tab_r6,
+        tab_r12=tab_r12, tab_dx=tab_dx, **fw)
     meta = dict(
         R=R, A_list=A_list, cap_list=cap_list, active_list=tuple(active),
         A_act=A_act, n_active=len(active_ids), S=S, Mtot=Mtot, K=K,
@@ -581,7 +619,7 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         dtype_name="float64", has_reservoir=has_res,
         kmax_xyz=tuple(int(k) for k in ewald.kmax),
         amp_shape=tuple(ewald.grid2_shape), fw_split=bool(fws.enabled),
-        site_base_list=tuple(base_list), use_table=False,
+        site_base_list=tuple(base_list), use_table=use_table,
         gg_cut=bool(gg_cut), gg_rcut=float(gg_rcut),
         res_cap_list=res_cap_list, **fw_meta)
     spec = _spec_from_leaves({**arrays, **meta})
@@ -595,7 +633,8 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         extras=np.zeros(4, np.int32),
         trans_step=np.float64(deck.translation_step),
         rot_step=np.float64(deck.rotation_step_angle),
-        res_com=res_com, res_offset=res_offset, res_n=res_n))
+        key=prng_key(deck.seed or 0).numpy(), res_com=res_com,
+        res_offset=res_offset, res_n=res_n))
     return spec, state
 
 

@@ -127,13 +127,12 @@ def step_cells(seed: int = 1234) -> dict:
             res = make_water_reservoir(tmp, **reservoir) if reservoir else None
             return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
                                f"{tmp}/parameters.inc", reservoir_file=res,
-                               capacity=192, dtype=torch.float32, device=dev)
+                               capacity=192, dtype=torch.float32, device=dev,
+                               seed=seed)
     zif = load(make_zif_like, n_cells=6, a=5.66, n_water=32, fugacity=30.0)
     spec = zif.spec
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     states = run_block_replicated(spec, replicate(spec, zif.state, 1024),
-                                  400, False, True, gen)
+                                  400, False, True)
     resv = load(make_water_box, reservoir=dict(n_water=96, L=24.0),
                 n_water=48, L=24.0, cutoff=8.0, tol=1e-5,
                 probs=(0.3, 0.2, 0.5, 0.0), fugacity=4000.0)
@@ -150,13 +149,11 @@ def step_cells(seed: int = 1234) -> dict:
 def step_times(seed: int = 1234, reps: int = 3) -> dict:
     """{cell: {"host-paced": ms, "device-paced": ms, "activities": n,
     "device busy": ms}}, each per step, of run_steps_u on STEPS_TIMED
-    steps of each cell (step_cells)."""
+    steps of each cell (step_cells), on uniforms from the cell's keys."""
     from ..mc.driver import draw_uniforms, run_steps_u
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed + 1)
     out = {}
     for cell, (spec, states) in step_cells(seed).items():
-        u = draw_uniforms(spec, states.B, STEPS_TIMED, gen)
+        _, u = draw_uniforms(spec, states, STEPS_TIMED)
 
         def call():
             return run_steps_u(spec, states, u)

@@ -15,7 +15,7 @@ enqueues them); device-paced times are the smallest of three passes
 timed device-paced at twice the work (200 steps; n 1024), with the ratio,
 which is near 2 when every step and iteration is computed (GROWTH_MIN is
 the least chip_smoke.py accepts). ``--sass DIR`` writes
-``cuobjdump -sass`` of the K6, K7 and K8 kernels into DIR and prints,
+``cuobjdump -sass`` of the K6, K7, K8 and T kernels into DIR and prints,
 for each innermost loop, its instructions a pair (K7: an application of
 the op) by class (FP32 pipe, MUFU, conversions, integer and the rest; the
 out-of-line slow paths that normal operands never run left out) and the
@@ -23,17 +23,19 @@ issue-slot floor they give at 128 instructions and 16 MUFU or conversion
 results per SM a clock; for K7's nine chains also the pass's floor in ms
 (an application's floor times the plane's element-ops over the SMs, at
 the card's maximum SM clock) and the share of it the device-paced time
-reaches. When it times K6 it also reads the SM clock and power draw
-while K6 runs. A run that builds the library prints the K6 and
-K8 kernels' registers and spills. ``--kernels`` times only the kernels
-named. ``--prims`` runs the exhaustive check of csrc/prims.cuh's
-primitives (kernels/vpu.prim_check) over each stated domain and over
-every positive finite float, and prints the widest interval around 1
-with no mismatch.
+reaches; for T's f32 kernel, which has no loop, its instructions a value
+by pipe (threefry_mix) and the floor they give at the main path's (1024,
+400, 21), where chip_smoke.py phase 13b times it. When it times K6 it
+also reads the SM clock and power draw while K6 runs. A run that builds
+the library prints the K6 and K8 kernels' registers and spills.
+``--kernels`` times only the kernels named. ``--prims`` runs the
+exhaustive check of csrc/prims.cuh's primitives (kernels/vpu.prim_check)
+over each stated domain and over every positive finite float, and prints
+the widest interval around 1 with no mismatch.
 
-The file imports only what the package has had since K6-K8 were ported
-and kernel_times.device_ms, so a copy of it in an earlier tree times that
-tree the same way.
+Without ``--sass`` the file imports only what the package has had since
+K6-K8 were ported and kernel_times.device_ms, so a copy of it in an
+earlier tree times that tree the same way.
 """
 
 from __future__ import annotations
@@ -289,6 +291,69 @@ def chain_mix(ops: collections.Counter, op: str) -> tuple[int, dict, float]:
     return _mix(ops, marks // per_app)
 
 
+# the issue of an H100 SM, in lanes (instructions of one thread) an SM
+# clock: four partitions, each one warp instruction a clock, so 128 lanes
+# in all; of them 64 on the integer ALU (shifts, logic, three-input adds,
+# LEA, compares) and 64 on the FMA pipe's half that runs IMAD, which FP32
+# work shares with the other half (128 lanes). Special registers (S2R)
+# take issue only.
+DISPATCH_LANES, ALU_LANES, IMAD_LANES, FMA_LANES = 128, 64, 64, 128
+SPECIAL = {"S2R", "S2UR", "CS2R"}
+
+
+def pipe(op: str) -> str:
+    """The pipe an opcode issues to: "imad", "alu", "special" or its
+    _classify class (fp32, memory, control, uniform, ...)."""
+    base = op.split(".")[0]
+    if base == "IMAD":
+        return "imad"
+    if base in SPECIAL:
+        return "special"
+    cls = _classify(op)
+    return "alu" if cls == "integer" else cls
+
+
+def pipe_floor(mix: dict) -> float:
+    """SM clocks a unit of ``mix`` ({pipe: instructions a unit}): the
+    larger of all over the issue lanes, the ALU's over its lanes, IMAD's
+    over its lanes, and IMAD and FP32 together over the FMA pipe's."""
+    return max(sum(mix.values()) / DISPATCH_LANES,
+               mix.get("alu", 0) / ALU_LANES,
+               mix.get("imad", 0) / IMAD_LANES,
+               (mix.get("imad", 0) + mix.get("fp32", 0)) / FMA_LANES)
+
+
+T_CTA_WARPS = 8  # csrc/threefry.cu's THREADS over 32
+# T on the main path: a (B, n_steps, 21) f32 draw
+T_VALUES = 1024 * 400 * 21
+
+
+def threefry_mix(insns) -> tuple[dict, dict]:
+    """T's kernel from its SASS, which has no loop: ({pipe: instructions}
+    that every thread issues once, up to its last unpredicated EXIT;
+    {pipe: instructions} of warp 0's split, which the first predicated
+    forward branch skips for the other warps: issued by one warp a CTA,
+    at most all of them)."""
+    k0 = next(k for k, (a, _, t, pred) in enumerate(insns)
+              if pred and t is not None and t > a)
+    lo, hi = insns[k0][0], insns[k0][2]
+    end = max(a for a, op, _, pred in insns if op == "EXIT" and not pred)
+    every, warp0 = collections.Counter(), collections.Counter()
+    for a, op, _, _ in insns:
+        if a <= end:
+            (warp0 if lo < a < hi else every)[pipe(op)] += 1
+    return dict(every), dict(warp0)
+
+
+def threefry_floor(every: dict, warp0: dict) -> tuple[float, float]:
+    """(SM clocks a value without warp 0's split, with it): the split's
+    warp instructions take the slots of 32 lanes each, spread over a CTA's
+    T_CTA_WARPS x 32 values."""
+    spread = {p: every.get(p, 0) + warp0.get(p, 0) / T_CTA_WARPS
+              for p in set(every) | set(warp0)}
+    return pipe_floor(every), pipe_floor(spread)
+
+
 def _cuobjdump() -> str:
     for path in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
         if path and Path(path).exists():
@@ -319,12 +384,12 @@ def chain_op(fn: str):
     return VPU_OPS[int(m.group(1))] if m else None
 
 
-def sass_report(out_dir: str) -> dict:
-    """cuobjdump -sass of the K6, K7 and K8 kernels into out_dir, each
-    innermost loop's mix a pair, and K7's an application. Returns {op: (the
-    loop's instructions an application, the issue floor in SM clocks an
-    application)} for K7's chains (their loop of the most
-    applications)."""
+def sass_report(out_dir: str) -> tuple[dict, tuple[float, float]]:
+    """cuobjdump -sass of the K6, K7, K8 and T kernels into out_dir, each
+    innermost loop's mix a pair, K7's an application and T's f32 kernel's
+    a value. Returns ({op: (the loop's instructions an application, the
+    issue floor in SM clocks an application)} for K7's chains (their loop
+    of the most applications), T's threefry_floor)."""
     from ..kernels import build
     text = subprocess.run(
         [_cuobjdump(), "-sass", str(build.library_path())],
@@ -335,7 +400,8 @@ def sass_report(out_dir: str) -> dict:
     chains = {chain_op(f): f for f in funcs if chain_op(f)}
     pair_fns = [f for f in funcs
                 if "cpass_kernel" in f or "gpass_kernel" in f]
-    keep = pair_fns + list(chains.values())
+    t_fn, = [f for f in funcs if "threefry_kernelIfE" in f]
+    keep = pair_fns + list(chains.values()) + [t_fn]
     blocks = text.split("Function : ")
     (d / "micro_kernels.sass").write_text("".join(
         "Function : " + b for b in blocks[1:]
@@ -371,7 +437,15 @@ def sass_report(out_dir: str) -> dict:
                   f"{c} {v:.2f}" for c, v in per.items())
               + f"; slow ops {slow}; {total:.2f} instructions, issue floor "
                 f"{floor:.4f} SM clocks an application", flush=True)
-    return k7
+    every, warp0 = threefry_mix(funcs[t_fn])
+    t_floor = threefry_floor(every, warp0)
+    print(f"sass T {t_fn}: a value {sum(every.values())} instructions ("
+          + ", ".join(f"{p} {k}" for p, k in sorted(every.items()))
+          + f"); warp 0's split a CTA at most {sum(warp0.values())} ("
+          + ", ".join(f"{p} {k}" for p, k in sorted(warp0.items()))
+          + f"); issue floor {t_floor[0]:.4f} SM clocks a value, "
+            f"{t_floor[1]:.4f} with the split", flush=True)
+    return k7, t_floor
 
 
 def chain_floor_ms(clocks: float, elem_ops: int, sms: int,
@@ -415,7 +489,7 @@ def main(argv=None) -> int:
         description="K6-K8 on the card, device- and host-paced")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sass", metavar="DIR",
-                    help="write the K6, K7 and K8 kernels' SASS into DIR "
+                    help="write the K6, K7, K8 and T kernels' SASS into DIR "
                          "and print their loops' instruction mix")
     ap.add_argument("--kernels", nargs="+", choices=("K6", "K7", "K8"),
                     default=("K6", "K7", "K8"), help="time only these")
@@ -441,7 +515,7 @@ def main(argv=None) -> int:
               f"{clock_under_load(dev)}", flush=True)
     if args.sass:
         from . import vpu_bench
-        floors = sass_report(args.sass)
+        floors, t_floor = sass_report(args.sass)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         mhz = float(clocks.split(",")[1].split()[0])
         elem_ops = vpu_bench.ROWS * vpu_bench.COLS * vpu_bench.N
@@ -452,6 +526,11 @@ def main(argv=None) -> int:
             print(f"K7 {op:6s} {insns:.2f} instructions an application, "
                   f"issue floor {fms:.4f} ms at {mhz:g} MHz on {sms} "
                   f"SMs{share} ({label})", flush=True)
+        bare, split = (chain_floor_ms(f, T_VALUES, sms, mhz)
+                       for f in t_floor)
+        print(f"T issue floor at (1024, 400, 21) {bare:.4f} ms, "
+              f"{split:.4f} with warp 0's split, at {mhz:g} MHz on {sms} "
+              f"SMs ({label})", flush=True)
     return 0
 
 

@@ -41,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.threefry import fold_in, prng_key, uniform
 from . import card_label, cuda_ms, require_cuda
 from .kernel_times import device_ms
 
@@ -86,7 +87,7 @@ def edge_replicas(spec, states, seed: int = 0):
     type with a different count."""
     if states.B < 3:
         raise ValueError("edge_replicas needs B >= 3")
-    gen = torch.Generator().manual_seed(seed)
+    key = prng_key(seed)
     n_mol, pos = states.n_mol.clone(), states.pos.clone()
     charged = _charged(spec)
     counts = {}
@@ -99,8 +100,7 @@ def edge_replicas(spec, states, seed: int = 0):
         base, A, cap = (spec.site_base_list[r], spec.A_list[r],
                         spec.cap_list[r])
         live = int(n_mol[1, r]) * A
-        fill = torch.rand((3, cap * A - live), generator=gen,
-                          dtype=torch.float64)
+        fill = uniform(fold_in(key, r), (3, cap * A - live), torch.float64)
         pos[1, :, base + live:base + cap * A] = (
             fill * spec.box_diag.cpu().double()[:, None]).to(pos)
         n_mol[0, r] = 0
@@ -109,8 +109,10 @@ def edge_replicas(spec, states, seed: int = 0):
     return states.replace(n_mol=n_mol, pos=pos)
 
 
-def load_cell(name: str, device, capacity: int = 192):
-    """load_system on one of SYSTEMS (f32, on ``device``)."""
+def load_cell(name: str, device, capacity: int = 192,
+              seed: int | None = None):
+    """load_system on one of SYSTEMS (f32, on ``device``; ``seed`` the
+    state's key, default the deck's)."""
     from .. import load_system, systems
     make, kw, reservoir = SYSTEMS[name]
     with tempfile.TemporaryDirectory() as tmp:
@@ -120,7 +122,7 @@ def load_cell(name: str, device, capacity: int = 192):
         return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
                            f"{tmp}/parameters.inc", reservoir_file=res,
                            capacity=capacity, dtype=torch.float32,
-                           device=device)
+                           device=device, seed=seed)
 
 
 def resync_cells(seed: int = 1234, blocks: int = 4) -> dict:
@@ -128,15 +130,13 @@ def resync_cells(seed: int = 1234, blocks: int = 4) -> dict:
     ``blocks`` blocks of 400 steps of the main path, made from ``seed``."""
     from .. import replicate, run_block_replicated
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     out = {}
     for name in SYSTEMS:
-        sysm = load_cell(name, dev)
+        sysm = load_cell(name, dev, seed=seed)
         states = replicate(sysm.spec, sysm.state, 1024)
         for _ in range(blocks):
             states = run_block_replicated(sysm.spec, states, 400, False,
-                                          True, gen)
+                                          True)
         out[name] = (sysm.spec, states)
     return out
 
@@ -196,18 +196,16 @@ def isotherm_blocks(seed: int = 1234, blocks: int = 3) -> tuple:
     from ..parallel.replicas import run_block_sweep
     from .kernel_times import isotherm_spec
     dev = torch.device("cuda", 0)
-    sysm = load_cell("flagship", dev)
+    sysm = load_cell("flagship", dev, seed=seed)
     spec = isotherm_spec(sysm.spec)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     states = run_block_sweep(spec, replicate(sysm.spec, sysm.state, 1024),
-                             400, True, True, gen)
+                             400, True, True)
     out = []
     for resync in (True, False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(blocks):
-            states = run_block_sweep(spec, states, 400, True, resync, gen)
+            states = run_block_sweep(spec, states, 400, True, resync)
             states.n_mol.cpu()
         out.append(time.perf_counter() - t0)
     return (*out, device_ms(lambda: resync_amplitudes(spec, states), 20))

@@ -59,14 +59,14 @@ def section_split(system: str, replicas: int, steps: int, seed: int = 1234):
     from ..kernels import build
     from ..kernels.blockg import run_block_kernel
     from ..mc.driver import draw_uniforms
+    from ..utils.threefry import prng_key
     dev = torch.device("cuda", 0)
     sysm = _load(system, dev)
     spec = sysm.spec
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    states = run_block_replicated(spec, replicate(spec, sysm.state, replicas),
-                                  steps, False, True, gen)
-    u = draw_uniforms(spec, replicas, steps, gen)
+    state = sysm.state.replace(key=prng_key(seed, dev)[None])
+    states = run_block_replicated(spec, replicate(spec, state, replicas),
+                                  steps, False, True)
+    states, u = draw_uniforms(spec, states, steps)
     ms_prod = cuda_ms(lambda: run_block_kernel(spec, states, u), 1)
     ticks = np.zeros((SECTION_REPLICAS, len(SECTIONS)), dtype=np.int64)
     with build.variant(DEFINES) as lib:

@@ -21,8 +21,9 @@ stage 3  sentinel: one more block replayed through the plain path from the
          same pre-block state and uniforms must reproduce the kernel's
          populations and counters (mc/driver.py::sentinel_check). A
          Metropolis decision at its threshold can flip under another f32
-         summation order; PROBE_SEED was checked on the card to give 0
-         mismatches (PERF.md), so the check is deterministic.
+         summation order; PROBE_SEED's threefry stream was checked on the
+         card to give 0 mismatches (PERF.md), so the check is
+         deterministic.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import tempfile
 import numpy as np
 import torch
 
-# the torch.Generator seed of stages 2-3 (checked on an NVIDIA H100 to give
-# 0 sentinel mismatches over the default 8 and 4 blocks)
+# the seed of stages 2-3's threefry keys (also the SPC/E box's placement
+# seed)
 PROBE_SEED = 20260820
 PROBE_REPLICAS = 8
 PROBE_CAPACITY = 96
@@ -91,10 +92,10 @@ def probe_rigid_geometry(blocks: int = 8, path: str = "kernel",
                          sentinel: bool = True, n_steps: int = 2000,
                          device="cuda") -> tuple[bool, str]:
     """Stages 2 and 3 on 64 SPC/E waters (capacity 96, f32, 8 replicas):
-    ``blocks`` NVT blocks of n_steps steps from a generator seeded with
-    PROBE_SEED, the geometry check, then (``sentinel``) one more block and
-    its replay. ``path`` "kernel" runs the blocks on the default dispatch
-    (run_block_uniforms), "plain" on the plain path."""
+    ``blocks`` NVT blocks of n_steps steps from keys of PROBE_SEED (split
+    over the replicas), the geometry check, then (``sentinel``) one more
+    block and its replay. ``path`` "kernel" runs the blocks on the default
+    dispatch (run_block_uniforms), "plain" on the plain path."""
     from ..api import load_system
     from ..mc.driver import (block_body_u, draw_uniforms, sentinel_check,
                              sentinel_passed)
@@ -113,22 +114,21 @@ def probe_rigid_geometry(blocks: int = 8, path: str = "kernel",
     with tempfile.TemporaryDirectory() as tmp:
         make_spce_box(tmp, n_water=64, density=0.997, temp=298.0, cutoff=6.0,
                       tol=1e-5, probs=(0.5, 0.5, 0.0, 0.0), tstep=0.25,
-                      rstep=0.4, recal=True, seed=20260820)
+                      rstep=0.4, recal=True, seed=PROBE_SEED)
         sysm = load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
                            f"{tmp}/parameters.inc", capacity=PROBE_CAPACITY,
-                           dtype=torch.float32, device=device)
+                           dtype=torch.float32, device=device,
+                           seed=PROBE_SEED)
     spec = sysm.spec
     states = replicate(spec, sysm.state, PROBE_REPLICAS)
-    gen = torch.Generator(device=spec.device)
-    gen.manual_seed(PROBE_SEED)
     for _ in range(blocks):
-        states = block(spec, states, draw_uniforms(spec, PROBE_REPLICAS,
-                                                   n_steps, gen))
+        states, u = draw_uniforms(spec, states, n_steps)
+        states = block(spec, states, u)
     dev = rigid_deviation(spec, states)
     ok = dev < RIGID_TOL
     detail = f"{blocks}x{n_steps} NVT blocks, max |d(O-H)|={dev:.3e} A"
     if sentinel:
-        u = draw_uniforms(spec, PROBE_REPLICAS, n_steps, gen)
+        states, u = draw_uniforms(spec, states, n_steps)
         post = block(spec, states, u)
         rep = sentinel_check(spec, states, post, u, True)
         ok = ok and sentinel_passed(rep)

@@ -25,8 +25,9 @@ from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS, PRIMS,
                                           VPU_OPS, VPU_RTOL, cpass,
                                           cpass_plain, f32_bits, prim_check,
                                           vpu_chain, vpu_chain_plain)
-from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
-                                        steps_plain)
+from maniac_tpu_torch.kernels.threefry import (split_uniform,
+                                               split_uniform_plain)
+from maniac_tpu_torch.mc.driver import resync_amplitudes, steps_plain
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
 from maniac_tpu_torch.kernels import build
@@ -44,6 +45,7 @@ from maniac_tpu_torch.tools.resync_times import (edge_replicas, load_cell,
                                                  replica)
 from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
 from maniac_tpu_torch.utils.hwprobe import onehot_operands, probe_onehot_exact
+from maniac_tpu_torch.utils.threefry import prng_key, split, uniform
 
 pytestmark = pytest.mark.gpu
 
@@ -71,10 +73,10 @@ def _load(outdir, dev, capacity, dtype=torch.float32, reservoir=None):
                        capacity=capacity, dtype=dtype, device=dev)
 
 
-def _gen(dev, seed):
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    return g
+def _draw(spec, B, n_steps, seed):
+    """(B, n_steps, 21) uniforms of the threefry key of ``seed``, drawn on
+    the spec's device in its dtype."""
+    return uniform(prng_key(seed, spec.device), (B, n_steps, 21), spec.dtype)
 
 
 def _assert_block_parity(spec, states, u):
@@ -98,7 +100,7 @@ def test_block_kernel_matches_plain(tmp_path):
                   fugacity=50.0, cutoff=6.0)
     sysm = _load(str(tmp_path), dev, 16)
     states = replicate(sysm.spec, sysm.state, 8)
-    u = draw_uniforms(sysm.spec, 8, 60, _gen(dev, 1))
+    u = _draw(sysm.spec, 8, 60, 1)
     k = _assert_block_parity(sysm.spec, states, u)
     acc = k.counters[:, 1].sum(0)
     assert int(acc[1]) > 0 and int(acc[2]) > 0 and int(acc[3]) > 0
@@ -112,7 +114,7 @@ def test_block_kernel_capacity_overflow(tmp_path):
                   fugacity=5e5, cutoff=6.0, probs=(0.1, 0.0, 0.9, 0.0))
     sysm = _load(str(tmp_path), dev, 10)   # full from the start
     states = replicate(sysm.spec, sysm.state, 4)
-    u = draw_uniforms(sysm.spec, 4, 80, _gen(dev, 2))
+    u = _draw(sysm.spec, 4, 80, 2)
     k = _assert_block_parity(sysm.spec, states, u)
     assert int(k.n_mol[:, 1].max()) <= 10
     assert int(k.extras[:, 0].sum()) > 0
@@ -149,7 +151,7 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
         sysm = _load(str(tmp_path), dev, 16)
         states = replicate(sysm.spec, sysm.state, B)
         states = steps_plain(sysm.spec, states,
-                             draw_uniforms(sysm.spec, B, 30, _gen(dev, 3)))
+                             _draw(sysm.spec, B, 30, 3))
         k = resync_grouped(sysm.spec, states)
         p = resync_plain(sysm.spec, states)
         torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
@@ -160,7 +162,7 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
     spec = sysm.spec
     n = B if B >= 3 else 4
     states = steps_plain(spec, replicate(spec, sysm.state, n),
-                         draw_uniforms(spec, n, 10, _gen(dev, 3)))
+                         _draw(spec, n, 10, 3))
     states = edge_replicas(spec, states, seed=B)
     batches = [replica(states, i) for i in range(n)] if B == 1 else [states]
     for k_in, st in enumerate(batches):
@@ -200,14 +202,13 @@ def test_launch_counts_and_refusals(tmp_path):
     assert "block: CUDA whole-block kernel" in dispatch_report(f32.spec, dev)
     nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
                   resync_grouped.launches)
-    out = run_block_replicated(f32.spec, states, 5, False, True,
-                               _gen(dev, 5))
+    out = run_block_replicated(f32.spec, states, 5, False, True)
     assert run_block_kernel.launches == nb + 1
     assert run_steps_kernel.launches == ns
     assert resync_grouped.launches == nr + 1
     assert int(out.counters[:, 0].sum()) == 10
     sweep = perturb_activity(f32.spec, f32.spec.type_activity.expand(2, -1))
-    u = draw_uniforms(sweep, 2, 5, _gen(dev, 4))
+    u = _draw(sweep, 2, 5, 4)
     with pytest.raises(ValueError, match="per-replica activity"):
         run_block_kernel(sweep, states, u)
     # the main path on a spec outside the block kernel's gate: the per-step
@@ -216,7 +217,7 @@ def test_launch_counts_and_refusals(tmp_path):
         sweep, dev)
     nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
                   resync_grouped.launches)
-    out = run_block_sweep(sweep, states, 5, False, True, _gen(dev, 5))
+    out = run_block_sweep(sweep, states, 5, False, True)
     assert run_block_kernel.launches == nb
     assert run_steps_kernel.launches == ns + 5
     assert resync_grouped.launches == nr + 1
@@ -225,7 +226,7 @@ def test_launch_counts_and_refusals(tmp_path):
     st64 = replicate(f64.spec, f64.state, 2)
     with pytest.raises(ValueError, match="float32"):
         resync_grouped(f64.spec, st64)
-    u64 = draw_uniforms(f64.spec, 2, 1, _gen(dev, 6))
+    u64 = _draw(f64.spec, 2, 1, 6)
     with pytest.raises(ValueError, match="float32"):
         run_steps_kernel(f64.spec, st64, u64)
 
@@ -252,7 +253,7 @@ def test_block_kernel_water_forms_match_plain(tmp_path, with_reservoir):
     assert not spec.fw_split and spec.has_reservoir == with_reservoir
     assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
-    u = draw_uniforms(spec, 8, 60, _gen(dev, 11))
+    u = _draw(spec, 8, 60, 11)
     n0 = run_block_kernel.launches
     k = _assert_block_parity(spec, states, u)
     assert run_block_kernel.launches == n0 + 1
@@ -294,7 +295,7 @@ def test_step_kernel_reservoir_matches_plain(tmp_path):
     assert "step: CUDA per-step kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
     k = _assert_steps_parity(spec, states,
-                             draw_uniforms(spec, 8, 40, _gen(dev, 12)), 0)
+                             _draw(spec, 8, 40, 12), 0)
     assert not torch.equal(k.res_n, states.res_n)
 
 
@@ -339,7 +340,7 @@ def test_block_kernel_forms_match_plain(tmp_path, make):
     spec = sysm.spec
     assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
-    u = draw_uniforms(spec, 8, 60, _gen(dev, 13))
+    u = _draw(spec, 8, 60, 13)
     n0 = run_block_kernel.launches
     k = _assert_block_parity(spec, states, u)
     assert run_block_kernel.launches == n0 + 1
@@ -365,11 +366,11 @@ def test_step_kernel_matches_plain(tmp_path, make):
     sysm = _load(str(tmp_path), dev, 16)
     spec = sysm.spec
     states = steps_plain(spec, replicate(spec, sysm.state, 8),
-                         draw_uniforms(spec, 8, 20, _gen(dev, 7)))
+                         _draw(spec, 8, 20, 7))
     _assert_steps_parity(spec, states,
-                         draw_uniforms(spec, 8, 1, _gen(dev, 8)), 0)
+                         _draw(spec, 8, 1, 8), 0)
     k = _assert_steps_parity(spec, states,
-                             draw_uniforms(spec, 8, 40, _gen(dev, 9)), 0)
+                             _draw(spec, 8, 40, 9), 0)
     assert int(k.counters[:, 1].sum()) > 0
 
 
@@ -379,7 +380,7 @@ def test_resync_single_chain_matches_plain(tmp_path):
     _zif_small(str(tmp_path))
     sysm = _load(str(tmp_path), dev, 16)
     st = steps_plain(sysm.spec, sysm.state,
-                     draw_uniforms(sysm.spec, 1, 30, _gen(dev, 10)))
+                     _draw(sysm.spec, 1, 30, 10))
     n0 = resync_grouped.launches
     k = resync_amplitudes(sysm.spec, st)
     assert resync_grouped.launches == n0 + 1
@@ -512,9 +513,9 @@ def _step_parity(spec, states, seed):
     40-step chains on the same uniforms, no divergence."""
     dev = states.pos.device
     _assert_steps_parity(spec, states,
-                         draw_uniforms(spec, states.B, 1, _gen(dev, seed)), 0)
-    _assert_steps_parity(spec, states, draw_uniforms(
-        spec, states.B, 40, _gen(dev, seed + 1)), 0)
+                         _draw(spec, states.B, 1, seed), 0)
+    _assert_steps_parity(spec, states, _draw(spec, states.B, 40, seed + 1),
+                         0)
 
 
 def _conserved(st):
@@ -609,7 +610,7 @@ def test_step_kernel_systems_match_plain(tmp_path, make, capacity):
         assert "framework split off with inactive types" in report
     states = replicate(spec, sysm.state, 64)
     k = _assert_steps_parity(spec, states,
-                             draw_uniforms(spec, 64, 50, _gen(dev, 41)), 1)
+                             _draw(spec, 64, 50, 41), 1)
     assert int(k.counters[:, 1].sum()) > 0
     if spec.n_active > 1:
         assert int(k.counters[:, 0, 4].sum()) > 0
@@ -631,7 +632,7 @@ def test_step_kernel_activity_sweep_matches_plain(tmp_path):
     assert "step: CUDA per-step kernel" in dispatch_report(sweep, dev)
     states = replicate(spec, sysm.state, 64)
     k = _assert_steps_parity(sweep, states,
-                             draw_uniforms(spec, 64, 50, _gen(dev, 42)), 1)
+                             _draw(spec, 64, 50, 42), 1)
     n = k.n_mol[:, 1].float().reshape(8, 8).mean(1)
     assert float(n[-1]) > float(n[0])
 
@@ -668,7 +669,7 @@ def test_far_field_ragged_rows_kernels_match_plain(tmp_path):
     lens = spec.far_rows[:, 3].cpu()
     assert len(set(lens[lens > 0].tolist())) > 5
     states = replicate(spec, sysm.state, 8)
-    u = draw_uniforms(spec, 8, 60, _gen(dev, 21))
+    u = _draw(spec, 8, 60, 21)
     k1 = _assert_block_parity(spec, states, u)
     assert int(k1.counters[:, 1].sum()) > 0
     _step_parity(spec, steps_plain(spec, states, u), 23)
@@ -686,7 +687,7 @@ def test_guest_cutoff_off_kernels_match_plain(tmp_path):
     spec = sysm.spec
     assert not spec.gg_cut
     states = replicate(spec, sysm.state, 8)
-    u = draw_uniforms(spec, 8, 60, _gen(dev, 31))
+    u = _draw(spec, 8, 60, 31)
     k = _assert_block_parity(spec, states, u)
     assert int(k.counters[:, 1].sum()) > 0
     _step_parity(spec, k, 33)
@@ -711,3 +712,49 @@ def test_launch_path_refills_and_refuses():
                                        xt.data_ptr()], [0, 256, 8], [])
     torch.cuda.synchronize()
     assert np.array_equal(onehot_product(xt, oht).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_threefry_kernel_matches_plain(dtype):
+    """csrc/threefry.cu (split_uniform, one launch) against its plain
+    version on the same keys: the next keys and every uniform with the same
+    bits, on split keys and on edge keys (all-zero and all-one words)."""
+    dev = _device()
+    keys = split(prng_key(2**32 + 77), 70).to(dev)
+    keys[0] = 0
+    keys[1] = 0xFFFFFFFF
+    keys[2, 0] = 0xFFFFFFFF
+    n0 = split_uniform.launches
+    new, u = split_uniform(keys, 400, dtype)
+    assert split_uniform.launches == n0 + 1
+    want_new, want_u = split_uniform_plain(keys, 400, dtype)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(new, want_new)
+    assert u.shape == want_u.shape == (70, 400, 21)
+    assert torch.equal(u.view(bits), want_u.view(bits))
+
+
+def test_block_kernel_rejected_overlap_keeps_energies(tmp_path):
+    """K2 on the overlapping creation of tests/test_torch_moves.py (onto
+    molecule 0, the identity rotation, u_acc 0.5; the water box, f32,
+    capacity 16): one creation trial, none accepted, and the six energies
+    finite and equal to the loaded ones, as JAX's blockg and the plain
+    block give them there."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.25, 0.25, 0.5, 0.0), fugacity=5000.0)
+    sysm = _load(str(tmp_path), dev, 16)
+    spec, state = sysm.spec, sysm.state
+    com0 = state.com[0, :, 0].double()
+    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
+    row = torch.full((21,), 0.37, dtype=torch.float32, device=dev)
+    row[0], row[1], row[2] = 0.7, 0.25, 0.5
+    row[6:9] = frac.float()
+    row[15], row[16] = 0.0, 0.25
+    n0 = run_block_kernel.launches
+    out = run_block_kernel(spec, state, row[None, None].contiguous())
+    assert run_block_kernel.launches == n0 + 1
+    assert int(out.counters[0, 0, 0]) == 1
+    assert int(out.counters[0, 1].sum()) == 0
+    assert bool(torch.isfinite(out.energy).all())
+    assert torch.equal(out.energy, state.energy)

@@ -25,6 +25,7 @@ from maniac_tpu_torch.parallel.replicas import (replicate,
                                                 run_block_uniforms)
 from maniac_tpu_torch.system import from_numpy, to_device
 from maniac_tpu_torch.systems import make_water_box, make_zif_like
+from maniac_tpu_torch.utils.threefry import prng_key
 
 from torch_parity import (F32_ENERGY_TOL, F32_POS_TOL, as_np,
                           assert_same_chain, jax_batch, jax_leaves, load_both,
@@ -117,13 +118,12 @@ def test_slice_matches_jax(zif32):
 
 def test_block_body_draws_like_the_replicated_path(zif32):
     """block_body (one block on the plain path) and run_block_replicated
-    draw the same uniforms from equally seeded generators."""
+    draw the same uniforms from the same keys and advance them alike."""
     _, spec, state = zif32
-    st = replicate(spec, state, 2)
-    a = block_body(spec, st, 6, True, torch.Generator().manual_seed(9))
-    b = run_block_replicated(spec, st, 6, True, False,
-                             torch.Generator().manual_seed(9))
-    for name in ("pos", "n_mol", "energy", "counters", "amp_re"):
+    st = replicate(spec, state.replace(key=prng_key(9)[None]), 2)
+    a = block_body(spec, st, 6, True)
+    b = run_block_replicated(spec, st, 6, True, False)
+    for name in ("pos", "n_mol", "energy", "counters", "amp_re", "key"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert int(a.counters[:, 0].sum()) == 12
 

@@ -21,6 +21,7 @@ from maniac_tpu_torch.mc.driver import draw_uniforms
 from maniac_tpu_torch.parallel.replicas import perturb_activity
 from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
                                       make_zif_like)
+from maniac_tpu_torch.utils.threefry import prng_key, uniform
 
 torch.set_num_threads(1)
 
@@ -196,8 +197,8 @@ def test_block_tables_match_the_kernel(stub, system, request):
     sysm = request.getfixturevalue(system)
     spec = sysm.spec
     states = replicate(spec, sysm.state, 4)
-    gen = torch.Generator().manual_seed(1)
-    out = blockg._launch(spec, states, draw_uniforms(spec, 4, 3, gen))
+    _, u = draw_uniforms(spec, states, 3)
+    out = blockg._launch(spec, states, u)
     ptrs, ints, floats = _unpack(stub.calls[-1])
     sh, bp = _shared(), _enum("blockg.cu", "BlockPtr")
     bi = _enum("blockg.cu", "BlockInt")
@@ -224,8 +225,7 @@ def _step_calls(stub, spec, states, n_steps, seed):
     n_steps block: (the returned state, the uniforms, the unpacked tables
     of each launch, (csrc/step_body.cuh's shared entries, csrc/stepg.cu's
     own ints))."""
-    gen = torch.Generator().manual_seed(seed)
-    u = draw_uniforms(spec, states.B, n_steps, gen)
+    u = uniform(prng_key(seed), (states.B, n_steps, 21), spec.dtype)
     n0, calls0 = stepg.run_steps_kernel.launches, len(stub.calls)
     out = stepg._run(spec, states, u)
     calls = [_unpack(c) for c in stub.calls[calls0:]]

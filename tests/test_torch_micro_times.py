@@ -149,3 +149,48 @@ def test_chain_op_and_pass_floor():
     # at 1980 MHz: the SFU floor of 0.020 ms
     assert mt.chain_floor_ms(1 / 16, 128 * 1280 * 512, 132, 1980.0) == \
         pytest.approx(0.02007, rel=1e-3)
+
+
+# T's shape (csrc/threefry.cu): a preamble every warp runs, warp 0's split
+# that a predicated forward branch skips for the other warps, the value's
+# path after the barrier, an early predicated EXIT, and the padding after
+# the last EXIT
+T_SASS = """
+\tFunction : _ZN11_threefry_cu15threefry_kernelIfEEvPKxPxPT_i
+        /*0000*/                   S2R R2, SR_TID.X ;
+        /*0010*/                   ISETP.GT.U32.AND P0, PT, R2, 0x1f, PT ;
+        /*0020*/               @P0 BRA 0x60 ;
+        /*0030*/                   IMAD.IADD R8, R4, 0x1, R9 ;
+        /*0040*/                   SHF.L.W.U32.HI R9, R9, 0xd, R9 ;
+        /*0050*/                   STS.64 [UR4], R8 ;
+        /*0060*/                   BSYNC B0 ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/               @P0 EXIT ;
+        /*0090*/                   IMAD.IADD R6, R4, 0x1, R3 ;
+        /*00a0*/                   SHF.L.W.U32.HI R3, R3, 0xd, R3 ;
+        /*00b0*/                   LOP3.LUT R3, R6, R3, RZ, 0x3c, !PT ;
+        /*00c0*/                   IADD3 R5, R4, 0x5, R5 ;
+        /*00d0*/                   LEA.HI R5, R5, 0x3f800000, RZ, 0x17 ;
+        /*00e0*/                   FADD R0, R5, -1 ;
+        /*00f0*/                   STG.E desc[UR6][R4.64], R3 ;
+        /*0100*/                   EXIT ;
+        /*0110*/                   BRA 0x110;
+        /*0120*/                   NOP;
+"""
+
+
+def test_threefry_mix_splits_warp0_and_floors_by_pipe():
+    """T's SASS: every thread's instructions up to the last unpredicated
+    EXIT by pipe, warp 0's split apart; the floor is the busiest pipe's
+    (here the ALU's: 5 of 14 over 64 lanes), the split spread over a CTA's
+    8 warps."""
+    insns, = mt.parse_sass(T_SASS).values()
+    every, warp0 = mt.threefry_mix(insns)
+    assert every == {"special": 1, "alu": 5, "control": 5, "imad": 1,
+                     "fp32": 1, "memory": 1}
+    assert warp0 == {"imad": 1, "alu": 1, "memory": 1}
+    bare, split = mt.threefry_floor(every, warp0)
+    assert bare == pytest.approx(max(14 / 128, 5 / 64))
+    assert split == pytest.approx(max((14 + 3 / 8) / 128, (5 + 1 / 8) / 64))
+    assert mt.pipe("IMAD.WIDE") == "imad" and mt.pipe("VIADD") == "alu"
+    assert mt.pipe("S2UR") == "special" and mt.pipe("ULEA") == "uniform"

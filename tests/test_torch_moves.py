@@ -4,15 +4,18 @@ Both packages consume one row of 21 uniforms per step; the rows come from
 a numpy seed, so the two chains are the same chain and must take the same
 decisions."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from maniac_tpu.kernels.blockg import run_block_grouped
 from maniac_tpu.mc.moves import _core_xla as jax_core
 from maniac_tpu.mc.moves import _propose as jax_propose
 from maniac_tpu.mc.moves import _uint as jax_uint
-from maniac_tpu_torch.mc.driver import drift_report, run_steps_u
+from maniac_tpu_torch.constants import TYPE_CREATION
+from maniac_tpu_torch.mc.driver import drift_report, run_steps_u, steps_plain
 from maniac_tpu_torch.mc.moves import _core_plain, _propose, _uint, mc_step_u
 from maniac_tpu_torch.parallel.replicas import replicate
 from maniac_tpu_torch.systems import (make_framework_mixed, make_mixed_sizes,
@@ -119,6 +122,19 @@ def test_edge_uniforms_at_move_thresholds(tmp_path):
     assert trials[3] > 0
 
 
+def _overlap_row(spec, state):
+    """A creation of molecule 0's type onto molecule 0 (the same sites, the
+    identity rotation), accepted only if u_acc 0.5 says so: (1, 1, 21)
+    f32."""
+    com0 = state.com[0, :, 0].double()
+    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
+    row = np.full(21, 0.37, np.float32)
+    row[0], row[1], row[2] = 0.7, 0.25, 0.5    # a creation; u_acc 0.5
+    row[6:9] = frac.numpy()                    # molecule 0's COM
+    row[15], row[16] = 0.0, 0.25               # the identity rotation
+    return row[None, None]
+
+
 def test_rejected_overlap_keeps_energies_finite(tmp_path):
     """An insertion onto an existing molecule (the same sites, so r2 sits at
     the 1e-18 floor, (sigma^2/r2)^3 overflows f32 and its LJ term is
@@ -129,13 +145,8 @@ def test_rejected_overlap_keeps_energies_finite(tmp_path):
     block kernel's bookkeeping is the same select."""
     _water(str(tmp_path))
     sysm, spec, state = load_both(str(tmp_path), capacity=16, f32=True)
-    com0 = state.com[0, :, 0].double()
-    frac = (com0 - spec.bounds[:, 0].double()) @ spec.Hinv.double().T
-    row = np.full(21, 0.37, np.float32)
-    row[0], row[1], row[2] = 0.7, 0.25, 0.5    # a creation; u_acc 0.5
-    row[6:9] = frac.numpy()                    # molecule 0's COM
-    row[15], row[16] = 0.0, 0.25               # the identity rotation
-    U = row[None, None]
+    U = _overlap_row(spec, state)
+    row = U[0, 0]
     pre = _propose(spec, state, torch.from_numpy(U[:, 0]))
     core = _core_plain(spec, state, pre)
     assert bool(pre["gate"][0]) and not bool(torch.isfinite(core["e_lj"]).all())
@@ -150,6 +161,30 @@ def test_rejected_overlap_keeps_energies_finite(tmp_path):
     assert int(pst.counters[0, 0, 0]) == 1 and int(pst.counters[0, 1, 0]) == 0
     np.testing.assert_array_equal(pst.n_mol.numpy(), np.asarray(jst.n_mol))
     assert torch.equal(pst.pos, state.pos)
+
+
+def test_rejected_overlap_in_jax_blockg_keeps_energies_finite(tmp_path):
+    """The overlapping creation above through JAX's Pallas blockg
+    (run_block_grouped, interpret mode) and through the port's plain block
+    (steps_plain): one creation trial, none accepted, and all six energies
+    finite and equal to the loaded ones in both. JAX's blockg multiplies its
+    deltas by the 0/1 decision, so this asks whether it keeps the NaN the
+    port's select removed; it does not (f32, capacity 16)."""
+    _water(str(tmp_path))
+    sysm, spec, state = load_both(str(tmp_path), capacity=16, f32=True)
+    U = _overlap_row(spec, state)
+    jst = jax.tree_util.tree_map(lambda x: jnp.stack([x]), sysm.state)
+    uq = jnp.asarray(U.transpose(1, 2, 0).reshape(1, 21))
+    out = run_block_grouped(sysm.spec, jst, uq, interpret=True)
+    eng, cnt = np.asarray(out[5])[:6, 0], np.asarray(out[6])[:, 0]
+    assert cnt[TYPE_CREATION] == 1 and cnt[8 + TYPE_CREATION] == 0
+    assert np.isfinite(eng).all()
+    np.testing.assert_array_equal(eng, np.asarray(sysm.state.energy))
+    pst = steps_plain(spec, state, torch.from_numpy(U))
+    assert int(pst.counters[0, 0, TYPE_CREATION]) == 1
+    assert int(pst.counters[0, 1].sum()) == 0
+    assert bool(torch.isfinite(pst.energy).all())
+    np.testing.assert_array_equal(pst.energy[0].numpy(), eng)
 
 
 def test_step_is_batched_over_replicas(tmp_path):

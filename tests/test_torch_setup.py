@@ -36,6 +36,7 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.tools.resync_times, "
             "maniac_tpu_torch.tools.cli_times, "
             "maniac_tpu_torch.tools.micro_times, "
+            "maniac_tpu_torch.kernels.threefry, "
             "maniac_tpu_torch.mc.widom, maniac_tpu_torch.io.checkpoint; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "

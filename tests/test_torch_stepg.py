@@ -39,6 +39,7 @@ from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_framework_water, make_lj_gas,
                                       make_mixed_sizes, make_water_box)
 from maniac_tpu_torch.utils.logger import NullLogger
+from maniac_tpu_torch.utils.threefry import prng_key
 
 from torch_parity import (F32_ENERGY_TOL, F32_POS_TOL, as_np,
                           assert_same_chain, jax_batch, jax_leaves, load_both,
@@ -249,13 +250,12 @@ def test_sweep_ideal_gas_isotherm(tmp_path):
     base = float(spec.type_activity[0])
     scale = np.array([0.5, 1.0, 2.0, 4.0])
     sweep = perturb_activity(spec, (base * scale)[:, None])
-    states = replicate(spec, state, B)
-    gen = torch.Generator().manual_seed(3)
-    states = run_block_sweep(sweep, states, 1000, False, False, gen)
+    states = replicate(spec, state.replace(key=prng_key(3)[None]), B)
+    states = run_block_sweep(sweep, states, 1000, False, False)
     counts = np.zeros(B)
     n_samp = 20
     for _ in range(n_samp):
-        states = run_block_sweep(sweep, states, 100, False, False, gen)
+        states = run_block_sweep(sweep, states, 100, False, False)
         counts += as_np(states.n_mol)[:, 0]
     mean_n = counts / n_samp
     expected = base * scale * float(spec.volume)

@@ -12,6 +12,7 @@ tests/test_widom.py's cases with the same inputs into both packages.
     tests/test_widom.py checks them.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ from maniac_tpu.mc.widom import widom_delta_u as jax_widom_delta_u
 from maniac_tpu_torch.cli import main as cli_main
 from maniac_tpu_torch.mc.widom import (mu_excess_K, widom_block,
                                        widom_delta_u, widom_factor,
-                                       widom_generator)
+                                       widom_key)
 from maniac_tpu_torch.systems import make_lj_gas, make_water_box, \
     make_zif_like
 
@@ -111,19 +112,21 @@ def test_widom_block_two_species_matches_jax(tmp_path):
     assert np.all(np.isfinite(mu_excess_K(B, temp)))
 
 
-def test_widom_generator_is_per_block_and_leaves_the_chain(tmp_path):
-    """widom_block draws from its own per-block generator: the same seed
-    and block give the same factor, another block another one, and the
-    chain's generator is not advanced."""
+def test_widom_key_is_per_block_and_leaves_the_chain(tmp_path):
+    """widom_block draws from its own per-block key, folded off replica 0's
+    as the JAX CLI folds it: the same key and block give the same factor,
+    another block another one, and the chain's key is not advanced."""
     make_lj_gas(str(tmp_path), n=12, L=18.0, two_species=True)
     _, spec, state = load_both(str(tmp_path), capacity=16)
-    chain = torch.Generator().manual_seed(3)
-    before = chain.get_state().clone()
-    one, two, other = (widom_block(spec, state, 8,
-                                   generator=widom_generator(11, b, "cpu"))
-                       for b in (1, 1, 2))
+    before = state.key.clone()
+    keys = [widom_key(state, b) for b in (1, 1, 2)]
+    want = jax.random.fold_in(jax.random.fold_in(
+        jnp.asarray(state.key[0].numpy().astype(np.uint32)), 0x5749444F), 2)
+    np.testing.assert_array_equal(keys[2].numpy(),
+                                  np.asarray(want).astype(np.int64))
+    one, two, other = (widom_block(spec, state, 8, key=k) for k in keys)
     assert torch.equal(one, two) and not torch.equal(one, other)
-    assert torch.equal(chain.get_state(), before)
+    assert torch.equal(state.key, before)
 
 
 def test_widom_cli_does_not_perturb_chain(tmp_path):
