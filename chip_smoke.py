@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke check of the maniac_tpu_torch main path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # some two and a half minutes on an H100
+    python3 chip_smoke.py    # some three and a half minutes on an H100
 
 Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then
 runs the phases below. Every system is loaded with the seed SEED, and every
@@ -169,6 +169,26 @@ package's stream; on the card the threefry kernel, csrc/threefry.cu):
      tabulated potentials (the plain torch step, as the JAX package runs
      XLA), every replica's drift_report within 1e-6 K, and the energies
      within 1e-9 relative of the same seed's run on the CPU.
+ 14. the mesh on the card (parallel/mesh.py, one process a GPU, the
+     replica axis split; the flagship at B=1024, MESH_BLOCKS blocks of 400
+     steps with the recalibration, the first a warm-up): (a) the launcher
+     (tools/launch_multihost) at a world of 1 over NCCL, in a subprocess,
+     whose block lines must be the same text as a single-process
+     run_block_replicated + gather_replica_stats on the same seed here,
+     its rate beside the single process's and the launcher's without a
+     process group (no collective at all) in turns (P S N N S P), K2 and
+     T launched once a block; (b) two gloo ranks sharing cuda:0 (this script
+     run as ``--mesh-rank``; NCCL refuses two ranks on one card, which two
+     NCCL launcher ranks beside them show), 512 replicas each: every
+     rank's final n_mol, counters, energy, key and positions bit for bit
+     its replicas of (a)'s single-process run, its block lines the same
+     text, K2 and T launched once a block (the counts set to 0 just
+     before) and named by dispatch_report; (c) rank 0 holds K2 against
+     its plain version on 8 of its replicas for 50 steps (phase 2's
+     bounds), then runs one run_block_sharded(..., resync=True) block,
+     which must launch K1 once, held against a fresh plain synthesis
+     (phase 1's bounds). A rank's non-zero exit or timeout fails the
+     phase.
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block, resync and
@@ -206,6 +226,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -271,6 +292,14 @@ TABLE_BOX = dict(n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
 TABLE_REPLICAS, TABLE_BLOCKS, TABLE_STEPS = 16, 2, 100
 TABLE_DRIFT_K = 1e-6
 TABLE_RTOL = 1e-9
+# phase 14: the mesh on the card: blocks of the flagship's B =
+# MAIN_REPLICAS (the first a warm-up, as the launcher times them), the gloo
+# world sharing cuda:0, the seconds a phase-14 world may take, the replicas
+# rank 0 holds K2 on, and the state fields each rank must give bit for bit
+MESH_BLOCKS, MESH_WARMUP, MESH_RANKS = 4, 1, 2
+MESH_TIMEOUT = 240
+MESH_CHECK_REPLICAS = 8
+MESH_FIELDS = ("n_mol", "counters", "energy", "key", "pos")
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -1597,6 +1626,252 @@ def _chain_options_phase(label):
                                  "the uninterrupted run's")
 
 
+def _deck_files(deck):
+    """The three files of a deck directory."""
+    return (f"{deck}/input.maniac", f"{deck}/topology.data",
+            f"{deck}/parameters.inc")
+
+
+def _load_flagship(files, dev):
+    """load_system on the flagship files as the launcher loads them (f32,
+    capacity CAPACITY, seed SEED, quiet)."""
+    from maniac_tpu_torch import load_system
+    from maniac_tpu_torch.utils.logger import NullLogger
+    return load_system(*files, capacity=CAPACITY, dtype=torch.float32,
+                       device=dev, logger=NullLogger(), seed=SEED)
+
+
+def _mesh_kernel_checks(mesh, spec, states):
+    """Phase 14c, in rank 0: K2 against its plain version on
+    MESH_CHECK_REPLICAS of the rank's replicas for CHECK_STEPS steps
+    (phase 2's bounds), then one run_block_sharded(..., resync=True) block,
+    which must launch K1 once, held against a fresh plain synthesis of
+    its positions (phase 1's bounds). Returns the lines to print."""
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
+    from maniac_tpu_torch.parallel.mesh import run_block_sharded
+    from maniac_tpu_torch.system import E_RECIP, SimState
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        few = SimState(**{k: v[:MESH_CHECK_REPLICAS]
+                          for k, v in vars(states).items()})
+        few, u = draw_uniforms(spec, few, CHECK_STEPS)
+        _block_check(f"phase 14c: rank 0 block B={MESH_CHECK_REPLICAS} x "
+                     f"{CHECK_STEPS} steps", run_block_kernel(spec, few, u),
+                     steps_plain(spec, few, u), 1)
+        n_rs = resync_grouped.launches
+        rs = run_block_sharded(mesh, spec, states, MAIN_STEPS, True,
+                               resync=True)
+        if resync_grouped.launches != n_rs + 1:
+            raise AssertionError("phase 14c: the resync block launched K1 "
+                                 f"{resync_grouped.launches - n_rs} times")
+        _amp_check(f"phase 14c: rank 0 resync block B={rs.B}, K1 vs a "
+                   f"fresh plain synthesis",
+                   *_resync_pair(rs, resync_plain(spec, rs), E_RECIP))
+    return out.getvalue().splitlines()
+
+
+def _mesh_rank(rank, world, init, deck, out) -> int:
+    """One rank of phase 14b (``chip_smoke.py --mesh-rank``): gloo on
+    cuda:0, the flagship at MAIN_REPLICAS global replicas, MESH_BLOCKS
+    blocks of MAIN_STEPS steps through the mesh with the launch counts set
+    to 0 just before, each block's statistics line; then rank 0's kernel
+    checks (phase 14c). Saves the lines, the launches, the dispatch and
+    the final state to out/rank<rank>.pt."""
+    import torch.distributed as dist
+    from maniac_tpu_torch.kernels import dispatch_report
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped
+    from maniac_tpu_torch.kernels.threefry import split_uniform
+    from maniac_tpu_torch.parallel.mesh import (INIT_TIMEOUT,
+                                                gather_replica_stats,
+                                                make_mesh, replicate_spec,
+                                                run_block_sharded,
+                                                shard_replicas)
+    from maniac_tpu_torch.system import E_TOT
+    from maniac_tpu_torch.tools.launch_multihost import block_line
+    dist.init_process_group("gloo", init_method=init, world_size=world,
+                            rank=rank, timeout=INIT_TIMEOUT)
+    try:
+        mesh = make_mesh(world, device="cuda:0")
+        sysm = _load_flagship(_deck_files(deck), mesh.device)
+        spec = replicate_spec(mesh, sysm.spec)
+        states = shard_replicas(mesh, spec, sysm.state, MAIN_REPLICAS)
+        for fn in (run_block_kernel, split_uniform, resync_grouped):
+            fn.launches = 0
+        lines = []
+        for b in range(1, MESH_BLOCKS + 1):
+            states = run_block_sharded(mesh, spec, states, MAIN_STEPS, True)
+            lines.append(block_line(b, *gather_replica_stats(
+                states, spec.R, E_TOT, mesh=mesh)))
+        torch.cuda.synchronize()
+        result = {
+            "lines": lines, "span": mesh.span(MAIN_REPLICAS),
+            "dispatch": dispatch_report(spec, mesh.device),
+            "launches": {"blockg": run_block_kernel.launches,
+                         "threefry": split_uniform.launches,
+                         "resync": resync_grouped.launches},
+            "state": {f: getattr(states, f).cpu() for f in MESH_FIELDS}}
+        if rank == 0:
+            result["checks"] = _mesh_kernel_checks(mesh, spec, states)
+        torch.save(result, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _mesh_phase(label):
+    """Phase 14, the mesh on the card. (a) The launcher at a world of 1
+    over NCCL (a subprocess: this process keeps no process group), the
+    flagship at B = MAIN_REPLICAS, MESH_BLOCKS blocks of MAIN_STEPS steps:
+    its block lines the same text as a single-process run_block_replicated
+    + gather_replica_stats here, its rate beside the single process's in
+    turns (P S S P). (b) Two gloo ranks sharing cuda:0 (_mesh_rank), while
+    two NCCL ranks on the one card show that NCCL refuses them: each gloo
+    rank's final state bit for bit its replicas of (a)'s single-process
+    run, its block lines the same text. (c) Rank 0's kernel checks. (d) K2
+    and T launched in every rank; a rank's failure or timeout fails the
+    phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from maniac_tpu_torch import replicate, run_block_replicated
+    from maniac_tpu_torch.parallel.mesh import gather_replica_stats, run_ranks
+    from maniac_tpu_torch.system import E_TOT
+    from maniac_tpu_torch.systems import make_zif_like
+    from maniac_tpu_torch.tools.launch_multihost import block_line
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + ([path] if path else [])))
+    launcher = [sys.executable, "-m",
+                "maniac_tpu_torch.tools.launch_multihost"]
+    with tempfile.TemporaryDirectory() as tmp:
+        deck = f"{tmp}/deck"
+        make_zif_like(deck, n_cells=6, a=5.66, n_water=32, fugacity=30.0)
+        files = _deck_files(deck)
+        run = ["-i", files[0], "-d", files[1], "-p", files[2], "--blocks",
+               str(MESH_BLOCKS), "--steps", str(MAIN_STEPS), "--capacity", str(CAPACITY),
+               "--seed", str(SEED)]
+
+        def single():
+            """The single process: (final states, block lines, rate)."""
+            sysm = _load_flagship(files, torch.device("cuda", 0))
+            spec = sysm.spec
+            states = replicate(spec, sysm.state, MAIN_REPLICAS)
+            lines = []
+            for b in range(1, MESH_BLOCKS + 1):
+                if b == MESH_WARMUP + 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                states = run_block_replicated(spec, states, MAIN_STEPS, True)
+                lines.append(block_line(b, *gather_replica_stats(
+                    states, spec.R, E_TOT)))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            return (states, lines, (MESH_BLOCKS - MESH_WARMUP) * MAIN_STEPS
+                    * MAIN_REPLICAS / dt)
+
+        def launched(i, group):
+            """The launcher on one card: at a world of 1 over NCCL (group)
+            or with no process group (no collective at all). Returns (block
+            lines, rate, its output)."""
+            argv = launcher + (["--coordinator", f"file://{tmp}/a{i}",
+                                "--process-id", "0"] if group else []) + [
+                "--num-processes", "1", "--replicas-per-device",
+                str(MAIN_REPLICAS), *run]
+            [(rc, out)] = run_ranks([argv], MESH_TIMEOUT, env=env, cwd=root)
+            if rc != 0:
+                raise AssertionError(f"phase 14a: the launcher exit {rc}:\n"
+                                     f"{out}")
+            rate = float(re.search(r"# ([0-9.]+) M aggregate", out)[1])
+            return ([ln for ln in out.splitlines()
+                     if ln.startswith("block")], rate * 1e6, out)
+
+        # in turns P S N N S P: the single process (P), the launcher over
+        # NCCL (S) and without a process group (N)
+        t_phase = time.perf_counter()
+        ref, ref_lines, p1 = single()
+        s1_lines, s1, s1_out = launched(1, True)
+        n1_lines, n1, _ = launched(2, False)
+        n2_lines, n2, _ = launched(3, False)
+        s2_lines, s2, _ = launched(4, True)
+        _, p2_lines, p2 = single()
+        for line in s1_out.splitlines():
+            if line.startswith("#"):
+                print(f"phase 14a: launcher: {line}")
+        for line in ref_lines:
+            print(f"phase 14a: single process: {line}")
+        same = (s1_lines == s2_lines == n1_lines == n2_lines == p2_lines
+                == ref_lines)
+        print(f"phase 14a: NCCL world of 1, the launcher's block lines the "
+              f"same text as the single process's (and without a group): "
+              f"{same}")
+        print(f"phase 14a: in turns P S N N S P, B={MAIN_REPLICAS} x "
+              f"{MAIN_STEPS} steps x {MESH_BLOCKS - MESH_WARMUP} blocks: "
+              f"single process {p1 / 1e6:.4f}, {p2 / 1e6:.4f}; launcher "
+              f"over NCCL (world 1) {s1 / 1e6:.3f}, {s2 / 1e6:.3f}; "
+              f"launcher without a group {n1 / 1e6:.3f}, {n2 / 1e6:.3f} M MC "
+              f"steps/s ({label})")
+        launches = re.search(r"launches: blockg (\d+), threefry (\d+)",
+                             s1_out).groups()
+        if not same or launches != (str(MESH_BLOCKS),) * 2:
+            raise AssertionError(f"phase 14a: the launcher's lines differ "
+                                 f"or its kernels did not launch "
+                                 f"({launches})")
+
+        # (b)-(d): two gloo ranks on cuda:0; two NCCL ranks on it beside
+        gloo = [[sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 str(r), str(MESH_RANKS), f"file://{tmp}/b", deck, tmp]
+                for r in range(MESH_RANKS)]
+        nccl = [launcher + ["--coordinator", f"file://{tmp}/nccl",
+                            "--num-processes", str(MESH_RANKS),
+                            "--process-id", str(r), "--replicas-per-device",
+                            str(MAIN_REPLICAS // MESH_RANKS), *run[:6],
+                            "--blocks", "1", "--steps", "10"]
+                for r in range(MESH_RANKS)]
+        with ThreadPoolExecutor(2) as pool:
+            refused = pool.submit(run_ranks, nccl, MESH_TIMEOUT,
+                                  dict(env, NCCL_DEBUG="WARN"), root)
+            ranks = pool.submit(run_ranks, gloo, MESH_TIMEOUT, env,
+                                root).result()
+            refused = refused.result()
+        said = ([ln.strip() for _, out in refused
+                 for ln in out.splitlines()
+                 if "Duplicate GPU" in ln]
+                + [ln.strip() for _, out in refused
+                   for ln in out.splitlines() if "NCCL" in ln]
+                + [out.strip().splitlines()[-1] for _, out in refused
+                   if out.strip()] + ["no output"])
+        print(f"phase 14b: NCCL with {MESH_RANKS} ranks on one card: exit "
+              f"codes {[rc for rc, _ in refused]}; {said[0][:300]}")
+        for r, (rc, out) in enumerate(ranks):
+            if rc != 0:
+                raise AssertionError(f"phase 14b: gloo rank {r} exit {rc}:"
+                                     f"\n{out}")
+        for r in range(MESH_RANKS):
+            got = torch.load(f"{tmp}/rank{r}.pt")
+            lo, hi = got["span"]
+            equal = {f: torch.equal(got["state"][f],
+                                    getattr(ref, f)[lo:hi].cpu())
+                     for f in MESH_FIELDS}
+            print(f"phase 14b: gloo rank {r} of {MESH_RANKS} on cuda:0, "
+                  f"replicas [{lo}, {hi}): bit-equal to the single "
+                  f"process's {equal}; block lines the same text: "
+                  f"{got['lines'] == ref_lines}; launches "
+                  f"{got['launches']}; {got['dispatch']}")
+            for line in got.get("checks", []):
+                print(line)
+            if (not all(equal.values()) or got["lines"] != ref_lines
+                    or got["launches"]["blockg"] != MESH_BLOCKS
+                    or got["launches"]["threefry"] != MESH_BLOCKS
+                    or "CUDA whole-block kernel" not in got["dispatch"]):
+                raise AssertionError(f"phase 14b: rank {r} differs from "
+                                     "the single process or skipped a "
+                                     "kernel")
+        print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1803,6 +2078,9 @@ def main() -> int:
         replicate(spec, sysm.state, MAIN_REPLICAS).key, label)
     _table_phase(dev, label)
 
+    # ---- phase 14: the mesh on the card --------------------------------
+    _mesh_phase(label)
+
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1), k4,
         _row("run_steps_kernel", STEPG_SRC,
@@ -1822,4 +2100,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7]))
     sys.exit(main())

@@ -45,7 +45,7 @@ def _launch(spec, states, uniforms):
     ptrs, ints, floats = step_tables(spec, states, uniforms, out)
     # blockg.cu's own pointers after the shared ones: the input state
     ptrs += [getattr(states, k).data_ptr() for k in STATE_KEYS + RES_KEYS]
-    build.launch("blockg_launch", ptrs, ints, floats)
+    build.launch("blockg_launch", ptrs, ints, floats, states.pos.device)
     return out
 
 

@@ -5,7 +5,8 @@ process, all started together, and the objects are linked into one library
 with a plain C interface (each kernel has an ``extern "C"`` launcher that
 returns its ``cudaError_t``), loaded with ctypes. ``launch`` keeps one
 ``_Launcher`` per launcher, whose argument tables are allocated once and
-refilled in place, and reads the current stream's raw handle. The build
+refilled in place, and reads the current stream's raw handle after
+checking that the tensors lie on the current device. The build
 runs at first use, goes into ``kernels/_build/`` (git-ignored) and is keyed
 by a hash of the sources and flags, so an unchanged tree reuses it. Within
 ``variant(defines)`` launches go to a library built with extra macros
@@ -128,11 +129,24 @@ def library(defines: tuple = ()) -> ctypes.CDLL:
     return lib
 
 
-def current_stream() -> int:
-    """The raw handle of the current CUDA stream of the current device (no
-    torch.cuda.Stream object is made; the call exists in CUDA builds of
-    PyTorch only, and only CUDA launches reach it)."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of the current device; no
+    torch.cuda.Stream object is made (the calls exist in CUDA builds of
+    PyTorch only, and only CUDA launches reach them). Raises unless
+    ``device``, the device of the launch's tensors, is the current device:
+    the launchers run on the host thread's current device (csrc/blockg.cu's
+    cudaFuncSetAttribute and every <<<>>> launch take no device), so a
+    launch with another card's tensors would hand that card's pointers to
+    the wrong card. There is no silent switch: the caller places itself
+    with torch.cuda.set_device."""
+    current = torch._C._cuda_getDevice()
+    if device.type != "cuda" or device.index != current:
+        raise RuntimeError(
+            f"kernel launch: the tensors are on {device}, but the current "
+            f"CUDA device is cuda:{current}; call torch.cuda.set_device"
+            f"({device}) before loading (the kernels launch on the current "
+            f"device)")
+    return torch._C._cuda_getCurrentRawStream(current)
 
 
 class _Launcher:
@@ -156,7 +170,7 @@ class _Launcher:
         self.pack_i = struct.Struct(f"={n_i}i").pack_into
         self.pack_f = struct.Struct(f"={n_f}f").pack_into
 
-    def __call__(self, ptrs, ints, floats) -> int:
+    def __call__(self, ptrs, ints, floats, stream: int) -> int:
         sizes = (len(ptrs), len(ints), len(floats))
         if sizes != self.sizes:
             self._alloc(sizes)
@@ -166,8 +180,7 @@ class _Launcher:
         if floats:
             self.pack_f(self.f, 0, *floats)
         p, i, f = self.addr
-        return self.fn(p, sizes[0], i, sizes[1], f, sizes[2],
-                       current_stream())
+        return self.fn(p, sizes[0], i, sizes[1], f, sizes[2], stream)
 
 
 # {(launcher name, defines): _Launcher}
@@ -187,15 +200,17 @@ def variant(defines: tuple):
         _defines = saved
 
 
-def launch(name: str, ptrs, ints, floats) -> None:
+def launch(name: str, ptrs, ints, floats, device) -> None:
     """Call launcher ``name`` on the current CUDA stream with its pointer,
-    int and float tables; raise if it reports an error (a refused launch
+    int and float tables; ``device`` is the device of the tensors behind
+    ``ptrs``, which must be the current CUDA device (current_stream raises
+    otherwise). Raise if the launcher reports an error (a refused launch
     never runs, and synchronize() would not report it)."""
     key = (name, _defines)
     fn = _launchers.get(key)
     if fn is None:
         fn = _launchers[key] = _Launcher(name, library(_defines))
-    err = fn(ptrs, ints, floats)
+    err = fn(ptrs, ints, floats, current_stream(device))
     if err != 0:
         msg = library(_defines).maniac_error_string(err).decode()
         raise RuntimeError(f"{name} failed: error {err} ({msg})")

@@ -144,7 +144,7 @@ def _launch(x, y, z, q, eps, sig, n_steps: int, fq: int,
     build.launch("gpass_launch", [t.data_ptr() for t in (x, y, z, q, eps, sig,
                                                          partial, out)],
                  [G, S, fl, fq, n_steps, GPASS_VARIANTS.index(variant),
-                  ctas], [BOX_L, RC2, GGR2, ALPHA])
+                  ctas], [BOX_L, RC2, GGR2, ALPHA], x.device)
     return out
 
 

@@ -38,7 +38,8 @@ def onehot_product(x: torch.Tensor, oh: torch.Tensor) -> torch.Tensor:
     (M, K), N = x.shape, oh.shape[1]
     out = x.new_empty((M, N))
     build.launch("onehot_launch", (x.data_ptr(), oh.data_ptr(),
-                                   out.data_ptr()), (M, K, N), ())
+                                   out.data_ptr()), (M, K, N), (),
+                 x.device)
     onehot_product.launches += 1
     return out
 

@@ -122,7 +122,7 @@ def _launch(spec: SystemSpec, states: SimState) -> SimState:
     ints = [B, spec.S, spec.R + 1, JzP, JxyP, kx, ky, kz,
             spec.q_regions.shape[0], *tiling]
     floats = [COULOMB_K, TWOPI, spec.host_scalars["volume"]]
-    build.launch("resync_launch", ptrs, ints, floats)
+    build.launch("resync_launch", ptrs, ints, floats, states.pos.device)
     return states.replace(amp_re=amp_re, amp_im=amp_im, energy=energy)
 
 

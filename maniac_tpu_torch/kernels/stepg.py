@@ -135,7 +135,7 @@ def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     ints += [0, act_stride]
     for step in range(uniforms.shape[1]):
         ints[si_step] = step
-        build.launch("stepg_launch", ptrs, ints, floats)
+        build.launch("stepg_launch", ptrs, ints, floats, work.pos.device)
         run_steps_kernel.launches += 1
     return work
 

@@ -49,7 +49,8 @@ def split_uniform(keys: torch.Tensor, n_steps: int, dtype: torch.dtype):
                       device=keys.device)
     build.launch("threefry_launch",
                  (keys.data_ptr(), new_keys.data_ptr(), out.data_ptr()),
-                 (B, n_steps * N_UNIFORMS, int(dtype == torch.float64)), ())
+                 (B, n_steps * N_UNIFORMS, int(dtype == torch.float64)), (),
+                 keys.device)
     split_uniform.launches += 1
     return new_keys, out
 

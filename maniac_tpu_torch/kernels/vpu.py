@@ -89,7 +89,7 @@ def vpu_chain(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
     _check("x", x, tuple(x.shape), torch.float32, x.device)
     out = torch.empty_like(x)
     build.launch("vpu_chain_launch", [x.data_ptr(), out.data_ptr()],
-                 [x.numel(), n, VPU_OPS.index(op)], [])
+                 [x.numel(), n, VPU_OPS.index(op)], [], x.device)
     vpu_chain.launches += 1
     return out
 
@@ -177,7 +177,7 @@ def _prim_check_launch(name: str, out: torch.Tensor, lo, hi,
     (four int64: the kernel's tallies, set as prim_check sets them)."""
     lo_b, count = _check_span(name, lo, hi, stride)
     build.launch("prim_check_launch", [out.data_ptr()],
-                 [PRIMS.index(name), lo_b, count, stride], [])
+                 [PRIMS.index(name), lo_b, count, stride], [], out.device)
 
 
 def prim_check(name: str, device, lo=None, hi=None,
@@ -250,7 +250,7 @@ def _cpass_launch(px, py, pz, q, rows, n: int, transposed: bool):
     out = torch.empty_like(px)
     build.launch("cpass_launch", [t.data_ptr() for t in (px, py, pz, q, rows,
                                                          out)],
-                 [R, C, n, int(transposed)], CPASS_OFFSETS)
+                 [R, C, n, int(transposed)], CPASS_OFFSETS, px.device)
     return out
 
 

@@ -50,7 +50,8 @@ def measure(calls: int) -> dict:
         ints = list(range(1, n_i + 1))
         floats = [0.5 * k for k in range(n_f)]
         out[table] = per_call_us(
-            lambda: build.launch("noop_launch", ptrs, ints, floats), calls)
+            lambda: build.launch("noop_launch", ptrs, ints, floats,
+                                 buf.device), calls)
     return out
 
 

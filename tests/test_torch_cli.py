@@ -77,6 +77,24 @@ def test_cli_error_contract(tmp_path):
     assert "ERROR" in log or "Error" in log
 
 
+def test_cli_restart_roundtrip(tmp_path):
+    """The topology.data the port's command line writes loads as a -d
+    input (tests/test_cli_and_parallel.py::test_cli_restart_roundtrip):
+    the second run completes and starts from the first run's molecules."""
+    d = make_water_box(str(tmp_path / "sys"), n_water=8, L=14.0, cutoff=5.0,
+                       tol=1e-4, probs=(0.5, 0.5, 0.0, 0.0), nb_block=1,
+                       nb_step=30)
+    out, out2 = str(tmp_path / "out1"), str(tmp_path / "out2")
+    assert cli_main(_flags(d, out, "--platform", "cpu", "--dtype",
+                           "f64")) == 0
+    assert cli_main(["-i", f"{d}/input.maniac", "-d", f"{out}/topology.data",
+                     "-p", f"{d}/parameters.inc", "-o", out2, "--platform",
+                     "cpu", "--dtype", "f64"]) == 0
+    assert "Simulation Completed" in open(f"{out2}/log.maniac").read()
+    # translations and rotations only: the restart holds the 8 waters
+    assert int(_rows(f"{out2}/number_wat.dat")[0].split()[1]) == 8
+
+
 def test_cli_without_cuda_is_an_error(tmp_path):
     """The default --platform cuda on a machine without a CUDA device is an
     error (exit 1, a logged message), never a run on the CPU."""

@@ -706,12 +706,51 @@ def test_launch_path_refills_and_refuses():
         ref = (x[:, k:] * np.float32(k + 1)).astype(np.float64) @ oh[k:]
         assert np.array_equal(got.cpu().numpy().astype(np.float64), ref)
     for n in (0, 3, 60):
-        build.launch("noop_launch", [xt.data_ptr()] * n, [1] * n, [2.0] * n)
+        build.launch("noop_launch", [xt.data_ptr()] * n, [1] * n, [2.0] * n,
+                     xt.device)
     with pytest.raises(RuntimeError, match="onehot_launch failed"):
         build.launch("onehot_launch", [xt.data_ptr(), oht.data_ptr(),
-                                       xt.data_ptr()], [0, 256, 8], [])
+                                       xt.data_ptr()], [0, 256, 8], [],
+                     xt.device)
     torch.cuda.synchronize()
     assert np.array_equal(onehot_product(xt, oht).cpu().numpy(), want)
+
+
+def test_launch_refuses_tensors_off_the_current_device(tmp_path):
+    """The kernels launch on the current CUDA device, so a launch whose
+    tensors lie elsewhere raises before it runs and no device is switched:
+    the host's tensors, a card index that is not the current one and, on a
+    machine with two cards, K5 on cuda:1 while cuda:0 is current. Then
+    load_system(device="cuda:0") and one replicated block still launch the
+    threefry and block kernels."""
+    dev = _device()
+    current = torch.cuda.current_device()
+    x, oh, want = onehot_operands()
+    xt, oht = torch.from_numpy(x), torch.from_numpy(oh)
+    ptrs = [xt.data_ptr(), oht.data_ptr(), xt.data_ptr()]
+    for where in (torch.device("cpu"), torch.device("cuda", current + 1)):
+        with pytest.raises(RuntimeError, match="current CUDA device"):
+            build.launch("onehot_launch", ptrs, [8, 256, 8], [], where)
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda",
+                             (current + 1) % torch.cuda.device_count())
+        with pytest.raises(RuntimeError, match="current CUDA device"):
+            onehot_product(xt.to(other), oht.to(other))
+    assert torch.cuda.current_device() == current
+    torch.cuda.set_device(0)
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.3, 0.2, 0.5, 0.0), fugacity=5000.0)
+    sysm = _load(str(tmp_path), "cuda:0", 16)
+    n_blk, n_tf = run_block_kernel.launches, split_uniform.launches
+    out = run_block_replicated(sysm.spec, replicate(sysm.spec, sysm.state,
+                                                    8), 20, True)
+    assert run_block_kernel.launches == n_blk + 1
+    assert split_uniform.launches == n_tf + 1
+    assert out.pos.device == torch.device("cuda", 0)
+    assert bool(torch.isfinite(out.energy).all())
+    assert np.array_equal(onehot_product(torch.from_numpy(x).to(dev),
+                                         torch.from_numpy(oh).to(dev))
+                          .cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -27,6 +27,8 @@ torch.set_num_threads(1)
 
 CSRC = Path(build.__file__).resolve().parent / "csrc"
 STREAM = 0x7F00DEAD
+# the device of the stub launches' tensors (no card is touched)
+DEV = torch.device("cuda", 0)
 
 
 class _StubLib:
@@ -58,7 +60,7 @@ def stub(monkeypatch):
     lib = _StubLib()
     monkeypatch.setattr(build, "library", lambda defines=(): lib)
     monkeypatch.setattr(build, "_launchers", {})
-    monkeypatch.setattr(build, "current_stream", lambda: STREAM)
+    monkeypatch.setattr(build, "current_stream", lambda device: STREAM)
     return lib
 
 
@@ -80,7 +82,7 @@ def test_launch_packs_the_tables_as_before(stub):
              ([0x10] * 60, list(range(-12, 12)), [float(k) / 7 for k in
                                                    range(12)])]
     for ptrs, ints, floats in calls:
-        build.launch("blockg_launch", ptrs, ints, floats)
+        build.launch("blockg_launch", ptrs, ints, floats, DEV)
     assert len(build._launchers) == 1
     for (ptrs, ints, floats), got in zip(calls, stub.calls):
         p, i, f = _before(ptrs, ints, floats)
@@ -94,10 +96,34 @@ def test_launch_raises_on_refusal(stub):
     stub.ret = 100002
     with pytest.raises(RuntimeError, match=r"stepg_launch failed: error "
                                            r"100002 \(stub error 100002\)"):
-        build.launch("stepg_launch", [1], [2], [3.0])
+        build.launch("stepg_launch", [1], [2], [3.0], DEV)
     stub.ret = 0
-    build.launch("stepg_launch", [1], [2], [3.0])
+    build.launch("stepg_launch", [1], [2], [3.0], DEV)
     assert len(stub.calls) == 2
+
+
+def test_launch_refuses_a_device_that_is_not_current(monkeypatch):
+    """The launchers run on the current CUDA device, so a launch whose
+    tensors lie on another device (another card, or the host) raises
+    before the launcher is called, and no device is switched; tensors on
+    the current device launch on its current stream."""
+    lib = _StubLib()
+    monkeypatch.setattr(build, "library", lambda defines=(): lib)
+    monkeypatch.setattr(build, "_launchers", {})
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 1,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: STREAM + index, raising=False)
+    for device in (torch.device("cuda", 0), torch.device("cuda", 2),
+                   torch.device("cpu")):
+        with pytest.raises(RuntimeError, match=r"current CUDA device is "
+                                               r"cuda:1; call torch\.cuda"
+                                               r"\.set_device"):
+            build.launch("blockg_launch", [1], [2], [3.0], device)
+    assert lib.calls == []
+    build.launch("blockg_launch", [1], [2], [3.0], torch.device("cuda", 1))
+    assert [c[-1] for c in lib.calls] == [STREAM + 1]
+    assert torch._C._cuda_getDevice() == 1
 
 
 def _enum(source, name):
@@ -138,15 +164,15 @@ def test_variant_takes_launches_within_its_block(monkeypatch):
     libs = {(): _StubLib(), ("MANIAC_SECTION_CLOCKS",): _StubLib()}
     monkeypatch.setattr(build, "library", lambda defines=(): libs[defines])
     monkeypatch.setattr(build, "_launchers", {})
-    monkeypatch.setattr(build, "current_stream", lambda: STREAM)
-    build.launch("blockg_launch", [1], [2], [3.0])
+    monkeypatch.setattr(build, "current_stream", lambda device: STREAM)
+    build.launch("blockg_launch", [1], [2], [3.0], DEV)
     with build.variant(("MANIAC_SECTION_CLOCKS",)) as lib:
         assert lib is libs[("MANIAC_SECTION_CLOCKS",)]
-        build.launch("blockg_launch", [4], [5], [6.0])
+        build.launch("blockg_launch", [4], [5], [6.0], DEV)
     with pytest.raises(KeyError):
         with build.variant(("MANIAC_SECTION_CLOCKS",)):
             raise KeyError("inside")
-    build.launch("blockg_launch", [7], [8], [9.0])
+    build.launch("blockg_launch", [7], [8], [9.0], DEV)
     assert [_unpack(c)[0] for c in libs[()].calls] == [[1], [7]]
     assert [_unpack(c)[0] for c in
             libs[("MANIAC_SECTION_CLOCKS",)].calls] == [[4]]

@@ -337,7 +337,7 @@ def test_launch_tables_match_the_kernel(tmp_path, monkeypatch):
     lib = _StubLib()
     monkeypatch.setattr(build, "library", lambda defines=(): lib)
     monkeypatch.setattr(build, "_launchers", {})
-    monkeypatch.setattr(build, "current_stream", lambda: 0)
+    monkeypatch.setattr(build, "current_stream", lambda device: 0)
     states = replicate(spec, state, 5)
     out = resync._launch(spec, states)
     ptrs, ints, floats = lib.calls[-1]
