@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke check of the maniac_tpu_torch main path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # some three and a half minutes on an H100
+    python3 chip_smoke.py    # some five and a half minutes on an H100
 
 Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then
 runs the phases below. Every system is loaded with the seed SEED, and every
@@ -189,6 +189,29 @@ package's stream; on the card the threefry kernel, csrc/threefry.cu):
      which must launch K1 once, held against a fresh plain synthesis
      (phase 1's bounds). A rank's non-zero exit or timeout fails the
      phase.
+ 15. the validation layer on the card: (a) the f32 per-move dE envelope
+     (tools/delta_e_report.measure: make_zif_like(n_cells=4, a=5.66,
+     n_water=16, fugacity=50), capacity 64, 64 replicas from seed 3, 200
+     steps) through the step kernel (one launch a step), the block kernel
+     (200 one-step blocks) and the plain f32 step, each accepted move's
+     running dE against an f64 recompute on the card (TF32 stays off):
+     max, mean and p99 printed, max < 5e-4 and mean < 1e-4 kcal/mol,
+     more than 20 moves, the dispatch naming both kernels; (b) the virial
+     anchor (maniac_tpu_torch/virial.py: the LJ gas at z* = 0.032, T* =
+     1.5, 64 replicas, capacity 96, 10 + 30 blocks of 150 steps) on the
+     block kernel in f32 with the resync: <N> within 3 sem + 0.6% of the
+     virial value and more than 4 sem from the ideal one, then 12 blocks
+     of Widom (widom_block_replicated, 64 ghosts a replica) within 3 sem
+     + 1% of exp(-2 B2 rho) and more than 3 sem from 1; the block,
+     resync and threefry kernels once a block; (c) every case of
+     tools/run_examples.py through the command line with --sentinel 1
+     (exit 0, "Simulation Completed", the kernel that took its steps
+     named and its launches counted: the step kernel once a step where
+     the dispatch names it, no block kernel), the isotherm (the step
+     kernel once a step), then the flagship deck with --replicas 1024
+     --sentinel 1 for FLAGSHIP_SENTINEL_BLOCKS blocks; the total of
+     checked blocks and divergences under the command line's rule
+     (cli.py: more than max(2, 4 x checked / 500) fails).
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block, resync and
@@ -300,6 +323,15 @@ MESH_BLOCKS, MESH_WARMUP, MESH_RANKS = 4, 1, 2
 MESH_TIMEOUT = 240
 MESH_CHECK_REPLICAS = 8
 MESH_FIELDS = ("n_mol", "counters", "energy", "key", "pos")
+# phase 15: the validation layer. (a) the f32 per-move dE envelope
+# (tools/delta_e_report's system) through K3, K2 and the plain step, with
+# tests/test_precision.py's bounds (kcal/mol); (b) the virial anchor's
+# sizes are maniac_tpu_torch/virial.py's; (c) blocks of the flagship
+# deck's --replicas 1024 --sentinel 1 run
+ENVELOPE_REPLICAS, ENVELOPE_STEPS, ENVELOPE_SEED = 64, 200, 3
+ENVELOPE_PATHS = ("step", "block", "plain")
+ENVELOPE_MAX, ENVELOPE_MEAN = 5e-4, 1e-4
+FLAGSHIP_SENTINEL_BLOCKS = 4
 
 # ---- bounds: the least time the card could take for a call's work --------
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
@@ -1872,6 +1904,184 @@ def _mesh_phase(label):
         print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _envelope_phase(label):
+    """Phase 15a: the f32 per-move dE envelope on the card, three ways
+    (ENVELOPE_PATHS: K3 one launch a step, K2 as one-step blocks, the plain
+    f32 step), each accepted move's dE against an f64 recompute on the
+    card. Returns {path: report}."""
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.tools.delta_e_report import measure
+    reports = {}
+    for path in ENVELOPE_PATHS:
+        run_steps_kernel.launches = 0
+        run_block_kernel.launches = 0
+        t0 = time.perf_counter()
+        rep = measure(ENVELOPE_STEPS, ENVELOPE_SEED, False, "cuda",
+                      ENVELOPE_REPLICAS, path)
+        sec = time.perf_counter() - t0
+        launches = {"stepg": run_steps_kernel.launches,
+                    "blockg": run_block_kernel.launches}
+        print(f"phase 15a: {path}: {rep['accepted_moves']} accepted moves of "
+              f"{ENVELOPE_REPLICAS} x {ENVELOPE_STEPS}, |dE_f32 - dE_f64| "
+              f"max {rep['max_abs_dE_err_kcalmol']:.3e} mean "
+              f"{rep['mean_abs_dE_err_kcalmol']:.3e} p99 "
+              f"{rep['p99_abs_dE_err_kcalmol']:.3e} kcal/mol in {sec:.1f} s; "
+              f"launches {launches} ({label})")
+        want = {"step": {"stepg": ENVELOPE_STEPS, "blockg": 0},
+                "block": {"stepg": 0, "blockg": ENVELOPE_STEPS},
+                "plain": {"stepg": 0, "blockg": 0}}[path]
+        if (launches != want or rep["accepted_moves"] <= 20
+                or not rep["max_abs_dE_err_kcalmol"] < ENVELOPE_MAX
+                or not rep["mean_abs_dE_err_kcalmol"] < ENVELOPE_MEAN):
+            raise AssertionError(f"phase 15a: the {path} envelope failed "
+                                 f"its checks: {rep}, launches {launches}")
+        reports[path] = rep
+    print(f"phase 15a: {rep['dispatch']}")
+    if ("block: CUDA whole-block kernel" not in rep["dispatch"]
+            or "step: CUDA per-step kernel" not in rep["dispatch"]
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("phase 15a: the dispatch does not name K2 and "
+                             "K3, or TF32 is on beside the f64 spec")
+    return reports
+
+
+def _virial_phase(label):
+    """Phase 15b: the virial anchor (maniac_tpu_torch/virial.py) on K2 in
+    f32 with the resync (K1): the occupancy, then Widom
+    (widom_block_replicated on the card) from the same equilibrated
+    state."""
+    from maniac_tpu_torch import virial
+    from maniac_tpu_torch.kernels import use_block_kernel
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped
+    from maniac_tpu_torch.kernels.threefry import split_uniform
+    from maniac_tpu_torch.systems import make_lj_gas
+    with tempfile.TemporaryDirectory() as tmp:
+        make_lj_gas(tmp, **virial.lj_gas_kwargs())
+        spec, state = virial.load(tmp, torch.float32, "cuda")
+    if not use_block_kernel(spec, "cuda"):
+        raise AssertionError("phase 15b: the LJ gas is not on the block "
+                             "kernel")
+    for k in (run_block_kernel, resync_grouped, split_uniform):
+        k.launches = 0
+    t0 = time.perf_counter()
+    eq = virial.equilibrate(spec, state, resync=True)
+    occ = virial.occupancy(spec, eq, resync=True)
+    wid = virial.widom(spec, eq, resync=True)
+    torch.cuda.synchronize()
+    blocks = (virial.EQ_BLOCKS + virial.OCCUPANCY_BLOCKS
+              + virial.WIDOM_BLOCKS)
+    launches = {"blockg": run_block_kernel.launches,
+                "resync": resync_grouped.launches,
+                "threefry": split_uniform.launches}
+    print(f"phase 15b: virial anchor B={virial.REPLICAS}, {blocks} blocks "
+          f"of {virial.STEPS} steps in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches} ({label})")
+    print(f"phase 15b: <N> = {occ['n']:.3f} +- {occ['sem']:.3f}, virial "
+          f"{occ['n_virial']:.3f}, ideal {occ['n_ideal']:.3f}: matches "
+          f"{occ['matches']}, B2 shift resolved {occ['resolved']}")
+    print(f"phase 15b: Widom B = {wid['B']:.4f} +- {wid['sem']:.4f}, virial "
+          f"{wid['B_virial']:.4f}: matches {wid['matches']}, mu_ex != 0 "
+          f"resolved {wid['resolved']}")
+    if (not (occ["matches"] and occ["resolved"] and wid["matches"]
+             and wid["resolved"])
+            or launches != {"blockg": blocks, "resync": blocks,
+                            "threefry": blocks}):
+        raise AssertionError("phase 15b: the virial anchor failed on the "
+                             "card")
+    return occ, wid
+
+
+def _sentinel_tally(log):
+    """(checked blocks, divergences) from a log's sentinel summary."""
+    m = re.search(r"sentinel: (\d+) cross-checked blocks, (\d+) "
+                  r"divergences", log)
+    if m is None:
+        raise AssertionError("no sentinel summary in the log")
+    return int(m.group(1)), int(m.group(2))
+
+
+def _examples_phase(label):
+    """Phase 15c: every case of tools/run_examples.py through the command
+    line on the card with --sentinel 1, the isotherm, then the flagship
+    deck with --replicas 1024 --sentinel 1; the sentinel's tally under the
+    command line's rule. Returns (checked, divergences)."""
+    from maniac_tpu_torch.cli import SENTINEL_BENIGN_RATE
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_grouped
+    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
+    from maniac_tpu_torch.systems import make_zif_like
+    from maniac_tpu_torch.tools import run_examples
+    checked = diverged = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (_, kw, _) in run_examples.CASES.items():
+            d = f"{tmp}/{name}"
+            argv = run_examples.case_argv(name, d, ["--sentinel", "1"])
+            run_steps_kernel.launches = 0
+            run_block_kernel.launches = 0
+            rc, sec, log = _cli(argv, f"{d}/outputs")
+            steps = kw["nb_block"] * kw["nb_step"]
+            on_k3 = "step: CUDA per-step kernel" in log
+            n, k = _sentinel_tally(log)
+            checked, diverged = checked + n, diverged + k
+            took = ("K3 (csrc/stepg.cu)" if on_k3 else "the plain torch "
+                    "step")
+            print(f"phase 15c: {name}: exit {rc} in {sec:.1f} s, {steps} "
+                  f"steps on {took}, step kernel launches "
+                  f"{run_steps_kernel.launches}; sentinel {n} blocks, {k} "
+                  f"divergences ({label})")
+            print(f"phase 15c: {name}: "
+                  f"{run_examples.dispatch_line(d)}")
+            if (not run_examples.case_passed(rc, d)
+                    or run_steps_kernel.launches != (steps if on_k3 else 0)
+                    or run_block_kernel.launches != 0
+                    or n != kw["nb_block"] or "SENTINEL:" in log):
+                raise AssertionError(f"phase 15c: the {name} case failed "
+                                     f"its checks")
+        run_steps_kernel.launches = 0
+        t0 = time.perf_counter()
+        means = run_examples.isotherm("cuda")
+        print(f"phase 15c: isotherm <N> {means} in "
+              f"{time.perf_counter() - t0:.1f} s, step kernel launches "
+              f"{run_steps_kernel.launches} ({label})")
+        if (run_steps_kernel.launches != 2000 + 10 * 200
+                or not all(0.0 <= m <= 64.0 for m in means)):
+            raise AssertionError("phase 15c: the isotherm failed its checks")
+
+        d = f"{tmp}/flagship"
+        make_zif_like(d, n_cells=6, a=5.66, n_water=32, fugacity=30.0,
+                      nb_block=FLAGSHIP_SENTINEL_BLOCKS, nb_step=MAIN_STEPS)
+        run_block_kernel.launches = 0
+        resync_grouped.launches = 0
+        rc, sec, log = _cli([
+            "-i", f"{d}/input.maniac", "-d", f"{d}/topology.data", "-p",
+            f"{d}/parameters.inc", "--capacity", str(CAPACITY), "--replicas", str(MAIN_REPLICAS),
+            "--sentinel", "1", "--seed", str(SEED)], f"{d}/outputs")
+        n, k = _sentinel_tally(log)
+        checked, diverged = checked + n, diverged + k
+        print(f"phase 15c: flagship --replicas {MAIN_REPLICAS} --sentinel 1: "
+              f"exit {rc} in {sec:.1f} s, launches blockg "
+              f"{run_block_kernel.launches} resync "
+              f"{resync_grouped.launches}; sentinel {n} blocks, {k} "
+              f"divergences ({label})")
+        if (rc != 0 or "Simulation Completed" not in log
+                or n != FLAGSHIP_SENTINEL_BLOCKS or "SENTINEL:" in log
+                or run_block_kernel.launches != FLAGSHIP_SENTINEL_BLOCKS
+                or resync_grouped.launches < FLAGSHIP_SENTINEL_BLOCKS):
+            raise AssertionError("phase 15c: the flagship sentinel run "
+                                 "failed its checks")
+    expected = checked * SENTINEL_BENIGN_RATE
+    print(f"phase 15c: sentinel total {checked} cross-checked blocks, "
+          f"{diverged} divergences (rate {diverged / checked:.4f}; the "
+          f"command line's rule allows {max(2.0, 4.0 * expected):.2f}) "
+          f"({label})")
+    if diverged > max(2.0, 4.0 * expected):
+        raise AssertionError("phase 15c: systematic kernel/plain "
+                             "divergence under the sentinel")
+    return checked, diverged
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2080,6 +2290,11 @@ def main() -> int:
 
     # ---- phase 14: the mesh on the card --------------------------------
     _mesh_phase(label)
+
+    # ---- phase 15: the validation layer on the card --------------------
+    _envelope_phase(label)
+    _virial_phase(label)
+    _examples_phase(label)
 
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1), k4,

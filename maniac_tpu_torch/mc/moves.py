@@ -31,6 +31,7 @@ from ..physics.energy import (active_site_mask, amp_delta, intra_energy,
                               site_positions)
 from ..physics.pbc import wrap_into_box
 from ..system import E_RECIP, N_MOVE_TYPES, SimState, SystemSpec
+from ..utils.threefry import uniform
 
 N_UNIFORMS = 21  # uniforms consumed per MC step (see mc_step_u)
 
@@ -94,6 +95,17 @@ def _scatter_cols(x, idx, cols, mask):
     idx3 = idx.long()[:, None, :].expand(-1, 3, -1)
     cur = torch.gather(x, 2, idx3)
     return x.scatter(2, idx3, torch.where(mask[:, None, :], cols, cur))
+
+
+def mc_step(spec: SystemSpec, states: SimState, key) -> SimState:
+    """One MC trial per replica from a threefry key: the single-step API
+    of maniac_tpu/mc/moves.py::mc_step, which draws uniform(key,
+    (N_UNIFORMS,)) in the spec dtype and runs mc_step_u. ``key`` is (2,)
+    (every replica steps on its uniforms; one key walks JAX's chain at
+    B = 1) or (B, 2), one key a replica. The step dispatches as mc_step_u
+    does."""
+    u = uniform(key, (N_UNIFORMS,), spec.dtype).reshape(-1, N_UNIFORMS)
+    return mc_step_u(spec, states, u.expand(states.B, -1))
 
 
 def mc_step_u(spec: SystemSpec, states: SimState, u, core=None) -> SimState:

@@ -14,7 +14,9 @@ and the per-species Widom factor over n trials is
 
 The trials of all active species run as one batch through the plain torch
 energy path (the JAX package runs Widom on XLA; there is no kernel to
-port), on the caller's device. Their uniforms come from a key of their
+port), on the caller's device; widom_block_replicated runs every
+replica's trials in the same batch, the counterpart of
+jax.vmap(widom_block). Their uniforms come from a key of their
 own (``widom_key``: the reported replica's key folded with WIDOM_TAG and
 the block, as maniac_tpu/cli.py folds it, so the chain's key never
 advances and a resumed run draws the same ghosts) or are passed in.
@@ -35,6 +37,10 @@ from .moves import _uniform_rotation
 N_WIDOM_UNIFORMS = 6       # fractional COM (3), the rotation draw (3)
 # the JAX command line's fold-in tag for its Widom key ("WIDO")
 WIDOM_TAG = 0x5749444F
+# (ghost site, site) pairs a pass of widom_delta_u_replicated takes over all
+# replicas: some 1 GB of f32 intermediates (SPC/E's 64 replicas x 256 trials
+# take 4 passes)
+WIDOM_PAIRS_PER_PASS = 2 ** 24
 
 
 def widom_delta_u(spec: SystemSpec, state: SimState, u, t_ins):
@@ -47,31 +53,55 @@ def widom_delta_u(spec: SystemSpec, state: SimState, u, t_ins):
     #4). The ghost excludes no molecule (the sentinel Mtot + 1): unlike a
     real insertion it takes no slot, so every live molecule interacts.
     Returns (n,)."""
-    dev, fdt = spec.device, spec.dtype
-    u = torch.as_tensor(u, dtype=fdt, device=dev).reshape(-1,
-                                                          N_WIDOM_UNIFORMS)
-    n = u.shape[0]
+    first = SimState(**{k: v[:1] for k, v in vars(state).items()})
+    u = torch.as_tensor(u, dtype=spec.dtype, device=spec.device)
+    return widom_delta_u_replicated(
+        spec, first, u.reshape(1, -1, N_WIDOM_UNIFORMS), t_ins)[0]
+
+
+def widom_delta_u_replicated(spec: SystemSpec, states: SimState, u, t_ins):
+    """dU (Kelvin) of ghost insertions into every replica of ``states``:
+    u (B, n, 6) each replica's uniforms, t_ins (n,) or one int, the types
+    of the n trials (the same in every replica). The trials are footprints
+    of one pair pass per replica and their structure-factor updates one
+    batch, in passes of at most WIDOM_PAIRS_PER_PASS (ghost site, site)
+    pairs over all replicas. Returns (B, n)."""
+    dev = spec.device
+    u = torch.as_tensor(u, dtype=spec.dtype, device=dev)
+    B, n = u.shape[:2]
     t = torch.as_tensor(t_ins, dtype=torch.long, device=dev).expand(n)
-    rot = _uniform_rotation(u[:, 3:6])                          # (n, 3, 3)
-    off = spec.type_template_off[t] @ rot.transpose(1, 2)       # (n, A, 3)
-    com = spec.bounds[:, 0] + u[:, 0:3] @ spec.H.T              # (n, 3)
-    P = (com[:, None, :] + off)[:, None]                        # (n,1,A,3)
+    per_pass = max(1, WIDOM_PAIRS_PER_PASS // (B * spec.A_act * spec.S))
+    return torch.cat([_ghost_du(spec, states, u[:, i:i + per_pass],
+                                t[i:i + per_pass])
+                      for i in range(0, n, per_pass)], dim=1)
+
+
+def _ghost_du(spec: SystemSpec, states: SimState, u, t):
+    """widom_delta_u_replicated for one pass: u (B, n, 6), t (n,)."""
+    dev, fdt = spec.device, spec.dtype
+    B, n = u.shape[:2]
+    rot = _uniform_rotation(u[..., 3:6].reshape(-1, 3))        # (Bn, 3, 3)
+    off = spec.type_template_off[t].repeat(B, 1, 1) @ rot.transpose(1, 2)
+    com = spec.bounds[:, 0] + u[..., 0:3].reshape(-1, 3) @ spec.H.T
+    P = (com[:, None, :] + off).reshape(B, n, spec.A_act, 3)
     mask = (torch.arange(spec.A_act, device=dev)
-            < spec.type_A[t][:, None])[:, None]                 # (n, 1, A)
-    q = spec.type_q_rows[t][:, None]
-    cls = spec.type_cls_rows[t][:, None]
-    no_mol = torch.full((n,), spec.Mtot + 1, dtype=torch.int32, device=dev)
-    others = site_positions(spec, state)[:1].expand(n, -1, -1)
-    others_mask = active_site_mask(spec, state.n_mol[:1]).expand(n, -1)
-    e_lj, e_coul = pair_energy_footprint(spec, others, others_mask, P, q,
-                                         cls, mask, no_mol, no_mol)
-    d_re, d_im = amp_delta(spec, P, q, mask,
-                           torch.ones((n, 1), dtype=fdt, device=dev))
-    e_recip = recip_energy_delta(spec, state.amp_re[:1], state.amp_im[:1],
-                                 d_re, d_im)
-    return (e_lj[:, 0] + e_coul[:, 0] + e_recip
-            + spec.type_self_energy[t]
-            + intra_energy(spec, P[:, 0], q[:, 0], mask[:, 0]))
+            < spec.type_A[t][:, None]).expand(B, n, -1)         # (B, n, A)
+    q = spec.type_q_rows[t].expand(B, n, -1)
+    cls = spec.type_cls_rows[t].expand(B, n, -1)
+    no_mol = torch.full((B,), spec.Mtot + 1, dtype=torch.int32, device=dev)
+    e_lj, e_coul = pair_energy_footprint(
+        spec, site_positions(spec, states),
+        active_site_mask(spec, states.n_mol), P, q, cls, mask, no_mol,
+        no_mol)                                                 # (B, n)
+    d_re, d_im = amp_delta(spec, P.reshape(B * n, 1, spec.A_act, 3),
+                           q.reshape(B * n, 1, -1), mask.reshape(B * n, 1, -1),
+                           torch.ones((B * n, 1), dtype=fdt, device=dev))
+    e_recip = recip_energy_delta(
+        spec, states.amp_re[:, None], states.amp_im[:, None],
+        d_re.reshape(B, n, *d_re.shape[1:]),
+        d_im.reshape(B, n, *d_im.shape[1:]))                    # (B, n)
+    return (e_lj + e_coul + e_recip + spec.type_self_energy[t]
+            + intra_energy(spec, P, q, mask))
 
 
 def widom_key(state: SimState, block: int) -> torch.Tensor:
@@ -100,9 +130,30 @@ def widom_block(spec: SystemSpec, state: SimState, n_trials: int,
     types = spec.active_type_ids.long().expand(n_trials, -1)
     du = widom_delta_u(spec, state, u.reshape(-1, N_WIDOM_UNIFORMS),
                        types.reshape(-1)).reshape(n_trials, spec.n_active)
-    x = -du / spec.temp_K
-    m = x.max(dim=0).values
-    return m + torch.log(torch.exp(x - m).mean(dim=0))
+    return _log_mean_exp(-du / spec.temp_K)
+
+
+def widom_block_replicated(spec: SystemSpec, states: SimState,
+                           n_trials: int, keys) -> torch.Tensor:
+    """widom_block for every replica at once, the counterpart of
+    jax.vmap(widom_block) over (states, keys): replica b draws
+    uniform(keys[b], (n_trials, n_active, 6)) and its ghosts go into its
+    own configuration. keys (B, 2). Returns the log factors (B,
+    n_active)."""
+    u = uniform(torch.as_tensor(keys, device=spec.device),
+                (n_trials, spec.n_active, N_WIDOM_UNIFORMS), spec.dtype)
+    B = states.B
+    types = spec.active_type_ids.long().expand(n_trials, -1).reshape(-1)
+    du = widom_delta_u_replicated(
+        spec, states, u.reshape(B, -1, N_WIDOM_UNIFORMS), types)
+    return _log_mean_exp(-du.reshape(B, n_trials, spec.n_active)
+                         / spec.temp_K)
+
+
+def _log_mean_exp(x):
+    """ln mean(exp(x)) over the trial axis (-2), max-shifted."""
+    m = x.max(dim=-2).values
+    return m + torch.log(torch.exp(x - m.unsqueeze(-2)).mean(dim=-2))
 
 
 def widom_factor(log_B):

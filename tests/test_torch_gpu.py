@@ -797,3 +797,20 @@ def test_block_kernel_rejected_overlap_keeps_energies(tmp_path):
     assert int(out.counters[0, 1].sum()) == 0
     assert bool(torch.isfinite(out.energy).all())
     assert torch.equal(out.energy, state.energy)
+
+
+def test_step_kernel_f32_delta_e_envelope():
+    """chip_smoke.py phase 15a's envelope through the step kernel
+    (tools/delta_e_report: the flagship chemistry, 64 replicas from seed 3,
+    200 steps, one launch a step): every accepted move's f32 running dE
+    against an f64 recompute on the card, within tests/test_precision.py's
+    bounds (max 5e-4, mean 1e-4 kcal/mol)."""
+    from maniac_tpu_torch.tools.delta_e_report import measure
+    _device()
+    run_steps_kernel.launches = 0
+    rep = measure(200, 3, False, "cuda", 64, "step")
+    assert run_steps_kernel.launches == 200
+    assert rep["accepted_moves"] > 20
+    assert rep["max_abs_dE_err_kcalmol"] < 5e-4, rep
+    assert rep["mean_abs_dE_err_kcalmol"] < 1e-4, rep
+    assert not torch.backends.cuda.matmul.allow_tf32

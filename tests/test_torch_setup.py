@@ -23,8 +23,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_out():
     """The package and the modules outside its import (the probes, the
     micro-benchmark kernels, the tools, Widom and checkpoints, the mesh,
-    its launcher and the integration hooks) import neither jax nor the JAX
-    package."""
+    its launcher and the integration hooks, the validation tools and the
+    virial anchor) import neither jax nor the JAX package."""
     code = ("import sys, maniac_tpu_torch, maniac_tpu_torch.utils.hwprobe, "
             "maniac_tpu_torch.kernels.hwprobe, maniac_tpu_torch.kernels.vpu, "
             "maniac_tpu_torch.kernels.gpass, "
@@ -41,7 +41,11 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.mc.widom, maniac_tpu_torch.io.checkpoint, "
             "maniac_tpu_torch.parallel.mesh, "
             "maniac_tpu_torch.tools.launch_multihost, "
-            "maniac_tpu_torch.entry; "
+            "maniac_tpu_torch.entry, maniac_tpu_torch.virial, "
+            "maniac_tpu_torch.tools.delta_e_report, "
+            "maniac_tpu_torch.tools.validate_spce, "
+            "maniac_tpu_torch.tools.run_examples, "
+            "maniac_tpu_torch.tools.sentinel_rate; "
             "bad = [m for m in sys.modules if m.startswith('jax') "
             "or m.startswith('maniac_tpu.') or m == 'maniac_tpu']; "
             "assert not bad, bad")

@@ -7,6 +7,8 @@ tests/test_widom.py's cases with the same inputs into both packages.
     f32, added in another order);
   * the two-species widom_block from fed uniforms against numpy's
     log-mean-exp of JAX's per-trial dU;
+  * widom_block_replicated against jax.vmap(widom_block) on the same 4
+    replicas (a JAX block apart) and the same keys, f64 within 1e-9;
   * the command line with --widom 4 --profile 8: energy.dat byte-identical
     to a run without it, widom.dat's shape and cumulative mean as
     tests/test_widom.py checks them.
@@ -18,15 +20,21 @@ import numpy as np
 import pytest
 import torch
 
+from maniac_tpu.mc.widom import widom_block as jax_widom_block
 from maniac_tpu.mc.widom import widom_delta_u as jax_widom_delta_u
+from maniac_tpu.parallel.replicas import replicate as jax_replicate
+from maniac_tpu.parallel.replicas import \
+    run_block_replicated as jax_run_block_replicated
 from maniac_tpu_torch.cli import main as cli_main
 from maniac_tpu_torch.mc.widom import (mu_excess_K, widom_block,
+                                       widom_block_replicated,
                                        widom_delta_u, widom_factor,
                                        widom_key)
+from maniac_tpu_torch.system import state_from_numpy
 from maniac_tpu_torch.systems import make_lj_gas, make_water_box, \
     make_zif_like
 
-from torch_parity import load_both
+from torch_parity import jax_leaves, load_both
 
 torch.set_num_threads(1)
 
@@ -85,6 +93,39 @@ def test_widom_du_matches_jax(tmp_path, fixture, f32):
     if fixture is _framework:
         # the pore placement keeps the absolute tolerance in play
         assert min(abs(want)) < 1e5, want
+
+
+@pytest.mark.parametrize("trials_per_pass", [None, 5],
+                         ids=["one_pass", "four_passes"])
+@pytest.mark.parametrize("fixture", [_water, _framework],
+                         ids=["water", "fwsplit"])
+def test_widom_block_replicated_matches_jax_vmap(tmp_path, monkeypatch,
+                                                 fixture, trials_per_pass):
+    """widom_block_replicated is jax.vmap(widom_block) over (states,
+    keys): 4 replicas one JAX block of 30 steps apart, the keys
+    split(PRNGKey(17), 4) in both packages (the anchors draw theirs so),
+    16 trials each, in one pass or in passes of 5 trials
+    (WIDOM_PAIRS_PER_PASS set so); f64 log factors within 1e-9."""
+    from maniac_tpu_torch.mc import widom as widom_module
+    from maniac_tpu_torch.utils.threefry import prng_key, split
+    capacity, _ = fixture(tmp_path)
+    sysm, spec, _ = load_both(str(tmp_path), capacity=capacity)
+    jspec = sysm.spec
+    jst = jax_run_block_replicated(jspec, jax_replicate(jspec, sysm.state, 4),
+                                   30, False)
+    assert len(set(np.asarray(jst.energy)[:, 5])) == 4   # 4 configurations
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda st, k: jax_widom_block(jspec, st, 16, k)))(
+            jst, jax.random.split(jax.random.PRNGKey(17), 4)))
+    states = state_from_numpy(jax_leaves(jst), device="cpu",
+                              dtype=torch.float64)
+    if trials_per_pass:
+        monkeypatch.setattr(widom_module, "WIDOM_PAIRS_PER_PASS",
+                            trials_per_pass * 4 * spec.A_act * spec.S)
+    got = widom_block_replicated(spec, states, 16,
+                                 split(prng_key(17), 4)).numpy()
+    assert got.shape == want.shape == (4, spec.n_active)
+    np.testing.assert_allclose(got, want, rtol=F64_RTOL, atol=F64_RTOL)
 
 
 def test_widom_block_two_species_matches_jax(tmp_path):

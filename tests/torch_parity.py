@@ -1,11 +1,14 @@
-"""Helpers shared by the tests/test_torch_*.py parity tests: load a system
-in both packages, carry JAX leaves into the port, run JAX scans of
-mc_step_u and JAX's Pallas blockg (interpret mode) on explicit uniforms,
-and compare batched states."""
+"""Helpers shared by the tests/test_torch_*.py parity tests: build a
+system's files with both packages' system writers, load a system in both
+packages, carry JAX leaves into the port, run JAX scans of mc_step_u and
+JAX's Pallas blockg (interpret mode) on explicit uniforms, and compare
+batched states and parse results."""
 
 from __future__ import annotations
 
 import dataclasses
+import filecmp
+import os
 
 import jax
 import jax.numpy as jnp
@@ -13,6 +16,8 @@ import numpy as np
 import torch
 
 import maniac_tpu
+import maniac_tpu.systems as jax_systems
+import maniac_tpu_torch.systems as torch_systems
 from maniac_tpu.kernels.blockg import run_block_grouped
 from maniac_tpu.mc.driver import _recalibrate as jax_recalibrate
 from maniac_tpu.mc.driver import resync_amplitudes_body
@@ -31,6 +36,48 @@ F32_ENERGY_TOL = 5.0     # Kelvin
 def files(outdir) -> tuple:
     return (f"{outdir}/input.maniac", f"{outdir}/topology.data",
             f"{outdir}/parameters.inc")
+
+
+def build_both(make: str, outdir, **kw) -> str:
+    """Write a system's files with maniac_tpu_torch.systems.<make> into
+    outdir and with maniac_tpu.systems.<make> into outdir + "_jax", from
+    the same arguments (and so the same seed); assert the two packages
+    wrote the same bytes and return outdir."""
+    outdir = str(outdir)
+    getattr(torch_systems, make)(outdir, **kw)
+    getattr(jax_systems, make)(outdir + "_jax", **kw)
+    names = sorted(os.listdir(outdir))
+    assert names == sorted(os.listdir(outdir + "_jax"))
+    _, mismatch, errors = filecmp.cmpfiles(outdir, outdir + "_jax", names,
+                                           shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    return outdir
+
+
+def assert_same_fields(got, want, path="") -> None:
+    """The port's parse result equals the JAX package's, field by field and
+    exactly: dataclasses of the same name, lists, dicts, numpy arrays (dtype,
+    shape and values) and scalars."""
+    if dataclasses.is_dataclass(want):
+        assert type(got).__name__ == type(want).__name__, path
+        for f in dataclasses.fields(want):
+            assert_same_fields(getattr(got, f.name), getattr(want, f.name),
+                               f"{path}.{f.name}")
+    elif isinstance(want, (list, tuple)):
+        assert isinstance(got, type(want)) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_fields(g, w, f"{path}[{i}]")
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for k in want:
+            assert_same_fields(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype, path
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert type(got) is type(want) and (got == want or got != got
+                                            and want != want), \
+            (path, got, want)
 
 
 def jax_leaves(obj) -> dict:
