@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke check of the maniac_tpu_torch main path (one NVIDIA GPU).
 
-    python3 chip_smoke.py    # some five and a half minutes on an H100
+    python3 chip_smoke.py    # some eight minutes on an H100
 
 Builds the CUDA kernels from maniac_tpu_torch/kernels/csrc with nvcc, then
 runs the phases below. Every system is loaded with the seed SEED, and every
@@ -212,11 +212,36 @@ package's stream; on the card the threefry kernel, csrc/threefry.cu):
      --sentinel 1 for FLAGSHIP_SENTINEL_BLOCKS blocks; the total of
      checked blocks and divergences under the command line's rule
      (cli.py: more than max(2, 4 x checked / 500) fails).
+ 16. the bench's systems (maniac_tpu_torch/bench.py): (a) bench.py's bigS
+     (make_water_box(n_water=2000, L=40, cutoff=8.5, tol=1e-5, probs=(0.3,
+     0.2, 0.5, 0), fugacity=4000), f32, no framework split) loaded on the
+     card at capacity 2500 (the bench's) and 5000 (the reference's cap a
+     type, src/parameters.f90:8), timed, with its S, K and dispatch, which
+     must name the block and resync kernels; (b) the block kernel against
+     the plain steps at B=8 x 50 steps on the same uniforms
+     (bench.kernel_check: at most 1 replica diverged, positions within 1e-4
+     A) and the resync kernel on its result and edge replicas (phase 1's
+     bounds); (c) the main path as phase 3 without its reruns (B=1024, one
+     warm-up and three timed blocks of 400 steps with the resync), both
+     kernels held and timed at B=1024: bigS's rows of the kernels line.
+     bigS's energy bound (16b, 16c): its Coulomb components are some 1.2e8
+     K at load, where one f32 ulp is 8 K, and the running energies add
+     every accepted delta to them, so the kernel's and the plain sums may
+     round one ulp apart at every accepted step, which phase 2's fixed 5 K
+     cannot hold: energies within 5 K plus one f32 ulp of the component's
+     load-time magnitude per accepted step of the compared chain
+     (bench.energy_bound); (d) the f64 canary through bench.run (zif, B=64
+     x 50 steps x 1 block, every kernel gate refuses f64): the dispatch
+     names the plain path, and the timed block launches the threefry kernel
+     once and no other kernel; (e) python -m maniac_tpu_torch.bench at its
+     defaults (zif) in a subprocess: its last line parses, its checks pass,
+     and its rate lies within 5% of phase 3's (one program at one size).
 
 Prints one JSON line with, per kernel and system, the launch count on the
 main path that runs it (phase 3 for the flagship's block, resync and
 threefry kernels, phase 5 for the step kernel, phase 7g and 7h on resv,
-phases 8c and 9c, 9f on mixed and tricl; K4, the resync at B=1, phases 4b,
+phases 8c and 9c, 9f on mixed and tricl, 16c on bigS at capacity 2500 and
+5000; K4, the resync at B=1, phases 4b,
 7d and 9d; K6-K8 and the primitive check, a checking kernel whose error is
 its mismatch count against the plain version's, phase 11), the largest
 error against the plain version, the times of kernel and plain version
@@ -227,10 +252,11 @@ the bytes the call must move (each input read once, each output written
 once; a whole step reads each replica's amplitudes at the weighted modes,
 its live positions and uniform row, and writes the accepted steps'
 amplitudes at the real modes) over 3.35 TB/s and its f32 operations,
-counted from this run's inputs (_trial_ops, _steps_bound, _resync_bound),
-over 67 TFLOP/s (one H100 SXM at 700 W; TF32 is off by design; the
-threefry kernel's shifts and logic over a quarter of that rate, the ALU's,
-or all its operations over half of it, the issue rate: _threefry_bound).
+counted from this run's inputs (maniac_tpu_torch/tools/bounds.py:
+trial_ops, steps_bound, resync_bound), over 67 TFLOP/s (one H100 SXM at
+700 W; TF32 is off by design; the threefry kernel's shifts and logic over
+a quarter of that rate, the ALU's, or all its operations over half of it,
+the issue rate: _threefry_bound).
 The far field counts one complex multiply-add per nonzero coefficient and
 charged footprint atom, the work the separable contraction needs. No
 single PyTorch call computes any of these functions but K5's
@@ -257,7 +283,9 @@ import time
 
 import torch
 
-from maniac_tpu_torch.tools import card_label
+from maniac_tpu_torch.bench import (block_errors, conserved, energy_bound,
+                                    same_decisions)
+from maniac_tpu_torch.tools import bounds, card_label
 from maniac_tpu_torch.tools import cuda_ms as _cuda_ms
 from maniac_tpu_torch.tools.kernel_times import (ISOTHERM_FUGACITIES,
                                                  ISOTHERM_REPLICAS,
@@ -332,35 +360,18 @@ ENVELOPE_REPLICAS, ENVELOPE_STEPS, ENVELOPE_SEED = 64, 200, 3
 ENVELOPE_PATHS = ("step", "block", "plain")
 ENVELOPE_MAX, ENVELOPE_MEAN = 5e-4, 1e-4
 FLAGSHIP_SENTINEL_BLOCKS = 4
+# phase 16: bench.py's bigS (maniac_tpu_torch/bench.py SYSTEMS) at the
+# bench's capacity and at the reference's cap of 5000 a type; replicas of
+# its kernel check; the f64 canary's replicas, steps and blocks; how far the
+# bench's rate in a subprocess may lie from phase 3's (one program at one
+# size), and the seconds the subprocess may take
+BIGS_CAPACITIES = (2500, 5000)
+BIGS_CHECK_REPLICAS = 8
+CANARY_REPLICAS, CANARY_STEPS, CANARY_BLOCKS = 64, 50, 1
+BENCH_RATE_RTOL = 0.05
+BENCH_TIMEOUT = 600
 
-# ---- bounds: the least time the card could take for a call's work --------
-# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): f32 outside
-# the tensor cores (TF32 is off by design) and HBM3
-F32_OPS_PER_S = 67e12
-HBM_BYTES_PER_S = 3.35e12
-# operations per item, each transcendental (sincos, erfc, sqrt, rint, a
-# division) counted as one: a footprint atom's phase at one k-mode from its
-# three per-axis phase powers, weighted and accumulated (two complex
-# products, a real scale, a complex add); one mode's energy term
-# w (2 A.d + |d|^2), or the far-field c2 . d of both sides; one site pair's
-# LJ and erfc(alpha r)/r with its minimum-image distance, of which the
-# orthorhombic image (a division, a rint and a multiply-add per axis) is
-# OPS_MIN_IMAGE; a triclinic box instead tries 27 image shifts at
-# OPS_IMAGE each (three adds, a product and two multiply-adds, a min)
-OPS_ATOM_MODE = 16
-OPS_MODE = 8
-# the far field contracted one axis at a time (csrc/common.cuh far_sweep):
-# one complex multiply-add per nonzero coefficient and charged atom
-OPS_FAR_ATOM_MODE = 8
-OPS_PAIR = 30
-# one replica's proposal (thread 0): its draws, the rotation, the new
-# footprint's positions and COM wrap, the prefactor; the intra energies of
-# an insertion or removal are left out (a lower bound)
-OPS_PROPOSAL = 200
-N_UNIFORMS = 21
-OPS_MIN_IMAGE = 9
-OPS_IMAGE = 7
-N_IMAGES = 27
+# ---- bounds (the rates and the main paths' counts: tools/bounds.py) -------
 # the micro-benchmarks, by the same count: K7 per element and application
 # (the negation of exp's argument is free); one K8 element per pass: three
 # differences, two wraps (multiply, rint, multiply-add), r2 and its floor,
@@ -383,12 +394,12 @@ OPS_PRIM_CHECK = dict(rcp=6, sqrt=8, rsqrt=4)
 
 
 # the integer issue of one H100 SXM SM: four partitions, each one warp
-# instruction a clock, so 128 lanes of issue, half of F32_OPS_PER_S (which
-# counts an FMA as two on 128 lanes); shifts and logic run only on the
+# instruction a clock, so 128 lanes of issue, half of F32_OPS_PER_S
+# (which counts an FMA as two on 128 lanes); shifts and logic run only on the
 # integer ALU, 64 lanes, a quarter of it, while an add may also issue as
 # an IMAD on the FMA pipe
-DISPATCH_OPS_PER_S = F32_OPS_PER_S / 2
-ALU_OPS_PER_S = F32_OPS_PER_S / 4
+DISPATCH_OPS_PER_S = bounds.F32_OPS_PER_S / 2
+ALU_OPS_PER_S = bounds.F32_OPS_PER_S / 4
 # one threefry2x32 (csrc/threefry.cu) at its fewest 32-bit operations: 20
 # funnel shifts and 20 xors (ALU only) and 27 adds: 20 rounds, 5 key
 # injections into x1 (key word plus group number, one constant a key),
@@ -400,144 +411,6 @@ THREEFRY_ALU_OPS, THREEFRY_ADDS = 40, 27
 TO_UNIFORM_F32_ALU_OPS, TO_UNIFORM_F32_FLOAT_OPS = 2, 2
 
 
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _bound(nbytes, ops):
-    """(bound ms, "bytes" or "operations"): the larger of bytes over the
-    memory rate and operations over the f32 peak."""
-    ms_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ms_ops = ops / F32_OPS_PER_S * 1e3
-    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
-                                                           "operations")
-
-
-def _modes(spec):
-    """(k-space modes with a weight, far-field modes with a coefficient)."""
-    k2 = (int(((spec.c2_re != 0) | (spec.c2_im != 0)).sum())
-          if spec.fw_split else 0)
-    return int((spec.k_weights != 0).sum()), k2
-
-
-def _type_rows(spec, n_mol, charged):
-    """(B,) sites (charged ones only, if asked) of the live molecules of
-    the types a footprint is swept against and the resync synthesizes:
-    those above the frozen framework prefix (every type without the
-    split)."""
-    lo = spec.guest_base if spec.fw_split else 0
-    q = spec.site_q.cpu()
-    out = torch.zeros(n_mol.shape[0], dtype=torch.float64,
-                      device=n_mol.device)
-    for r, base in enumerate(spec.site_base_list):
-        if base >= lo:
-            A = spec.A_list[r]
-            per = int((q[base:base + A] != 0).sum()) if charged else A
-            out = out + n_mol[:, r].double() * per
-    return out
-
-
-def _step_ops(spec, atoms_q, atoms, sites, rows) -> float:
-    """Operations of MC steps: the footprint's charged atoms at every
-    k-space mode and every far-field mode with a coefficient (a complex
-    multiply-add each), each mode's energy term once per proposal
-    that needs energies (rows of them), and every footprint atom against
-    the live sites (frozen prefix included) with the box's minimum image;
-    atoms_q, atoms and sites (B, 1) per replica."""
-    k, k2 = _modes(spec)
-    pair = OPS_PAIR + (N_IMAGES * OPS_IMAGE - OPS_MIN_IMAGE
-                       if spec.is_triclinic else 0)
-    return float((OPS_ATOM_MODE * k + OPS_FAR_ATOM_MODE * k2) * atoms_q.sum()
-                 + pair * (atoms * (sites + spec.S_frozen)).sum()
-                 + OPS_MODE * (k + k2) * rows)
-
-
-def _trial_ops(spec, states, out):
-    """Operations of the MC steps that took ``states`` to ``out``. Only
-    valid trials need energies: each move class's valid trials (the
-    counters' growth) set the footprint, both sides of a translation or
-    rotation, one side of an insertion or deletion, the old and the new
-    type's molecule of a swap. The counters do not split trials by type, so
-    each side takes the smallest active type's atoms (a swap the two
-    smallest types'), and the bound stays a lower one; trials blocked by
-    the capacity need no energies either and come off the swaps first,
-    then the insertions. Live sites are the mean of the first and last
-    populations."""
-    from maniac_tpu_torch.constants import (TYPE_CREATION, TYPE_DELETION,
-                                            TYPE_ROTATION, TYPE_SWAP,
-                                            TYPE_TRANSLATION)
-    ids = spec.active_type_ids.long()
-    n = (out.counters[:, 0] - states.counters[:, 0]).double()
-    blocked = (out.extras[:, 0] - states.extras[:, 0]).double()
-    swaps = torch.clamp(n[:, TYPE_SWAP] - blocked, min=0)
-    creates = n[:, TYPE_CREATION] - torch.clamp(
-        blocked - n[:, TYPE_SWAP], min=0)
-    one_side = 2 * (n[:, TYPE_TRANSLATION] + n[:, TYPE_ROTATION]) \
-        + creates + n[:, TYPE_DELETION]
-
-    def atoms(per_type):
-        least = per_type[ids].double().sort().values
-        second = least[1] if len(least) > 1 else least[0]
-        return (one_side * least[0] + swaps * (least[0] + second))[:, None]
-    sites = 0.5 * (_type_rows(spec, states.n_mol, False)
-                   + _type_rows(spec, out.n_mol, False))[:, None]
-    return _step_ops(spec, atoms((spec.type_q_rows != 0).sum(1)),
-                     atoms(spec.type_A), sites,
-                     float(n.sum() - blocked.sum()))
-
-
-def _energy_tables(spec):
-    """The spec tables the energies of a step read; of the LJ tables
-    (eps_site, sig2_site: one row per LJ class, 2165 x 3072 on the
-    flagship) only the rows of the active types' classes, which are all a
-    footprint reads."""
-    rows = spec.type_cls_rows[spec.active_type_ids.long()].long().unique()
-    tables = [spec.site_q, spec.site_type, spec.site_midx, spec.site_mol,
-              spec.eps_site[rows], spec.sig2_site[rows], spec.k_weights]
-    if spec.fw_split:
-        tables += [spec.far_coef, spec.far_rows, spec.far_units]
-    return tables
-
-
-def _block_bound(spec, states, out, u):
-    """Bound of one whole-block call: its inputs and outputs once, the
-    operations of its valid trials (_trial_ops)."""
-    keys = ["pos", "com", "amp_re", "amp_im", "n_mol", "energy", "counters",
-            "extras"]
-    if spec.has_reservoir:
-        keys += ["res_offset", "res_com", "res_n"]
-    nbytes = _nbytes(u, states.trans_step, states.rot_step,
-                     *_energy_tables(spec),
-                     *[getattr(states, k) for k in keys],
-                     *[getattr(out, k) for k in keys])
-    return _bound(nbytes, _trial_ops(spec, states, out))
-
-
-def _steps_bound(spec, states, out, n_steps):
-    """Bound of one whole step (K3's launch), the mean over the n_steps
-    steps that took ``states`` to ``out``: the same work whatever
-    implements it. Bytes: each replica's amplitudes at the modes with a
-    nonzero k weight read once (all the k-space delta needs), its live
-    positions (frozen prefix and live guests) and its uniform row read, the
-    spec tables the energies read, and for each accepted step the
-    amplitudes at the grid's real (non-pad) modes written, with the ones
-    not read yet (zero weight) read, since the new value is the old one
-    plus the delta. Operations: the valid trials' (_trial_ops) and
-    OPS_PROPOSAL a replica."""
-    B = states.B
-    weighted = int((spec.k_weights != 0).sum())
-    real = (2 * spec.kmax_xyz[2] + 1) * int((spec.k_col_jx >= 0).sum())
-    live = 0.5 * (_type_rows(spec, states.n_mol, False)
-                  + _type_rows(spec, out.n_mol, False)).sum() + B * (
-                      spec.S_frozen if spec.fw_split else 0)
-    accepted = float((out.counters[:, 1] - states.counters[:, 1]).sum())
-    nbytes = (B * 8 * weighted + 12 * float(live) + B * N_UNIFORMS * 4
-              + _nbytes(*_energy_tables(spec))
-              + accepted / n_steps * 8 * (2 * real - weighted))
-    ops = _trial_ops(spec, states, out) / n_steps + OPS_PROPOSAL * B
-    return _bound(nbytes, ops)
-
-
 def _far_table_line(spec) -> str:
     """The far table's size: rows, live modes (nonzero coefficients),
     tiles, bytes."""
@@ -545,7 +418,8 @@ def _far_table_line(spec) -> str:
     live = int((spec.far_coef != 0).any(-1).sum())
     return (f"far table {rows} rows in {spec.far_rows.shape[0] // 32} "
             f"groups, {live} live modes, {spec.far_units.shape[0]} tiles, "
-            f"{_nbytes(spec.far_coef, spec.far_rows, spec.far_units)} bytes")
+            f"{bounds.tensor_bytes(spec.far_coef, spec.far_rows,
+                                   spec.far_units)} bytes")
 
 
 def _main_block(spec, states):
@@ -556,10 +430,10 @@ def _main_block(spec, states):
     _, u = draw_uniforms(spec, states, MAIN_STEPS)
     out = run_block_kernel(spec, states, u)
     ms = _cuda_ms(lambda: run_block_kernel(spec, states, u), 2)
-    return ms, _block_bound(spec, states, out, u)
+    return ms, bounds.block_bound(spec, states, out, u)
 
 
-def _main_path(tag, spec, state, label):
+def _main_path(tag, spec, state, label, turns=DRAW_TURNS, e_load=None):
     """The main path on one system: replicate(B=1024) ->
     run_block_replicated(400 steps, resync=True), one warm-up and
     MAIN_BLOCKS timed blocks, with the launch counts set to 0 just before;
@@ -567,10 +441,12 @@ def _main_path(tag, spec, state, label):
     population within [0, capacity], box + reservoir + drops conserved (with
     a reservoir), and replica 0's amplitudes and E_RECIP must match a fresh
     synthesis (phase 1's bounds); one block kernel call of 400 steps is
-    timed beside its bound. Then both kernels are held against their plain
-    versions at the main path's batch (10 block steps, at most B/64
-    replicas diverged; the resync of the result) and timed. Returns (the
-    states, the numbers of the kernels line)."""
+    timed beside its bound; the timed blocks are run again in ``turns``
+    (DRAW_TURNS; none for bigS). Then both kernels are held against their
+    plain versions at the main path's batch (10 block steps, at most B/64
+    replicas diverged, energies within 5 K or, given the load-time energy
+    row e_load, bench.energy_bound; the resync of the result) and timed.
+    Returns (the states, the numbers of the kernels line and the rate)."""
     from maniac_tpu_torch import replicate, run_block_replicated
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.parallel.replicas import run_block_uniforms
@@ -584,7 +460,7 @@ def _main_path(tag, spec, state, label):
     from maniac_tpu_torch.system import E_RECIP
     Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
     states = replicate(spec, state, Bm)
-    total0 = _conserved(states)
+    total0 = conserved(states)
     run_block_kernel.launches = 0
     resync_grouped.launches = 0
     split_uniform.launches = 0
@@ -623,11 +499,9 @@ def _main_path(tag, spec, state, label):
         return t
     # in turns D A A D A D D A (D the main path's run), so that the order
     # and its trends cancel: the difference is what the draw costs the path
-    turns = {True: [], False: [elapsed]}
-    for ahead in DRAW_TURNS:
-        turns[ahead].append(rerun(ahead))
-    draw_ms = ((sum(turns[False]) - sum(turns[True])) / len(turns[True])
-               / MAIN_BLOCKS * 1e3)
+    times = {True: [], False: [elapsed]}
+    for ahead in turns:
+        times[ahead].append(rerun(ahead))
     for k, v in vars(states).items():
         if v.is_floating_point() and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{tag}: non-finite values in {k}")
@@ -635,7 +509,7 @@ def _main_path(tag, spec, state, label):
     caps = torch.tensor(spec.cap_list, device=n.device)
     if int(n.min()) < 0 or bool((n > caps).any()):
         raise AssertionError(f"{tag}: population outside [0, capacity]")
-    if spec.has_reservoir and not torch.equal(_conserved(states), total0):
+    if spec.has_reservoir and not torch.equal(conserved(states), total0):
         raise AssertionError(f"{tag}: box + reservoir + drops not conserved")
     ref_re, ref_im = full_amplitudes(
         spec, site_positions(spec, states)[:1],
@@ -657,22 +531,27 @@ def _main_path(tag, spec, state, label):
           f"kernel call ({n_steps} steps) {ms_main:.3f} ms, bound "
           f"{bound_main[0]:.3f} ms by {bound_main[1]}; resync "
           f"{ms_main_resync:.4f} ms device-paced")
-    print(f"{tag}: the same {MAIN_BLOCKS} blocks from the same state in "
-          f"turns, drawing their uniforms (D) or on them drawn ahead (A), "
-          f"D A A D A D D A, the same decisions: D "
-          + ", ".join(f"{t:.4f}" for t in turns[False]) + " s; A "
-          + ", ".join(f"{t:.4f}" for t in turns[True])
-          + f" s; the draw costs the path {draw_ms:.3f} ms a block "
-            f"({draw_ms * 1e-3 * MAIN_BLOCKS / elapsed:.3%})")
+    if turns:
+        draw_ms = ((sum(times[False]) - sum(times[True])) / len(times[True])
+                   / MAIN_BLOCKS * 1e3)
+        print(f"{tag}: the same {MAIN_BLOCKS} blocks from the same state in "
+              f"turns, drawing their uniforms (D) or on them drawn ahead "
+              f"(A), D A A D A D D A, the same decisions: D "
+              + ", ".join(f"{t:.4f}" for t in times[False]) + " s; A "
+              + ", ".join(f"{t:.4f}" for t in times[True])
+              + f" s; the draw costs the path {draw_ms:.3f} ms a block "
+                f"({draw_ms * 1e-3 * MAIN_BLOCKS / elapsed:.3%})")
     # both kernels against their plain versions at the main path's batch
     states, u = draw_uniforms(spec, states, 10)
     k_blk = run_block_kernel(spec, states, u)
-    err_block, _ = _block_check(f"{tag}: block B={Bm} x 10 steps", k_blk,
-                                steps_plain(spec, states, u),
-                                max(1, Bm // 64))
+    err_block, _ = _block_check(
+        f"{tag}: block B={Bm} x 10 steps", k_blk,
+        steps_plain(spec, states, u), max(1, Bm // 64),
+        None if e_load is None else energy_bound(
+            e_load, (k_blk.counters[:, 1] - states.counters[:, 1]).sum(1)))
     ms_block = _cuda_ms(lambda: run_block_kernel(spec, states, u), 3)
     ms_block_plain = _cuda_ms(lambda: steps_plain(spec, states, u), 1)
-    bound_block = _block_bound(spec, states, k_blk, u)
+    bound_block = bounds.block_bound(spec, states, k_blk, u)
     k_rs = resync_grouped(spec, k_blk)
     err_resync = max(
         _amp_check(f"{tag}: resync B={Bm} kernel vs plain",
@@ -681,7 +560,7 @@ def _main_path(tag, spec, state, label):
     ms_resync = device_ms(lambda: resync_grouped(spec, k_blk), 20)
     ms_resync_host = _cuda_ms(lambda: resync_grouped(spec, k_blk), 10)
     ms_resync_plain = _cuda_ms(lambda: resync_plain(spec, k_blk), 3)
-    bound_resync = _resync_bound(spec, k_blk, k_rs)
+    bound_resync = bounds.resync_bound(spec, k_blk, k_rs)
     print(f"{tag}: B={Bm}: block kernel {ms_block:.3f} ms, plain "
           f"{ms_block_plain:.3f} ms, bound {bound_block[0]:.4f} ms by "
           f"{bound_block[1]} (10 steps); resync kernel {ms_resync:.4f} ms "
@@ -692,22 +571,9 @@ def _main_path(tag, spec, state, label):
         launches=launches, err_block=err_block, ms_block=ms_block,
         ms_block_plain=ms_block_plain, bound_block=bound_block,
         err_resync=err_resync, ms_resync=ms_resync,
-        ms_resync_plain=ms_resync_plain, bound_resync=bound_resync)
+        ms_resync_plain=ms_resync_plain, bound_resync=bound_resync,
+        rate=rate, ms_main=ms_main, bound_main=bound_main)
 
-
-def _resync_bound(spec, states, out):
-    """Bound of one resync call: every charged live site at every weighted
-    mode, then each mode's |A|^2 term."""
-    k, _ = _modes(spec)
-    ops = float(OPS_ATOM_MODE * k * _type_rows(spec, states.n_mol,
-                                                True).sum()
-                + OPS_MODE * k * states.B)
-    tables = [spec.site_q, spec.k_weights]
-    if spec.fw_split:
-        tables += [spec.fw_amp_re, spec.fw_amp_im]
-    nbytes = _nbytes(states.pos, states.n_mol, states.energy, *tables,
-                     out.amp_re, out.amp_im, out.energy)
-    return _bound(nbytes, ops)
 
 
 def _row(name, src, replaces, launches, err, ms, plain_ms, bound,
@@ -719,12 +585,6 @@ def _row(name, src, replaces, launches, err, ms, plain_ms, bound,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms}
-
-
-def _conserved(st):
-    """Box + reservoir + dropped molecules per replica."""
-    return (st.n_mol[:, :-1].sum(1) + st.res_n[:, :-1].sum(1)
-            + st.extras[:, 1])
 
 
 def _amp_check(name, amp_re, amp_im, e_recip, ref_re, ref_im, ref_e):
@@ -807,7 +667,7 @@ def _k4_phase(tag, system, spec, state, label):
     ms = device_ms(lambda: resync_amplitudes(spec, st1), 100)
     ms_host = _cuda_ms(lambda: resync_amplitudes(spec, st1), 20)
     ms_plain = _cuda_ms(lambda: resync_plain(spec, st1), 5)
-    bound = _resync_bound(spec, st1, k_one)
+    bound = bounds.resync_bound(spec, st1, k_one)
     print(f"{tag}: resync B=1: kernel {ms:.4f} ms device-paced, "
           f"{ms_host:.4f} ms host-paced; plain {ms_plain:.3f} ms; bound "
           f"{bound[0]:.6f} ms by {bound[1]} ({label})")
@@ -817,28 +677,28 @@ def _k4_phase(tag, system, spec, state, label):
                 ms_plain, bound)
 
 
-def _block_check(name, k, p, max_diverged):
+def _block_check(name, k, p, max_diverged, e_bound=None):
     """Phase-2 bounds on kernel (k) vs plain (p) block outputs: decisions
     (populations, counters, extras, reservoir counts) identical on all but
     max_diverged replicas; on the rest positions and reservoir rows within
-    1e-4 A, energies within 5 K. Returns (the largest position or
+    1e-4 A, energies within 5 K, or within e_bound (B, 6) where given (bigS,
+    phase 16: bench.energy_bound). Returns (the largest position or
     reservoir-row difference there, the matching replicas' mask)."""
-    same = ((k.n_mol == p.n_mol).all(dim=1)
-            & (k.counters == p.counters).flatten(1).all(dim=1)
-            & (k.extras == p.extras).all(dim=1)
-            & (k.res_n == p.res_n).all(dim=1))
+    same = same_decisions(k, p)
     n_div = int((~same).sum())
     if n_div > max_diverged:
         raise AssertionError(f"{name}: {n_div} of {same.numel()} replica(s) "
                              f"diverged (allowed {max_diverged})")
-    pos_err = max(float((getattr(k, f) - getattr(p, f))[same].abs().max())
-                  for f in ("pos", "com", "res_offset", "res_com"))
-    e_err = float((k.energy - p.energy)[same].abs().max())
+    pos_err, e_err, e_ok = block_errors(k, p, same, e_bound)
+    said = ("5" if e_bound is None else
+            f"5 + one f32 ulp of the load-time component an accepted step, "
+            f"at most {float(e_bound[same].max()):.1f}")
     print(f"{name}: {n_div} of {same.numel()} replica(s) diverged (allowed "
           f"{max_diverged}); matching replicas max|dpos| {pos_err:.3e} A "
           f"(bound 1e-4; positions, COMs, reservoir rows), max|dE| "
-          f"{e_err:.3e} K (bound 5); accepts {int(k.counters[:, 1].sum())}")
-    if n_div > max_diverged or not pos_err <= 1e-4 or not e_err <= 5.0:
+          f"{e_err:.3e} K (bound {said}); accepts "
+          f"{int(k.counters[:, 1].sum())}")
+    if n_div > max_diverged or not pos_err <= 1e-4 or not e_ok:
         raise AssertionError(f"{name}: block kernel disagrees with plain")
     return pos_err, same
 
@@ -880,8 +740,8 @@ def _step_phase(name, spec, states, max_diverged, n_steps, label):
     (tools/kernel_times.device_ms: queued behind a spin kernel, so the
     host's pace drops out) and host-paced, the plain steps, the device
     activities a step launches and their device time (torch.profiler), and
-    the whole step's bound (_steps_bound). Returns (max |dA|, kernel ms,
-    plain ms, (bound ms, what bounds it))."""
+    the whole step's bound (bounds.steps_bound). Returns (max |dA|, kernel
+    ms, plain ms, (bound ms, what bounds it))."""
     from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     B = states.B
@@ -904,7 +764,7 @@ def _step_phase(name, spec, states, max_diverged, n_steps, label):
 
     def kernel():
         return run_steps_kernel(spec, states, u)
-    bound = _steps_bound(spec, states, kernel(), STEPS_TIMED)
+    bound = bounds.steps_bound(spec, states, kernel(), STEPS_TIMED)
     ms = device_ms(kernel, 3) / STEPS_TIMED
     ms_host = _cuda_ms(kernel, 3) / STEPS_TIMED
     ms_plain = _cuda_ms(lambda: steps_plain(spec, states, u),
@@ -973,12 +833,12 @@ def _resv_phase(dev, label):
     err_block, _ = _block_check(f"phase 7b: reservoir block B={B} x "
                                 f"{n_check} steps", k_blk, p_blk, 1)
     for what, out in (("kernel", k_blk), ("plain", p_blk)):
-        if not torch.equal(_conserved(out), _conserved(st)):
+        if not torch.equal(conserved(out), conserved(st)):
             raise AssertionError(f"phase 7c: the {what} block does not "
                                  f"conserve box + reservoir + drops")
     c = k_blk.counters
     print(f"phase 7c: box + reservoir + drops conserved on all {B} "
-          f"replicas (kernel and plain): {int(_conserved(st)[0])} each; "
+          f"replicas (kernel and plain): {int(conserved(st)[0])} each; "
           f"pops {int(c[:, 1, 0].sum())}, pushes {int(c[:, 1, 1].sum())}, "
           f"drops {int(k_blk.extras[:, 1].sum())}")
 
@@ -1183,8 +1043,8 @@ def _precision_phase(spec, state, dev, label):
     turns = k5["2 x 1000 in turns"]
     ms_turns, ms_lib_turns = (min(t) for t in zip(*turns))
     M, K = x.shape
-    bound = _bound(_nbytes(xt, oht) + M * oh.shape[1] * 4,
-                   2.0 * M * K * oh.shape[1])
+    bound = bounds.bound(bounds.tensor_bytes(xt, oht) + M * oh.shape[1] * 4,
+                         2.0 * M * K * oh.shape[1])
     print(f"phase 10a: one-hot kernel max|err| {err:.3e} (bound 0, exact); "
           f"kernel {ms:.4f} ms, plain {ms_plain:.4f} ms, torch.matmul "
           f"{ms_lib:.4f} ms, bound {bound[0]:.6f} ms by {bound[1]} "
@@ -1384,8 +1244,8 @@ def _microbench_phase(dev, label):
         if v != "read":   # read's time is its one read, not its steps
             _growth_check(f"gpass {v} at {n_steps} and {2 * n_steps} steps",
                           lambda k: gpass(*ins, k * n_steps, fq, v), 20)
-        bound = _bound(_nbytes(*ins) + 8,
-                       _gpass_ops(v, G, S, fl, fq, n_steps))
+        bound = bounds.bound(bounds.tensor_bytes(*ins) + 8,
+                             _gpass_ops(v, G, S, fl, fq, n_steps))
         print(f"phase 11: gpass {v}: tool exit {rc}, {_last(out)}; "
               f"launches {launches}; two calls the same bits; kernel "
               f"{ms:.4f} ms device-paced, {ms_host:.4f} ms host-paced, "
@@ -1407,7 +1267,8 @@ def _microbench_phase(dev, label):
         ms = device_min_ms(lambda: vpu_chain(x, op, n), 20)
         ms_host = _cuda_ms(lambda: vpu_chain(x, op, n), 20)
         ms_plain = _cuda_ms(lambda: vpu_chain_plain(x, op, n), 2)
-        bound = _bound(2 * _nbytes(x), float(n * R * C * OPS_VPU[op]))
+        bound = bounds.bound(2 * bounds.tensor_bytes(x),
+                             float(n * R * C * OPS_VPU[op]))
         print(f"phase 11: vpu {op}: tool exit {rc}, {_last(out)}; "
               f"launches {launches}; max|dx| {err:.3e}, max rel {rel:.3e} "
               f"(bound {VPU_RTOL:g}); kernel {ms:.4f} ms device-paced, "
@@ -1441,8 +1302,9 @@ def _microbench_phase(dev, label):
         ms_plain = _cuda_ms(lambda: cpass_plain(*cins, n, tr), 2)
         _growth_check(f"{name} at n {n} and {2 * n}",
                       lambda k: cpass(*cins, k * n, tr), 20)
-        bound = _bound(_nbytes(*cins) + _nbytes(cins[0]),
-                       float(n * R * C * OPS_CPASS))
+        bound = bounds.bound(bounds.tensor_bytes(*cins)
+                             + bounds.tensor_bytes(cins[0]),
+                             float(n * R * C * OPS_CPASS))
         print(f"phase 11: {name}: tool exit {rc}, {_last(out)}; "
               f"launches {launches}; max|d| {err:.3e}, max rel {rel:.3e} "
               f"(bound {CPASS_RTOL:g}); kernel {ms:.4f} ms device-paced, "
@@ -1471,7 +1333,7 @@ def _microbench_phase(dev, label):
         p = prim_check_plain(name, device=dev)
         ms = _cuda_ms(lambda: prim_check(name, dev), 3)
         ms_plain = _cuda_ms(lambda: prim_check_plain(name, device=dev), 1)
-        bound = _bound(4 * 8, float(values * OPS_PRIM_CHECK[name]))
+        bound = bounds.bound(4 * 8, float(values * OPS_PRIM_CHECK[name]))
         print(f"phase 11: prim_check {name} on [{lo.hex()}, {hi.hex()}]: "
               f"{k['mismatches']} mismatches of {k['checked']} values "
               f"(plain: {p['mismatches']} of {p['checked']}); launches "
@@ -1500,13 +1362,14 @@ def _threefry_bound(keys, u):
     alu = fry * THREEFRY_ALU_OPS + vals * TO_UNIFORM_F32_ALU_OPS
     issued = (fry * (THREEFRY_ALU_OPS + THREEFRY_ADDS)
               + vals * (TO_UNIFORM_F32_ALU_OPS + TO_UNIFORM_F32_FLOAT_OPS))
-    ms_bytes = _nbytes(keys, keys, u) / HBM_BYTES_PER_S * 1e3
+    ms_bytes = (bounds.tensor_bytes(keys, keys, u) / bounds.HBM_BYTES_PER_S
+                * 1e3)
     ms_ops = max(alu / ALU_OPS_PER_S, issued / DISPATCH_OPS_PER_S) * 1e3
     return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
                                                            "operations")
 
 
-def _threefry_phase(keys, label):
+def _threefry_phase(keys, label, tags=("phase 13a", "phase 13b")):
     """Phase 13 (a)-(b): the threefry kernel against its plain version on
     the main path's keys (``keys``, B = 1024, with edge keys of all-zero
     and all-one words in rows 0-2) at (B, 400, 21) f32 and on their first
@@ -1514,7 +1377,8 @@ def _threefry_phase(keys, label):
     bits (0 mismatches); then timed device-paced beside torch.rand of the
     same shape on the card (another function: the stream the main path
     drew from before, a reference only) and the bound. Returns (max |d|,
-    kernel ms, plain ms, bound)."""
+    kernel ms, plain ms, bound). ``tags`` head the check's and the time's
+    lines."""
     from maniac_tpu_torch.kernels.threefry import (split_uniform,
                                                    split_uniform_plain)
     keys = keys.clone()
@@ -1530,14 +1394,14 @@ def _threefry_phase(keys, label):
         mismatches = (int((new != want_new).sum())
                       + int((u.view(bits) != want_u.view(bits)).sum()))
         err = max(err, float((u - want_u).abs().max()))
-        print(f"phase 13a: threefry {tuple(u.shape)} {dtype}: {mismatches} "
+        print(f"{tags[0]}: threefry {tuple(u.shape)} {dtype}: {mismatches} "
               f"mismatches of {new.numel() + u.numel()} keys and uniforms "
               f"against the plain version (bound 0)")
         if mismatches or tuple(u.shape) != (k.shape[0], MAIN_STEPS,
-                                            N_UNIFORMS):
-            raise AssertionError("phase 13a: the threefry kernel disagrees "
+                                            bounds.N_UNIFORMS):
+            raise AssertionError(f"{tags[0]}: the threefry kernel disagrees "
                                  "with its plain version")
-    shape = (keys.shape[0], MAIN_STEPS, N_UNIFORMS)
+    shape = (keys.shape[0], MAIN_STEPS, bounds.N_UNIFORMS)
     ms = device_ms(lambda: split_uniform(keys, MAIN_STEPS, torch.float32),
                    50)
     ms_rand = device_ms(lambda: torch.rand(shape, device=keys.device), 50)
@@ -1545,7 +1409,7 @@ def _threefry_phase(keys, label):
                                                     torch.float32), 3)
     bound = _threefry_bound(keys, split_uniform(keys, MAIN_STEPS,
                                                 torch.float32)[1])
-    print(f"phase 13b: threefry {shape} f32: kernel {ms:.4f} ms "
+    print(f"{tags[1]}: threefry {shape} f32: kernel {ms:.4f} ms "
           f"device-paced; torch.rand of the same shape {ms_rand:.4f} ms "
           f"device-paced (a reference: another function); plain "
           f"{ms_plain:.3f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
@@ -2082,6 +1946,120 @@ def _examples_phase(label):
     return checked, diverged
 
 
+
+def _bigs_phase(dev, label):
+    """Phase 16 (a)-(c): bench.py's bigS at each of BIGS_CAPACITIES on the
+    card: the load timed and its dispatch (the block and resync kernels);
+    the block kernel against the plain steps (bench.kernel_check:
+    BIGS_CHECK_REPLICAS replicas x CHECK_STEPS steps, at most one diverged,
+    positions within 1e-4 A, energies within bench.energy_bound) and the
+    resync kernel on its result and edge replicas (phase 1's bounds); the
+    main path (_main_path, with bench.energy_bound, no reruns). Returns the
+    kernels line's rows (bigS at the bench's capacity, bigS/cap5000)."""
+    from maniac_tpu_torch import bench, replicate
+    from maniac_tpu_torch.kernels import dispatch_report
+    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.system import E_RECIP
+    rows = []
+    for cap in BIGS_CAPACITIES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sysm = bench.load("bigS", dev, cap)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        spec, e_load = sysm.spec, sysm.state.energy[0]
+        report = dispatch_report(spec, dev)
+        tag = f"bigS capacity {cap}"
+        print(f"phase 16a: {tag}: S={spec.S} K={spec.K} kmax="
+              f"{spec.kmax_xyz} fw_split={spec.fw_split} far table rows "
+              f"{spec.far_rows.shape[0]} N={int(sysm.state.n_mol[0, 0])}; "
+              f"load {sec:.1f} s; load-time energy {e_load.tolist()}; "
+              f"{report}")
+        if ("block: CUDA whole-block kernel" not in report
+                or "resync: CUDA resync kernel" not in report):
+            raise AssertionError(f"phase 16a: {tag} is not dispatched to the "
+                                 f"block and resync kernels")
+        detail, err_block, k = bench.kernel_check(
+            spec, replicate(spec, sysm.state, BIGS_CHECK_REPLICAS), e_load)
+        print(f"phase 16b: {tag}: block kernel vs plain {detail}")
+        err_resync = max(
+            _amp_check(f"phase 16b: {tag}: resync B={k.B} kernel vs plain",
+                       *_resync_pair(resync_grouped(spec, k),
+                                     resync_plain(spec, k), E_RECIP)),
+            _resync_edges(f"phase 16b: {tag}: resync B={k.B}", spec, k))
+        states, main = _main_path(f"phase 16c: {tag}", spec, sysm.state,
+                                  label, turns=(), e_load=e_load)
+        if cap != bench.default_capacity("bigS"):
+            rows += _main_rows(f"bigS/cap{cap}", main, err_block, err_resync)
+            continue
+        rows += _main_rows("bigS", main, err_block, err_resync)
+        # the threefry kernel on bigS's main-path keys (its work does not
+        # depend on the system: one row, at the bench's capacity)
+        err_tf, ms_tf, ms_tf_plain, bound_tf = _threefry_phase(
+            states.key, label, (f"phase 16c: {tag}",) * 2)
+        rows.append(_row("threefry/bigS", THREEFRY_SRC,
+                         "none: jax.random threefry, an XLA op "
+                         "(maniac_tpu/mc/driver.py:69)",
+                         main["launches"]["threefry"], err_tf, ms_tf,
+                         ms_tf_plain, bound_tf))
+    return rows
+
+
+def _canary_phase(label):
+    """Phase 16d: the f64 canary through bench.run (zif, CANARY_REPLICAS x
+    CANARY_STEPS steps x CANARY_BLOCKS blocks, no hardware-precision
+    check): the dispatch names the plain path for the block, the steps and
+    the resync, and the timed blocks launch the threefry kernel once a block
+    and no other kernel."""
+    from maniac_tpu_torch import bench
+    log = io.StringIO()
+    r = bench.run("zif", "cuda", CANARY_REPLICAS, CANARY_STEPS, CANARY_BLOCKS,
+                  dtype="f64", hwcheck=False, log=log)
+    for line in log.getvalue().splitlines():
+        print(f"phase 16d: {line}")
+    print(f"phase 16d: f64 canary B={CANARY_REPLICAS} x {CANARY_STEPS} steps "
+          f"x {CANARY_BLOCKS} block: {r['value']:.1f} MC steps/s; launches "
+          f"{r['launches']}; {r['dispatch']} ({label})")
+    want = {"threefry": CANARY_BLOCKS, "blockg": 0, "resync": 0, "stepg": 0}
+    if ("CUDA" in r["dispatch"] or "plain torch path" not in r["dispatch"]
+            or r["launches"] != want or r["state_check"] != "pass"):
+        raise AssertionError("phase 16d: the f64 canary left the plain path "
+                             "or skipped the threefry kernel")
+
+
+def _bench_phase(rate3, label):
+    """Phase 16e: python -m maniac_tpu_torch.bench at its defaults (zif) in
+    a subprocess: exit 0, its last line a JSON object with the metric, its
+    checks passed, its rate within BENCH_RATE_RTOL of phase 3's (rate3)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MANIAC_BENCH_")}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "maniac_tpu_torch.bench"],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    sec = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("#"):
+            print(f"phase 16e: bench: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16e: the bench exit {proc.returncode}:"
+                             f"\n{proc.stderr[-4000:]}")
+    r = json.loads(_last(proc.stdout))
+    ratio = r["value"] / rate3
+    print(f"phase 16e: python -m maniac_tpu_torch.bench exit 0 in {sec:.1f} "
+          f"s: {r['metric']} {r['value']:.0f} {r['unit']} (phase 3 "
+          f"{rate3:.0f}: ratio {ratio:.4f}, within {BENCH_RATE_RTOL:g}); "
+          f"hw_precision {r['hw_precision']}, kernel_check "
+          f"{r['kernel_check']}; device {r['device']} ({label})")
+    if (r["metric"] != "port_mc_steps_per_sec_zif8_h2o"
+            or r["hw_precision"] != "pass" or r["kernel_check"] != "pass"
+            or not abs(ratio - 1.0) <= BENCH_RATE_RTOL):
+        raise AssertionError("phase 16e: the bench's line failed its checks")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2296,12 +2274,17 @@ def main() -> int:
     _virial_phase(label)
     _examples_phase(label)
 
+    # ---- phase 16: the bench's systems: bigS, the f64 canary, the bench --
+    bigs = _bigs_phase(dev, label)
+    _canary_phase(label)
+    _bench_phase(main["rate"], label)
+
     print(json.dumps({"kernels": [
         *_main_rows(None, main, err_blk2, err_rs1), k4,
         _row("run_steps_kernel", STEPG_SRC,
              "maniac_tpu/kernels/stepg.py:65", iso_launches["stepg"],
              err_step, ms_step, ms_step_plain, bound_step),
-        *resv, *mixed, *tricl, tricl_step, tricl_k4, onehot, *micro,
+        *resv, *mixed, *tricl, tricl_step, tricl_k4, onehot, *micro, *bigs,
         _row("threefry", THREEFRY_SRC,
              "none: jax.random threefry, an XLA op "
              "(maniac_tpu/mc/driver.py:69)", main["launches"]["threefry"],

@@ -15,7 +15,9 @@ comes with the card's name and power limit. The validation tools
 ``delta_e_report`` (the f32 per-move dE envelope), ``validate_spce``
 (SPC/E's Widom mu_ex) and ``run_examples`` (the named examples through
 the command line) run on the card by default, and on the CPU when given
-``--platform cpu``.
+``--platform cpu``. ``bounds`` has no command line: it counts the least
+time the card could take for a kernel call's work, for chip_smoke.py and
+``python -m maniac_tpu_torch.bench``.
 """
 
 from __future__ import annotations

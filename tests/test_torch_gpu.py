@@ -814,3 +814,31 @@ def test_step_kernel_f32_delta_e_envelope():
     assert rep["max_abs_dE_err_kcalmol"] < 5e-4, rep
     assert rep["mean_abs_dE_err_kcalmol"] < 1e-4, rep
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_block_kernel_bigs_matches_plain():
+    """bench.py's bigS (2000 waters in a 40 A box at the bench's capacity,
+    2500: S 10240, K 12288, no framework split): the block kernel against
+    the plain steps at B = 4 x 20 steps on the same uniforms, decisions
+    identical, positions within POS_TOL, and energies within
+    bench.energy_bound: 5 K plus one f32 ulp of each component's load-time
+    magnitude per accepted step (its Coulomb components are some 1.2e8 K,
+    where an ulp is 8 K, and every accepted delta is added to them)."""
+    from maniac_tpu_torch import bench
+    dev = _device()
+    sysm = bench.load("bigS", dev)
+    spec = sysm.spec
+    assert (spec.S, spec.K) == (10240, 12288)
+    assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
+    states = replicate(spec, sysm.state, 4)
+    u = _draw(spec, 4, 20, 5)
+    k, p = run_block_kernel(spec, states, u), steps_plain(spec, states, u)
+    torch.testing.assert_close(k.n_mol, p.n_mol, rtol=0, atol=0)
+    torch.testing.assert_close(k.counters, p.counters, rtol=0, atol=0)
+    torch.testing.assert_close(k.extras, p.extras, rtol=0, atol=0)
+    assert float((k.pos - p.pos).abs().max()) <= POS_TOL
+    assert float((k.com - p.com).abs().max()) <= POS_TOL
+    accepted = (k.counters[:, 1] - states.counters[:, 1]).sum(1)
+    assert int(accepted.sum()) > 0
+    bound = bench.energy_bound(sysm.state.energy[0], accepted)
+    assert bool(((k.energy - p.energy).double().abs() <= bound).all())
