@@ -1,0 +1,1 @@
+"""Frozen copy; see portbench/ref/__init__.py."""
