@@ -285,12 +285,14 @@ import torch
 
 from maniac_tpu_torch.bench import (block_errors, conserved, energy_bound,
                                     same_decisions)
+from maniac_tpu_torch.kernels import build
 from maniac_tpu_torch.tools import bounds, card_label
 from maniac_tpu_torch.tools import cuda_ms as _cuda_ms
 from maniac_tpu_torch.tools.kernel_times import (ISOTHERM_FUGACITIES,
                                                  ISOTHERM_REPLICAS,
                                                  STEPS_TIMED, device_ms,
                                                  isotherm_spec, profile_steps)
+from maniac_tpu_torch.utils import trace
 
 RESYNC_SRC = "maniac_tpu_torch/kernels/csrc/resync.cu"
 BLOCKG_SRC = "maniac_tpu_torch/kernels/csrc/blockg.cu"
@@ -451,7 +453,6 @@ def _main_path(tag, spec, state, label, turns=DRAW_TURNS, e_load=None):
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.parallel.replicas import run_block_uniforms
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.kernels.threefry import split_uniform
     from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.physics.energy import (active_site_mask,
                                                  full_amplitudes,
@@ -461,9 +462,7 @@ def _main_path(tag, spec, state, label, turns=DRAW_TURNS, e_load=None):
     Bm, n_steps = MAIN_REPLICAS, MAIN_STEPS
     states = replicate(spec, state, Bm)
     total0 = conserved(states)
-    run_block_kernel.launches = 0
-    resync_grouped.launches = 0
-    split_uniform.launches = 0
+    counted = trace.counters()
     start = states = run_block_replicated(spec, states, n_steps, False,
                                           True)
     torch.cuda.synchronize()
@@ -472,9 +471,8 @@ def _main_path(tag, spec, state, label, turns=DRAW_TURNS, e_load=None):
         states = run_block_replicated(spec, states, n_steps, False, True)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"blockg": run_block_kernel.launches,
-                "resync": resync_grouped.launches,
-                "threefry": split_uniform.launches}
+    launched = build.launch_counts(counted)
+    launches = {k: launched[k] for k in ("blockg", "resync", "threefry")}
     if min(launches.values()) < 1:
         raise AssertionError(f"{tag}: a kernel never launched: {launches}")
 
@@ -648,15 +646,15 @@ def _k4_phase(tag, system, spec, state, label):
     alone, then timed device-paced (tools/kernel_times.device_ms) and
     host-paced beside its bound. Returns its kernels line row (the
     flagship's, system None, named resync_grouped/B1)."""
-    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.kernels.resync import resync_plain
     from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                             steps_plain)
     from maniac_tpu_torch.system import E_RECIP
     state, u = draw_uniforms(spec, state, CHECK_STEPS)
     st1 = steps_plain(spec, state, u)
-    resync_grouped.launches = 0
+    counted = trace.counters()
     k_one = resync_amplitudes(spec, st1)
-    launches = resync_grouped.launches
+    launches = build.launch_counts(counted)["resync"]
     if launches != 1:
         raise AssertionError(f"{tag}: resync_amplitudes launched the kernel "
                              f"{launches} times")
@@ -750,11 +748,12 @@ def _step_phase(name, spec, states, max_diverged, n_steps, label):
     keyed = states    # the uniforms' keys advance here, not in states
     for n in (1, n_steps) if n_steps else (1,):
         keyed, u = draw_uniforms(spec, keyed, n)
-        n0 = run_steps_kernel.launches
+        n0 = trace.counters()
         k = run_steps_kernel(spec, states, u)
-        if run_steps_kernel.launches != n0 + n:
-            raise AssertionError(f"{name}: {run_steps_kernel.launches - n0} "
-                                 f"launches for {n} steps")
+        launched = build.launch_counts(n0)["stepg"]
+        if launched != n:
+            raise AssertionError(f"{name}: {launched} launches for {n} "
+                                 f"steps")
         err = max(err, _step_check(f"{name}: B={B} x {n} steps", k,
                                    steps_plain(spec, states, u),
                                    max_diverged))
@@ -805,7 +804,6 @@ def _resv_phase(dev, label):
     from maniac_tpu_torch.kernels import dispatch_report
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.system import E_RECIP
     from maniac_tpu_torch.systems import make_water_box, make_water_reservoir
@@ -874,12 +872,12 @@ def _resv_phase(dev, label):
         make_water_box(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
                        **RESV_BOX)
         res = make_water_reservoir(deck, **RESV_RESERVOIR)
-        run_steps_kernel.launches = 0
+        counted = trace.counters()
         rc, sec, log = _cli(
             ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
              "-p", f"{deck}/parameters.inc", "-r", res, "--capacity",
              str(CAPACITY)], f"{tmp}/out")
-        chain_launches = run_steps_kernel.launches
+        chain_launches = build.launch_counts(counted)["stepg"]
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         with open(f"{tmp}/out/reservoir.lammpstrj") as f:
             frames = f.read().count("ITEM: TIMESTEP")
@@ -966,7 +964,6 @@ def _tricl_step_phase(sysm, dev, label):
     B=64 and, timed, at B=1 with no divergence allowed; the command line's
     single chain on a tricl deck. Returns its kernels line row."""
     from maniac_tpu_torch import replicate
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.systems import make_triclinic_water
 
     spec = sysm.spec
@@ -980,12 +977,12 @@ def _tricl_step_phase(sysm, dev, label):
         deck = f"{tmp}/tricl"
         make_triclinic_water(deck, nb_block=CHAIN_BLOCKS, nb_step=MAIN_STEPS,
                              **TRICL_BOX)
-        run_steps_kernel.launches = 0
+        counted = trace.counters()
         rc, sec, log = _cli(
             ["-i", f"{deck}/input.maniac", "-d", f"{deck}/topology.data",
              "-p", f"{deck}/parameters.inc", "--capacity", str(CAPACITY)],
             f"{tmp}/out")
-        launches = run_steps_kernel.launches
+        launches = build.launch_counts(counted)["stepg"]
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         energy_rows = _rows(f"{tmp}/out/energy.dat")
     print(f"phase 9f: tricl single chain exit {rc}, {n_chain} steps in "
@@ -1022,10 +1019,7 @@ def _precision_phase(spec, state, dev, label):
     K5's row."""
     import numpy as np
     from maniac_tpu_torch import replicate, run_block_uniforms
-    from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.hwprobe import onehot_product
-    from maniac_tpu_torch.kernels.resync import resync_grouped
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.mc.driver import (draw_uniforms, sentinel_check,
                                             sentinel_passed)
     from maniac_tpu_torch.systems import make_zif_like
@@ -1062,17 +1056,17 @@ def _precision_phase(spec, state, dev, label):
           + f"; {label})")
 
     # b. the main path of K5: the hardware-precision check
-    onehot_product.launches = 0
-    run_block_kernel.launches = 0
+    counted = trace.counters()
     t0 = time.perf_counter()
     verdict, detail = hw_precision_check(blocks=4)
     sec = time.perf_counter() - t0
-    launches = onehot_product.launches
+    launched = build.launch_counts(counted)
+    launches = launched["onehot"]
     print(f"phase 10b: hw_precision_check(blocks=4): {verdict} in "
           f"{sec:.1f} s; {detail}; launches onehot {launches}, blockg "
-          f"{run_block_kernel.launches}; K5 {ms:.4f} ms a call beside "
+          f"{launched['blockg']}; K5 {ms:.4f} ms a call beside "
           f"torch.matmul {ms_lib:.4f} ms (10a)")
-    if verdict != "pass" or launches < 1 or run_block_kernel.launches < 1:
+    if verdict != "pass" or launches < 1 or launched["blockg"] < 1:
         raise AssertionError("phase 10b: the hardware-precision check "
                              "failed")
 
@@ -1102,13 +1096,10 @@ def _precision_phase(spec, state, dev, label):
         for tag, extra in (("replicas", ["--replicas",
                                          str(SENTINEL_REPLICAS)]),
                            ("single chain", [])):
-            run_block_kernel.launches = 0
-            resync_grouped.launches = 0
-            run_steps_kernel.launches = 0
+            counted = trace.counters()
             rc, sec, log = _cli(files + extra, f"{tmp}/out_{len(extra)}")
-            counts = {"blockg": run_block_kernel.launches,
-                      "resync": resync_grouped.launches,
-                      "stepg": run_steps_kernel.launches}
+            launched = build.launch_counts(counted)
+            counts = {k: launched[k] for k in ("blockg", "resync", "stepg")}
             lines = [ln.strip() for ln in log.splitlines()
                      if "sentinel" in ln.lower()]
             print(f"phase 10d: --sentinel 1, {tag}: exit {rc} in {sec:.1f} "
@@ -1229,9 +1220,9 @@ def _microbench_phase(dev, label):
                    ("lj", gpass_bench.check_inputs(g, s, fl, 0, steps, dev),
                     steps, 0)]
     for v in GPASS_CHECKED:
-        gpass.launches = 0
+        counted = trace.counters()
         rc, out = _tool_main(gpass_bench.main, [v])
-        launches = gpass.launches
+        launches = build.launch_counts(counted)["gpass"]
         diffs = [_gpass_check(tag, v, args, steps, nq)
                  for tag, args, steps, nq in checks]
         one, two = (gpass(*ins, n_steps, fq, v) for _ in range(2))
@@ -1259,9 +1250,9 @@ def _microbench_phase(dev, label):
     R, C, n = vpu_bench.ROWS, vpu_bench.COLS, vpu_bench.N
     x = vpu_bench.plane(R, C, dev)
     for op in VPU_OPS:
-        vpu_chain.launches = 0
+        counted = trace.counters()
         rc, out = _tool_main(vpu_bench.main, [op])
-        launches = vpu_chain.launches
+        launches = build.launch_counts(counted)["vpu_chain"]
         err, rel = _elementwise(f"phase 11: vpu {op}", vpu_chain(x, op, n),
                                 vpu_chain_plain(x, op, n), VPU_RTOL)
         ms = device_min_ms(lambda: vpu_chain(x, op, n), 20)
@@ -1283,9 +1274,9 @@ def _microbench_phase(dev, label):
     edge = vpu_bench.cpass_inputs(*CPASS_EDGE, dev)
     for name in ("cpass", "cpassT"):
         tr = name == "cpassT"
-        cpass.launches = 0
+        counted = trace.counters()
         rc, out = _tool_main(vpu_bench.main, [name])
-        launches = cpass.launches
+        launches = build.launch_counts(counted)["cpass"]
         err, rel = _elementwise(f"phase 11: {name}", cpass(*cins, n, tr),
                                 cpass_plain(*cins, n, tr), CPASS_RTOL)
         # n not a multiple of the seven offsets, or under one group; a row
@@ -1315,21 +1306,22 @@ def _microbench_phase(dev, label):
         rows.append(_row(name, VPU_SRC, "tools/vpu_bench.py:108", launches,
                          err, ms, ms_plain, bound))
     # K7 and the primitives through tools/micro_times
-    vpu_chain.launches = prim_check.launches = 0
+    counted = trace.counters()
     rc, out = _tool_main(micro_times.main, ["--kernels", "K7", "--prims"])
     for line in out.splitlines():
         if line.startswith(("K7 ", "prims ")):
             print(f"phase 11: micro_times: {line}")
-    if rc != 0 or vpu_chain.launches < 1 or prim_check.launches < 1:
+    launched = build.launch_counts(counted)
+    if rc != 0 or launched["vpu_chain"] < 1 or launched["prim_check"] < 1:
         raise AssertionError("phase 11: micro_times --kernels K7 --prims "
                              "failed")
     # the primitives' exhaustive check
     for name in PRIMS:
         lo, hi = PRIM_DOMAINS[name]
         values = f32_bits(hi) - f32_bits(lo) + 1
-        prim_check.launches = 0
+        counted = trace.counters()
         k = prim_check(name, dev)
-        launches = prim_check.launches
+        launches = build.launch_counts(counted)["prim_check"]
         p = prim_check_plain(name, device=dev)
         ms = _cuda_ms(lambda: prim_check(name, dev), 3)
         ms_plain = _cuda_ms(lambda: prim_check_plain(name, device=dev), 1)
@@ -1469,7 +1461,6 @@ def _chain_options_phase(label):
     """Phase 12: the command line's single chain on the flagship deck with
     --widom, and with --checkpoint then --resume; each run's step-kernel
     launches."""
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.systems import make_zif_like
     with tempfile.TemporaryDirectory() as tmp:
         d = f"{tmp}/chain"
@@ -1490,9 +1481,9 @@ def _chain_options_phase(label):
                 ("widom", deck, ["--widom", str(WIDOM_TRIALS)], CHAIN_BLOCKS),
                 ("checkpoint", one, ["--checkpoint", ck], 1),
                 ("resume", deck, ["--resume", ck], CHAIN_BLOCKS - 1)):
-            run_steps_kernel.launches = 0
+            counted = trace.counters()
             rc, sec, log = _cli(["-i", dk] + base + extra, f"{tmp}/{tag}")
-            launches = run_steps_kernel.launches
+            launches = build.launch_counts(counted)["stepg"]
             with open(f"{tmp}/{tag}/energy.dat") as f:
                 energy[tag] = f.read()
             print(f"phase 12: {tag}: exit {rc} in {sec:.2f} s, step kernel "
@@ -1544,7 +1535,7 @@ def _mesh_kernel_checks(mesh, spec, states):
     which must launch K1 once, held against a fresh plain synthesis of
     its positions (phase 1's bounds). Returns the lines to print."""
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
+    from maniac_tpu_torch.kernels.resync import resync_plain
     from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
     from maniac_tpu_torch.parallel.mesh import run_block_sharded
     from maniac_tpu_torch.system import E_RECIP, SimState
@@ -1556,12 +1547,13 @@ def _mesh_kernel_checks(mesh, spec, states):
         _block_check(f"phase 14c: rank 0 block B={MESH_CHECK_REPLICAS} x "
                      f"{CHECK_STEPS} steps", run_block_kernel(spec, few, u),
                      steps_plain(spec, few, u), 1)
-        n_rs = resync_grouped.launches
+        counted = trace.counters()
         rs = run_block_sharded(mesh, spec, states, MAIN_STEPS, True,
                                resync=True)
-        if resync_grouped.launches != n_rs + 1:
+        n_rs = build.launch_counts(counted)["resync"]
+        if n_rs != 1:
             raise AssertionError("phase 14c: the resync block launched K1 "
-                                 f"{resync_grouped.launches - n_rs} times")
+                                 f"{n_rs} times")
         _amp_check(f"phase 14c: rank 0 resync block B={rs.B}, K1 vs a "
                    f"fresh plain synthesis",
                    *_resync_pair(rs, resync_plain(spec, rs), E_RECIP))
@@ -1577,9 +1569,6 @@ def _mesh_rank(rank, world, init, deck, out) -> int:
     the final state to out/rank<rank>.pt."""
     import torch.distributed as dist
     from maniac_tpu_torch.kernels import dispatch_report
-    from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.resync import resync_grouped
-    from maniac_tpu_torch.kernels.threefry import split_uniform
     from maniac_tpu_torch.parallel.mesh import (INIT_TIMEOUT,
                                                 gather_replica_stats,
                                                 make_mesh, replicate_spec,
@@ -1594,20 +1583,19 @@ def _mesh_rank(rank, world, init, deck, out) -> int:
         sysm = _load_flagship(_deck_files(deck), mesh.device)
         spec = replicate_spec(mesh, sysm.spec)
         states = shard_replicas(mesh, spec, sysm.state, MAIN_REPLICAS)
-        for fn in (run_block_kernel, split_uniform, resync_grouped):
-            fn.launches = 0
+        counted = trace.counters()
         lines = []
         for b in range(1, MESH_BLOCKS + 1):
             states = run_block_sharded(mesh, spec, states, MAIN_STEPS, True)
             lines.append(block_line(b, *gather_replica_stats(
                 states, spec.R, E_TOT, mesh=mesh)))
         torch.cuda.synchronize()
+        launched = build.launch_counts(counted)
         result = {
             "lines": lines, "span": mesh.span(MAIN_REPLICAS),
             "dispatch": dispatch_report(spec, mesh.device),
-            "launches": {"blockg": run_block_kernel.launches,
-                         "threefry": split_uniform.launches,
-                         "resync": resync_grouped.launches},
+            "launches": {k: launched[k]
+                         for k in ("blockg", "threefry", "resync")},
             "state": {f: getattr(states, f).cpu() for f in MESH_FIELDS}}
         if rank == 0:
             result["checks"] = _mesh_kernel_checks(mesh, spec, states)
@@ -1773,19 +1761,16 @@ def _envelope_phase(label):
     (ENVELOPE_PATHS: K3 one launch a step, K2 as one-step blocks, the plain
     f32 step), each accepted move's dE against an f64 recompute on the
     card. Returns {path: report}."""
-    from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.tools.delta_e_report import measure
     reports = {}
     for path in ENVELOPE_PATHS:
-        run_steps_kernel.launches = 0
-        run_block_kernel.launches = 0
+        counted = trace.counters()
         t0 = time.perf_counter()
         rep = measure(ENVELOPE_STEPS, ENVELOPE_SEED, False, "cuda",
                       ENVELOPE_REPLICAS, path)
         sec = time.perf_counter() - t0
-        launches = {"stepg": run_steps_kernel.launches,
-                    "blockg": run_block_kernel.launches}
+        launched = build.launch_counts(counted)
+        launches = {k: launched[k] for k in ("stepg", "blockg")}
         print(f"phase 15a: {path}: {rep['accepted_moves']} accepted moves of "
               f"{ENVELOPE_REPLICAS} x {ENVELOPE_STEPS}, |dE_f32 - dE_f64| "
               f"max {rep['max_abs_dE_err_kcalmol']:.3e} mean "
@@ -1817,9 +1802,6 @@ def _virial_phase(label):
     state."""
     from maniac_tpu_torch import virial
     from maniac_tpu_torch.kernels import use_block_kernel
-    from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.resync import resync_grouped
-    from maniac_tpu_torch.kernels.threefry import split_uniform
     from maniac_tpu_torch.systems import make_lj_gas
     with tempfile.TemporaryDirectory() as tmp:
         make_lj_gas(tmp, **virial.lj_gas_kwargs())
@@ -1827,8 +1809,7 @@ def _virial_phase(label):
     if not use_block_kernel(spec, "cuda"):
         raise AssertionError("phase 15b: the LJ gas is not on the block "
                              "kernel")
-    for k in (run_block_kernel, resync_grouped, split_uniform):
-        k.launches = 0
+    counted = trace.counters()
     t0 = time.perf_counter()
     eq = virial.equilibrate(spec, state, resync=True)
     occ = virial.occupancy(spec, eq, resync=True)
@@ -1836,9 +1817,8 @@ def _virial_phase(label):
     torch.cuda.synchronize()
     blocks = (virial.EQ_BLOCKS + virial.OCCUPANCY_BLOCKS
               + virial.WIDOM_BLOCKS)
-    launches = {"blockg": run_block_kernel.launches,
-                "resync": resync_grouped.launches,
-                "threefry": split_uniform.launches}
+    launched = build.launch_counts(counted)
+    launches = {k: launched[k] for k in ("blockg", "resync", "threefry")}
     print(f"phase 15b: virial anchor B={virial.REPLICAS}, {blocks} blocks "
           f"of {virial.STEPS} steps in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches} ({label})")
@@ -1872,9 +1852,6 @@ def _examples_phase(label):
     deck with --replicas 1024 --sentinel 1; the sentinel's tally under the
     command line's rule. Returns (checked, divergences)."""
     from maniac_tpu_torch.cli import SENTINEL_BENIGN_RATE
-    from maniac_tpu_torch.kernels.blockg import run_block_kernel
-    from maniac_tpu_torch.kernels.resync import resync_grouped
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.systems import make_zif_like
     from maniac_tpu_torch.tools import run_examples
     checked = diverged = 0
@@ -1882,9 +1859,9 @@ def _examples_phase(label):
         for name, (_, kw, _) in run_examples.CASES.items():
             d = f"{tmp}/{name}"
             argv = run_examples.case_argv(name, d, ["--sentinel", "1"])
-            run_steps_kernel.launches = 0
-            run_block_kernel.launches = 0
+            counted = trace.counters()
             rc, sec, log = _cli(argv, f"{d}/outputs")
+            launched = build.launch_counts(counted)
             steps = kw["nb_block"] * kw["nb_step"]
             on_k3 = "step: CUDA per-step kernel" in log
             n, k = _sentinel_tally(log)
@@ -1893,46 +1870,47 @@ def _examples_phase(label):
                     "step")
             print(f"phase 15c: {name}: exit {rc} in {sec:.1f} s, {steps} "
                   f"steps on {took}, step kernel launches "
-                  f"{run_steps_kernel.launches}; sentinel {n} blocks, {k} "
+                  f"{launched['stepg']}; sentinel {n} blocks, {k} "
                   f"divergences ({label})")
             print(f"phase 15c: {name}: "
                   f"{run_examples.dispatch_line(d)}")
             if (not run_examples.case_passed(rc, d)
-                    or run_steps_kernel.launches != (steps if on_k3 else 0)
-                    or run_block_kernel.launches != 0
+                    or launched["stepg"] != (steps if on_k3 else 0)
+                    or launched["blockg"] != 0
                     or n != kw["nb_block"] or "SENTINEL:" in log):
                 raise AssertionError(f"phase 15c: the {name} case failed "
                                      f"its checks")
-        run_steps_kernel.launches = 0
+        counted = trace.counters()
         t0 = time.perf_counter()
         means = run_examples.isotherm("cuda")
+        launched = build.launch_counts(counted)
         print(f"phase 15c: isotherm <N> {means} in "
               f"{time.perf_counter() - t0:.1f} s, step kernel launches "
-              f"{run_steps_kernel.launches} ({label})")
-        if (run_steps_kernel.launches != 2000 + 10 * 200
+              f"{launched['stepg']} ({label})")
+        if (launched["stepg"] != 2000 + 10 * 200
                 or not all(0.0 <= m <= 64.0 for m in means)):
             raise AssertionError("phase 15c: the isotherm failed its checks")
 
         d = f"{tmp}/flagship"
         make_zif_like(d, n_cells=6, a=5.66, n_water=32, fugacity=30.0,
                       nb_block=FLAGSHIP_SENTINEL_BLOCKS, nb_step=MAIN_STEPS)
-        run_block_kernel.launches = 0
-        resync_grouped.launches = 0
+        counted = trace.counters()
         rc, sec, log = _cli([
             "-i", f"{d}/input.maniac", "-d", f"{d}/topology.data", "-p",
             f"{d}/parameters.inc", "--capacity", str(CAPACITY), "--replicas", str(MAIN_REPLICAS),
             "--sentinel", "1", "--seed", str(SEED)], f"{d}/outputs")
         n, k = _sentinel_tally(log)
         checked, diverged = checked + n, diverged + k
+        launched = build.launch_counts(counted)
         print(f"phase 15c: flagship --replicas {MAIN_REPLICAS} --sentinel 1: "
               f"exit {rc} in {sec:.1f} s, launches blockg "
-              f"{run_block_kernel.launches} resync "
-              f"{resync_grouped.launches}; sentinel {n} blocks, {k} "
+              f"{launched['blockg']} resync "
+              f"{launched['resync']}; sentinel {n} blocks, {k} "
               f"divergences ({label})")
         if (rc != 0 or "Simulation Completed" not in log
                 or n != FLAGSHIP_SENTINEL_BLOCKS or "SENTINEL:" in log
-                or run_block_kernel.launches != FLAGSHIP_SENTINEL_BLOCKS
-                or resync_grouped.launches < FLAGSHIP_SENTINEL_BLOCKS):
+                or launched["blockg"] != FLAGSHIP_SENTINEL_BLOCKS
+                or launched["resync"] < FLAGSHIP_SENTINEL_BLOCKS):
             raise AssertionError("phase 15c: the flagship sentinel run "
                                  "failed its checks")
     expected = checked * SENTINEL_BENIGN_RATE
@@ -2065,10 +2043,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from maniac_tpu_torch import load_system, replicate
-    from maniac_tpu_torch.kernels import build, dispatch_report
+    from maniac_tpu_torch.kernels import dispatch_report
     from maniac_tpu_torch.kernels.blockg import run_block_kernel
     from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
-    from maniac_tpu_torch.kernels.stepg import run_steps_kernel
     from maniac_tpu_torch.mc.driver import (draw_uniforms, resync_amplitudes,
                                             steps_plain)
     from maniac_tpu_torch.system import E_RECIP
@@ -2196,15 +2173,12 @@ def main() -> int:
                     "-p", f"{d}/parameters.inc", "--capacity",
                     str(CAPACITY)]
 
-        run_steps_kernel.launches = 0
-        resync_grouped.launches = 0
-        run_block_kernel.launches = 0
+        counted = trace.counters()
         rc, sec, log = _cli(files(iso_deck) + [
             "--isotherm", ISOTHERM, "--replicas", str(ISO_REPLICAS)],
             f"{tmp}/iso_out")
-        iso_launches = {"stepg": run_steps_kernel.launches,
-                        "resync": resync_grouped.launches,
-                        "blockg": run_block_kernel.launches}
+        launched = build.launch_counts(counted)
+        iso_launches = {k: launched[k] for k in ("stepg", "resync", "blockg")}
         n_iso = len(fugs) * ISO_REPLICAS * ISO_BLOCKS * MAIN_STEPS
         print(f"phase 5: isotherm exit {rc}, {len(fugs)} x {ISO_REPLICAS} "
               f"chains x {ISO_BLOCKS * MAIN_STEPS} steps in {sec:.2f} s "
@@ -2229,9 +2203,9 @@ def main() -> int:
             raise AssertionError("phase 5: the isotherm sweep failed its "
                                  "checks")
 
-        run_steps_kernel.launches = 0
+        counted = trace.counters()
         rc, sec, log = _cli(files(chain_deck), f"{tmp}/chain_out")
-        chain_launches = run_steps_kernel.launches
+        chain_launches = build.launch_counts(counted)["stepg"]
         n_chain = CHAIN_BLOCKS * MAIN_STEPS
         print(f"phase 6: single chain exit {rc}, {n_chain} steps in "
               f"{sec:.2f} s (load included): {n_chain / sec:.0f} MC "

@@ -21,6 +21,7 @@ from .io.lammps_data import ParsedSystem, parse_lammps_data
 from .io.pair_coeffs import parse_pair_coeffs
 from .mc.driver import initialize_state
 from .system import SimState, SystemSpec, build_spec_and_state, to_device
+from .utils import trace
 from .utils.logger import Logger, default_logger
 
 
@@ -53,28 +54,35 @@ def load_system(input_file: str, data_file: str, params_file: str,
         raise RuntimeError("load_system: no CUDA device is available (pass "
                            "device='cpu' to run on the CPU)")
     logger = logger or default_logger()
-    deck = parse_deck(input_file, logger)
-    if seed is not None:
-        deck.seed = seed
-    log_input_summary(deck, input_file, logger)
-    parsed = parse_lammps_data(data_file, deck, logger, is_primary=True)
-    reservoir = None
-    if reservoir_file:
-        reservoir = parse_lammps_data(reservoir_file, deck, logger,
-                                      is_primary=False)
-        _check_consistency(parsed, reservoir, logger)
-    eps, sig = parse_pair_coeffs(params_file, parsed, logger)
-    ewald = setup_ewald(parsed.box, deck.real_space_cutoff,
-                        deck.ewald_tolerance, logger,
-                        alpha_override=deck.ewald_alpha)
-    log_ewald_parameters(ewald, logger)
-    spec, state = build_spec_and_state(deck, parsed, eps, sig, ewald,
-                                       reservoir=reservoir,
-                                       capacity=capacity)
-    spec = to_device(spec, device, dtype)
-    state = to_device(state, device, dtype)
-    if compute_initial_energy:
-        state = initialize_state(spec, state)
+    with trace.span("load_system"):
+        with trace.span("load.parse"):
+            deck = parse_deck(input_file, logger)
+            if seed is not None:
+                deck.seed = seed
+            log_input_summary(deck, input_file, logger)
+            parsed = parse_lammps_data(data_file, deck, logger,
+                                       is_primary=True)
+            reservoir = None
+            if reservoir_file:
+                reservoir = parse_lammps_data(reservoir_file, deck, logger,
+                                              is_primary=False)
+                _check_consistency(parsed, reservoir, logger)
+            eps, sig = parse_pair_coeffs(params_file, parsed, logger)
+        with trace.span("load.ewald"):
+            ewald = setup_ewald(parsed.box, deck.real_space_cutoff,
+                                deck.ewald_tolerance, logger,
+                                alpha_override=deck.ewald_alpha)
+            log_ewald_parameters(ewald, logger)
+        with trace.span("load.build"):
+            spec, state = build_spec_and_state(deck, parsed, eps, sig, ewald,
+                                               reservoir=reservoir,
+                                               capacity=capacity)
+        with trace.span("load.to_device"):
+            spec = to_device(spec, device, dtype)
+            state = to_device(state, device, dtype)
+        if compute_initial_energy:
+            with trace.span("load.energy"):
+                state = initialize_state(spec, state)
     return LoadedSystem(deck=deck, parsed=parsed, reservoir=reservoir,
                         ewald=ewald, spec=spec, state=state)
 

@@ -72,7 +72,7 @@ import numpy as np
 import torch
 
 from .api import load_system
-from .kernels import (block_gate_failure, dispatch_report,
+from .kernels import (block_gate_failure, build, dispatch_report,
                       resync_gate_failure, use_resync_kernel)
 from .mc.driver import (draw_uniforms, resync_amplitudes, run_steps_u,
                         steps_plain)
@@ -81,6 +81,7 @@ from .system import SimState
 from .systems import (make_framework_mixed, make_triclinic_water,
                       make_water_box, make_water_reservoir, make_zif_like)
 from .tools import bounds
+from .utils import trace
 from .utils.logger import NullLogger
 
 # bench.py's systems (bench.py:91-110, its arguments verbatim): name ->
@@ -337,13 +338,9 @@ def _layers_line(lay: dict, kernel: bool) -> str:
     return f"# layers, one more block ({lay['clock']}): " + " | ".join(parts)
 
 
-def _launch_counters():
-    from .kernels.blockg import run_block_kernel
-    from .kernels.resync import resync_grouped
-    from .kernels.stepg import run_steps_kernel
-    from .kernels.threefry import split_uniform
-    return {"threefry": split_uniform, "blockg": run_block_kernel,
-            "resync": resync_grouped, "stepg": run_steps_kernel}
+# the launchers whose launch counts (kernels/build.launch_counts) the
+# result reports
+LAUNCHES = ("threefry", "blockg", "resync", "stepg")
 
 
 def _device_info(device) -> dict:
@@ -371,7 +368,6 @@ def run(system: str = "zif", device="cuda", replicas: int = 1024,
     capacity = capacity or default_capacity(system)
     build_s = peak = None
     if device.type == "cuda":
-        from .kernels import build
         t0 = time.perf_counter()
         build.library()
         build_s = time.perf_counter() - t0
@@ -400,16 +396,15 @@ def run(system: str = "zif", device="cuda", replicas: int = 1024,
     _sync(device)
     ms_per_step = (time.perf_counter() - t0) / steps * 1e3
 
-    counters = _launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    before = trace.counters()
     start = states
     t0 = time.perf_counter()
     for _ in range(blocks):
         states = run_block_replicated(spec, states, steps, False, resync)
     _sync(device)
     elapsed = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    counted = build.launch_counts(before)
+    launches = {k: counted[k] for k in LAUNCHES}
     rate = replicas * steps * blocks / elapsed
     mean_n = float(states.n_mol[:, :spec.R].sum(1).double().mean())
     log.write(f"# device={device} dtype={dtype} replicas={replicas} "

@@ -17,6 +17,7 @@ import torch
 
 from ..mc.driver import steps_plain
 from ..system import SimState, SystemSpec
+from ..utils import trace
 from . import block_gate_failure, build
 from .stepg import RES_KEYS, STATE_KEYS, step_tables
 
@@ -26,9 +27,8 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     replica-major (B, n_steps, 21) in the spec dtype."""
     if states.pos.device.type == "cpu":
         return steps_plain(spec, states, uniforms)
-    out = _launch(spec, states, uniforms)
-    run_block_kernel.launches += 1
-    return out
+    with trace.span("kernels.blockg"):
+        return _launch(spec, states, uniforms)
 
 
 def _launch(spec, states, uniforms):
@@ -47,6 +47,3 @@ def _launch(spec, states, uniforms):
     ptrs += [getattr(states, k).data_ptr() for k in STATE_KEYS + RES_KEYS]
     build.launch("blockg_launch", ptrs, ints, floats, states.pos.device)
     return out
-
-
-run_block_kernel.launches = 0

@@ -6,7 +6,11 @@ with a plain C interface (each kernel has an ``extern "C"`` launcher that
 returns its ``cudaError_t``), loaded with ctypes. ``launch`` keeps one
 ``_Launcher`` per launcher, whose argument tables are allocated once and
 refilled in place, and reads the current stream's raw handle after
-checking that the tensors lie on the current device. The build
+checking that the tensors lie on the current device. It counts each
+launch the launcher accepted in the counter ``launch.<launcher>``
+(utils/trace.py; the launcher's name without ``_launch``) and, with
+tracing on, adds the host ns from the argument tables to the launcher's
+return to ``launch_ns.<launcher>``. The build
 runs at first use, goes into ``kernels/_build/`` (git-ignored) and is keyed
 by a hash of the sources and flags, so an unchanged tree reuses it. Within
 ``variant(defines)`` launches go to a library built with extra macros
@@ -31,6 +35,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -76,11 +82,20 @@ def _source_hash(defines=()) -> str:
 def library_path(defines: tuple = ()) -> Path:
     """Path of the built library, building it first if needed; ``defines``
     (macro names) build a variant beside it (see variant)."""
-    global build_seconds, build_log
+    global build_seconds
     so = BUILD_DIR / f"libmaniac_kernels_{_source_hash(defines)}.so"
     if so.exists():
         build_seconds = 0.0
         return so
+    with trace.span("kernels.build"):
+        _build(so, defines)
+    trace.count("kernels.builds")
+    return so
+
+
+def _build(so: Path, defines: tuple) -> None:
+    """Compile every csrc/*.cu with ``defines`` and link them into ``so``."""
+    global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     nvcc = _nvcc()
@@ -107,7 +122,6 @@ def library_path(defines: tuple = ()) -> Path:
         os.replace(os.path.join(tmp, "lib.so"), so)
     build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
-    return so
 
 
 @functools.cache
@@ -117,7 +131,8 @@ def library(defines: tuple = ()) -> ctypes.CDLL:
     table, float table, counts, stream) and returns a cudaError_t; the
     tables and the stream are declared as addresses (c_void_p), which
     _Launcher passes as ints: ctypes then converts no array per call."""
-    lib = ctypes.CDLL(str(library_path(defines)))
+    with trace.span("kernels.library"):
+        lib = ctypes.CDLL(str(library_path(defines)))
     for name in LAUNCHERS:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -158,6 +173,9 @@ class _Launcher:
     def __init__(self, name: str, lib):
         self.fn = getattr(lib, name)
         self.sizes = None
+        short = name.removesuffix("_launch")
+        self.counter = f"launch.{short}"
+        self.timer = f"launch_ns.{short}"
 
     def _alloc(self, sizes) -> None:
         n_p, n_i, n_f = self.sizes = sizes
@@ -200,6 +218,16 @@ def variant(defines: tuple):
         _defines = saved
 
 
+def launch_counts(before: dict | None = None) -> dict:
+    """{launcher without ``_launch``: launches counted by launch()} for
+    every launcher of the library, since the trace.counters() snapshot
+    ``before`` (since the process started without one)."""
+    now, before = trace.counters(), before or {}
+    short = (name.removesuffix("_launch") for name in LAUNCHERS)
+    return {n: now.get(f"launch.{n}", 0) - before.get(f"launch.{n}", 0)
+            for n in short}
+
+
 def launch(name: str, ptrs, ints, floats, device) -> None:
     """Call launcher ``name`` on the current CUDA stream with its pointer,
     int and float tables; ``device`` is the device of the tensors behind
@@ -210,7 +238,13 @@ def launch(name: str, ptrs, ints, floats, device) -> None:
     fn = _launchers.get(key)
     if fn is None:
         fn = _launchers[key] = _Launcher(name, library(_defines))
+    timed = trace.enabled()
+    if timed:
+        t0 = time.perf_counter_ns()
     err = fn(ptrs, ints, floats, current_stream(device))
     if err != 0:
         msg = library(_defines).maniac_error_string(err).decode()
         raise RuntimeError(f"{name} failed: error {err} ({msg})")
+    if timed:
+        trace.count(fn.timer, time.perf_counter_ns() - t0)
+    trace.count(fn.counter)

@@ -22,6 +22,7 @@ import torch
 from ..constants import COULOMB_K, TWOPI
 from ..mc.driver import resync_amplitudes_body
 from ..system import SimState, SystemSpec
+from ..utils import trace
 from . import build, resync_gate_failure
 
 # csrc/resync.cu: columns a CTA (COLS, 16 threads of 4 columns), rows a
@@ -130,9 +131,5 @@ def resync_grouped(spec: SystemSpec, states: SimState) -> SimState:
     """Re-synthesize amplitudes and E_RECIP for every replica."""
     if states.pos.device.type == "cpu":
         return resync_plain(spec, states)
-    out = _launch(spec, states)
-    resync_grouped.launches += 1
-    return out
-
-
-resync_grouped.launches = 0
+    with trace.span("kernels.resync"):
+        return _launch(spec, states)

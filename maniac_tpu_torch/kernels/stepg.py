@@ -25,6 +25,7 @@ from ..constants import COULOMB_K, PROB_CREATE_DELETE, SMALL, TWOPI
 from ..mc.driver import steps_plain
 from ..mc.moves import N_UNIFORMS, _core_plain
 from ..system import SimState, SystemSpec
+from ..utils import trace
 from . import build, step_gate_failure
 from .resync import _check
 
@@ -108,7 +109,8 @@ def run_steps_kernel(spec: SystemSpec, states: SimState,
     are never written."""
     if states.pos.device.type == "cpu":
         return steps_plain(spec, states, uniforms)
-    return _run(spec, states, uniforms)
+    with trace.span("kernels.stepg"):
+        return _run(spec, states, uniforms)
 
 
 def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
@@ -136,8 +138,4 @@ def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     for step in range(uniforms.shape[1]):
         ints[si_step] = step
         build.launch("stepg_launch", ptrs, ints, floats, work.pos.device)
-        run_steps_kernel.launches += 1
     return work
-
-
-run_steps_kernel.launches = 0

@@ -51,8 +51,4 @@ def split_uniform(keys: torch.Tensor, n_steps: int, dtype: torch.dtype):
                  (keys.data_ptr(), new_keys.data_ptr(), out.data_ptr()),
                  (B, n_steps * N_UNIFORMS, int(dtype == torch.float64)), (),
                  keys.device)
-    split_uniform.launches += 1
     return new_keys, out
-
-
-split_uniform.launches = 0

@@ -90,11 +90,7 @@ def vpu_chain(x: torch.Tensor, op: str, n: int) -> torch.Tensor:
     out = torch.empty_like(x)
     build.launch("vpu_chain_launch", [x.data_ptr(), out.data_ptr()],
                  [x.numel(), n, VPU_OPS.index(op)], [], x.device)
-    vpu_chain.launches += 1
     return out
-
-
-vpu_chain.launches = 0
 
 
 # the branch-free primitives of csrc/prims.cuh, in vpu.cu's PrimId order,
@@ -196,11 +192,7 @@ def prim_check(name: str, device, lo=None, hi=None,
     out = torch.tensor([0, 0, _NO_BELOW, _NO_ABOVE], dtype=torch.int64,
                        device=device)
     _prim_check_launch(name, out, lo, hi, stride)
-    prim_check.launches += 1
     return _check_result(out.tolist())
-
-
-prim_check.launches = 0
 
 
 def _offset(i: int) -> float:
@@ -260,9 +252,4 @@ def cpass(px, py, pz, q, rows, n: int, transposed: bool) -> torch.Tensor:
     the (R, C) sum of the cut-off Coulomb terms."""
     if px.device.type == "cpu":
         return cpass_plain(px, py, pz, q, rows, n, transposed)
-    out = _cpass_launch(px, py, pz, q, rows, n, transposed)
-    cpass.launches += 1
-    return out
-
-
-cpass.launches = 0
+    return _cpass_launch(px, py, pz, q, rows, n, transposed)

@@ -18,6 +18,7 @@ from ..constants import (MAX_ROTATION_ANGLE, MAX_TRANSLATION_STEP,
 from ..physics.energy import (active_site_mask, full_amplitudes, recip_energy,
                               site_positions, system_energy)
 from ..system import E_RECIP, E_TOT, SimState, SystemSpec
+from ..utils import trace
 from .moves import _core_plain, mc_step_u
 
 
@@ -60,7 +61,8 @@ def draw_uniforms(spec: SystemSpec, state: SimState, n_steps: int):
     with the next keys, the (B, n_steps, 21) uniforms); on the card one
     launch of kernels/threefry.py's kernel."""
     from ..kernels.threefry import split_uniform
-    key, u = split_uniform(state.key, n_steps, spec.dtype)
+    with trace.span("mc.draw"):
+        key, u = split_uniform(state.key, n_steps, spec.dtype)
     return state.replace(key=key), u
 
 
@@ -72,15 +74,16 @@ def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
     (on the card one launch a step; on the CPU the loop below with
     _core_plain), any other runs the loop with _core_plain. A core passed
     (_core_plain) pins the torch loop of mc_step_u."""
-    if core is None:
-        from ..kernels import step_gate_failure
-        if step_gate_failure(spec) is None:
-            from ..kernels.stepg import run_steps_kernel
-            return run_steps_kernel(spec, state, uniforms)
-        core = _core_plain
-    for i in range(uniforms.shape[1]):
-        state = mc_step_u(spec, state, uniforms[:, i], core)
-    return state
+    with trace.span("mc.steps"):
+        if core is None:
+            from ..kernels import step_gate_failure
+            if step_gate_failure(spec) is None:
+                from ..kernels.stepg import run_steps_kernel
+                return run_steps_kernel(spec, state, uniforms)
+            core = _core_plain
+        for i in range(uniforms.shape[1]):
+            state = mc_step_u(spec, state, uniforms[:, i], core)
+        return state
 
 
 def steps_plain(spec: SystemSpec, state: SimState, uniforms) -> SimState:
@@ -108,7 +111,8 @@ def block_body(spec: SystemSpec, state: SimState, n_steps: int,
 def resync(spec: SystemSpec, state: SimState) -> SimState:
     """Recompute the energy and the structure factors from positions (the
     command line's per-block refresh of an f32 single chain)."""
-    return initialize_state(spec, state)
+    with trace.span("mc.refresh"):
+        return initialize_state(spec, state)
 
 
 def resync_amplitudes_body(spec: SystemSpec, state: SimState) -> SimState:
@@ -131,10 +135,11 @@ def resync_amplitudes(spec: SystemSpec, state: SimState) -> SimState:
     resync_amplitudes_body otherwise. At B = 1 (a single chain) this is the
     counterpart of maniac_tpu/kernels/resync.py::_resync_kernel."""
     from ..kernels import resync_gate_failure
-    if resync_gate_failure(spec) is not None:
-        return resync_amplitudes_body(spec, state)
-    from ..kernels.resync import resync_grouped
-    return resync_grouped(spec, state)
+    with trace.span("mc.resync_amplitudes"):
+        if resync_gate_failure(spec) is not None:
+            return resync_amplitudes_body(spec, state)
+        from ..kernels.resync import resync_grouped
+        return resync_grouped(spec, state)
 
 
 def sentinel_check(spec: SystemSpec, state_pre: SimState,

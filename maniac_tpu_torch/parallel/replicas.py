@@ -22,6 +22,7 @@ from ..kernels import block_gate_failure
 from ..mc.driver import (_recalibrate, draw_uniforms, resync_amplitudes,
                          run_steps_u)
 from ..system import SimState, SystemSpec
+from ..utils import trace
 from ..utils.threefry import split
 
 
@@ -29,10 +30,11 @@ def replicate(spec: SystemSpec, state: SimState, n_replicas: int) -> SimState:
     """Broadcast replica 0 of ``state`` into n_replicas chains (copies),
     each with its own key: split(replica 0's key, n_replicas), computed on
     the host, as maniac_tpu/parallel/replicas.py::replicate does."""
-    out = SimState(**{k: v[:1].expand(n_replicas, *v.shape[1:]).contiguous()
-                      for k, v in vars(state).items()})
-    return out.replace(key=split(state.key[0].cpu(), n_replicas)
-                       .to(state.key.device))
+    with trace.span("replicate"):
+        out = SimState(**{k: v[:1].expand(n_replicas, *v.shape[1:])
+                          .contiguous() for k, v in vars(state).items()})
+        return out.replace(key=split(state.key[0].cpu(), n_replicas)
+                           .to(state.key.device))
 
 
 def perturb_activity(spec: SystemSpec, activities) -> SystemSpec:
@@ -53,8 +55,12 @@ def run_block_uniforms(spec: SystemSpec, states: SimState, uniforms,
     from ..kernels.blockg import run_block_kernel
     block = (run_block_kernel if block_gate_failure(spec) is None
              else run_steps_u)
-    out = _recalibrate(block(spec, states, uniforms), recalibrate)
-    return resync_amplitudes(spec, out) if resync else out
+    with trace.span("mc.block"):
+        out = block(spec, states, uniforms)
+        if recalibrate:
+            with trace.span("mc.recalibrate"):
+                out = _recalibrate(out, recalibrate)
+        return resync_amplitudes(spec, out) if resync else out
 
 
 def run_block_replicated(spec: SystemSpec, states: SimState, n_steps: int,

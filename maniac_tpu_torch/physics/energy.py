@@ -20,6 +20,7 @@ import torch
 
 from ..constants import COULOMB_K, SMALL, TWOPI
 from ..system import E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF, E_TOT, SystemSpec
+from ..utils import trace
 from .fwsplit import FAR_LANES, FAR_TCH, FAR_YROWS
 from .pbc import min_image_dist2
 
@@ -392,19 +393,23 @@ def system_energy(spec: SystemSpec, state):
     """Full from-scratch energy and fresh structure factors (reference:
     ComputeSystemEnergy, src/energy_utils.f90:18-35). Returns
     (energy (B, 6), amp_re, amp_im)."""
-    pos = site_positions(spec, state)
-    active = active_site_mask(spec, state.n_mol)
-    e_lj, e_coul = full_pair_energy(spec, pos, active)
-    amp_re, amp_im = full_amplitudes(spec, pos, active)
-    e_recip = recip_energy(spec, amp_re, amp_im)
-    e_self = (spec.type_self_energy
-              * state.n_mol[:, :spec.R].to(pos.dtype)).sum(dim=1)
-    e_intra = full_intra_energy(spec, state, pos)
-    e = pos.new_zeros(pos.shape[0], 6)
-    e[:, E_RECIP] = e_recip
-    e[:, E_LJ] = e_lj
-    e[:, E_COUL] = e_coul
-    e[:, E_SELF] = e_self
-    e[:, E_INTRA] = e_intra
-    e[:, E_TOT] = e_recip + e_lj + e_coul + e_self + e_intra
-    return e, amp_re, amp_im
+    with trace.span("energy.system"):
+        pos = site_positions(spec, state)
+        active = active_site_mask(spec, state.n_mol)
+        with trace.span("energy.pair"):
+            e_lj, e_coul = full_pair_energy(spec, pos, active)
+        with trace.span("energy.amplitudes"):
+            amp_re, amp_im = full_amplitudes(spec, pos, active)
+        e_recip = recip_energy(spec, amp_re, amp_im)
+        e_self = (spec.type_self_energy
+                  * state.n_mol[:, :spec.R].to(pos.dtype)).sum(dim=1)
+        with trace.span("energy.intra"):
+            e_intra = full_intra_energy(spec, state, pos)
+        e = pos.new_zeros(pos.shape[0], 6)
+        e[:, E_RECIP] = e_recip
+        e[:, E_LJ] = e_lj
+        e[:, E_COUL] = e_coul
+        e[:, E_SELF] = e_self
+        e[:, E_INTRA] = e_intra
+        e[:, E_TOT] = e_recip + e_lj + e_coul + e_self + e_intra
+        return e, amp_re, amp_im

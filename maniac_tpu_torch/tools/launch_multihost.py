@@ -112,14 +112,12 @@ def main(argv=None) -> int:
 
 def _run(args, device) -> int:
     from .. import load_system
-    from ..kernels import dispatch_report
-    from ..kernels.blockg import run_block_kernel
-    from ..kernels.resync import resync_grouped
-    from ..kernels.threefry import split_uniform
+    from ..kernels import build, dispatch_report
     from ..parallel.mesh import (gather_replica_stats, make_mesh,
                                  replicate_spec, run_block_sharded,
                                  shard_replicas)
     from ..system import E_TOT
+    from ..utils import trace
     from ..utils.logger import NullLogger
 
     mesh = make_mesh(device=device)
@@ -144,8 +142,7 @@ def _run(args, device) -> int:
     spec = replicate_spec(mesh, sysm.spec)
     states = shard_replicas(mesh, spec, sysm.state, B)
     say(f"# {dispatch_report(spec, device)}")
-    for fn in (run_block_kernel, split_uniform, resync_grouped):
-        fn.launches = 0
+    before = trace.counters()
     warmup = 1 if args.blocks > 1 else 0
     for b in range(1, args.blocks + 1):
         if b == warmup + 1:
@@ -161,9 +158,9 @@ def _run(args, device) -> int:
     timed = args.blocks - warmup
     say(f"# {timed * args.steps * B / dt / 1e6:.3f} M aggregate "
         f"steps/s over {dt:.1f} s")
-    say(f"# rank 0 kernel launches: blockg {run_block_kernel.launches}, "
-        f"threefry {split_uniform.launches}, resync "
-        f"{resync_grouped.launches}")
+    n = build.launch_counts(before)
+    say(f"# rank 0 kernel launches: blockg {n['blockg']}, "
+        f"threefry {n['threefry']}, resync {n['resync']}")
     return 0
 
 

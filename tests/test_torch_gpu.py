@@ -45,6 +45,7 @@ from maniac_tpu_torch.tools.resync_times import (edge_replicas, load_cell,
                                                  replica)
 from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
 from maniac_tpu_torch.utils.hwprobe import onehot_operands, probe_onehot_exact
+from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.threefry import prng_key, split, uniform
 
 pytestmark = pytest.mark.gpu
@@ -192,20 +193,19 @@ def test_launch_counts_and_refusals(tmp_path):
     _mixed_sizes(str(tmp_path))
     f32 = _load(str(tmp_path), dev, 16)
     states = replicate(f32.spec, f32.state, 2)
-    n0 = resync_grouped.launches
+    n0 = trace.counters()
     k = resync_grouped(f32.spec, states)
-    assert resync_grouped.launches == n0 + 1
+    assert build.launch_counts(n0)["resync"] == 1
     # without the framework split the resync covers every type region
     p = resync_plain(f32.spec, states)
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.energy, p.energy, rtol=E_RTOL, atol=0.05)
     assert "block: CUDA whole-block kernel" in dispatch_report(f32.spec, dev)
-    nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
-                  resync_grouped.launches)
+    n0 = trace.counters()
     out = run_block_replicated(f32.spec, states, 5, False, True)
-    assert run_block_kernel.launches == nb + 1
-    assert run_steps_kernel.launches == ns
-    assert resync_grouped.launches == nr + 1
+    assert build.launch_counts(n0)["blockg"] == 1
+    assert build.launch_counts(n0)["stepg"] == 0
+    assert build.launch_counts(n0)["resync"] == 1
     assert int(out.counters[:, 0].sum()) == 10
     sweep = perturb_activity(f32.spec, f32.spec.type_activity.expand(2, -1))
     u = _draw(sweep, 2, 5, 4)
@@ -215,12 +215,11 @@ def test_launch_counts_and_refusals(tmp_path):
     # path with the step kernel, the kernel resync, and the report says so
     assert "per-step path (per-replica activity" in dispatch_report(
         sweep, dev)
-    nb, ns, nr = (run_block_kernel.launches, run_steps_kernel.launches,
-                  resync_grouped.launches)
+    n0 = trace.counters()
     out = run_block_sweep(sweep, states, 5, False, True)
-    assert run_block_kernel.launches == nb
-    assert run_steps_kernel.launches == ns + 5
-    assert resync_grouped.launches == nr + 1
+    assert build.launch_counts(n0)["blockg"] == 0
+    assert build.launch_counts(n0)["stepg"] == 5
+    assert build.launch_counts(n0)["resync"] == 1
     assert int(out.counters[:, 0].sum()) == 10
     f64 = _load(str(tmp_path), dev, 16, dtype=torch.float64)
     st64 = replicate(f64.spec, f64.state, 2)
@@ -254,9 +253,9 @@ def test_block_kernel_water_forms_match_plain(tmp_path, with_reservoir):
     assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
     u = _draw(spec, 8, 60, 11)
-    n0 = run_block_kernel.launches
+    n0 = trace.counters()
     k = _assert_block_parity(spec, states, u)
-    assert run_block_kernel.launches == n0 + 1
+    assert build.launch_counts(n0)["blockg"] == 1
     acc = k.counters[:, 1].sum(0)
     assert int(acc[0]) > 0 and int(acc[1]) > 0    # insertions and deletions
     if with_reservoir:
@@ -341,9 +340,9 @@ def test_block_kernel_forms_match_plain(tmp_path, make):
     assert "block: CUDA whole-block kernel" in dispatch_report(spec, dev)
     states = replicate(spec, sysm.state, 8)
     u = _draw(spec, 8, 60, 13)
-    n0 = run_block_kernel.launches
+    n0 = trace.counters()
     k = _assert_block_parity(spec, states, u)
-    assert run_block_kernel.launches == n0 + 1
+    assert build.launch_counts(n0)["blockg"] == 1
     acc = k.counters[:, 1].sum(0)
     assert int(acc.sum()) > 0
     if spec.n_active > 1:
@@ -381,9 +380,9 @@ def test_resync_single_chain_matches_plain(tmp_path):
     sysm = _load(str(tmp_path), dev, 16)
     st = steps_plain(sysm.spec, sysm.state,
                      _draw(sysm.spec, 1, 30, 10))
-    n0 = resync_grouped.launches
+    n0 = trace.counters()
     k = resync_amplitudes(sysm.spec, st)
-    assert resync_grouped.launches == n0 + 1
+    assert build.launch_counts(n0)["resync"] == 1
     p = resync_plain(sysm.spec, st)
     torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
     torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
@@ -395,10 +394,10 @@ def test_onehot_kernel_exact():
     probe's stage 1 passes on the card."""
     dev = _device()
     x, oh, want = onehot_operands()
-    n0 = onehot_product.launches
+    n0 = trace.counters()
     got = onehot_product(torch.from_numpy(x).to(dev),
                          torch.from_numpy(oh).to(dev))
-    assert onehot_product.launches == n0 + 1
+    assert build.launch_counts(n0)["onehot"] == 1
     assert np.array_equal(got.cpu().numpy().astype(np.float64), want)
     ok, detail = probe_onehot_exact(dev)
     assert ok, detail
@@ -409,9 +408,9 @@ def test_vpu_chain_kernel_matches_plain(op):
     """K7 at the tool's (128, 1280) plane, n = 512, elementwise."""
     dev = _device()
     x = plane(128, 1280, dev)
-    n0 = vpu_chain.launches
+    n0 = trace.counters()
     k = vpu_chain(x, op, 512)
-    assert vpu_chain.launches == n0 + 1
+    assert build.launch_counts(n0)["vpu_chain"] == 1
     torch.testing.assert_close(k, vpu_chain_plain(x, op, 512),
                                rtol=VPU_RTOL, atol=0)
 
@@ -436,9 +435,9 @@ def test_prim_check_finds_no_mismatch(name):
     every value of the domain is checked."""
     dev = _device()
     lo, hi = PRIM_DOMAINS[name]
-    n0 = prim_check.launches
+    n0 = trace.counters()
     res = prim_check(name, dev)
-    assert prim_check.launches == n0 + 1
+    assert build.launch_counts(n0)["prim_check"] == 1
     assert res["mismatches"] == 0, res
     assert res["checked"] == f32_bits(hi) - f32_bits(lo) + 1
 
@@ -455,9 +454,9 @@ def test_cpass_kernel_matches_plain(transposed, shape, n):
     that are not a multiple of a CTA's 256 elements."""
     dev = _device()
     ins = cpass_inputs(*shape, dev)
-    n0 = cpass.launches
+    n0 = trace.counters()
     k = cpass(*ins, n, transposed)
-    assert cpass.launches == n0 + 1
+    assert build.launch_counts(n0)["cpass"] == 1
     torch.testing.assert_close(k, cpass_plain(*ins, n, transposed),
                                rtol=CPASS_RTOL, atol=0)
 
@@ -473,9 +472,9 @@ def test_gpass_kernel_matches_plain(variant, fl, shape):
     multiples of a CTA's 128 pairs."""
     dev = _device()
     ins = gpass_inputs(*shape, fl, dev)
-    n0 = gpass.launches
+    n0 = trace.counters()
     k = float(gpass(*ins, 10, 6, variant))
-    assert gpass.launches == n0 + 1
+    assert build.launch_counts(n0)["gpass"] == 1
     assert abs(k - float(gpass_plain(*ins, 10, 6, variant))) \
         <= GPASS_RTOL * gpass_scale(*ins, 10, 6, variant)
 
@@ -501,9 +500,9 @@ def test_gpass_kernel_lj_rows_match_plain(variant, shape):
     (tests/test_torch_microbench.py); also at G 61, S 1000."""
     dev = _device()
     ins = check_inputs(*shape, 2, 0, 10, dev)
-    n0 = gpass.launches
+    n0 = trace.counters()
     k = float(gpass(*ins, 10, 0, variant))
-    assert gpass.launches == n0 + 1
+    assert build.launch_counts(n0)["gpass"] == 1
     assert abs(k - float(gpass_plain(*ins, 10, 0, variant))) \
         <= GPASS_RTOL * gpass_scale(*ins, 10, 0, variant)
 
@@ -536,9 +535,9 @@ def _assert_steps_parity(spec, states, u, max_diverged):
     conserves box + reservoir + drops on every replica. Returns the
     kernel's state."""
     before = {name: v.clone() for name, v in vars(states).items()}
-    n0 = run_steps_kernel.launches
+    n0 = trace.counters()
     k = run_steps_kernel(spec, states, u)
-    assert run_steps_kernel.launches == n0 + u.shape[1]
+    assert build.launch_counts(n0)["stepg"] == u.shape[1]
     for name, v in vars(states).items():
         assert torch.equal(v, before[name]), name
     p = steps_plain(spec, states, u)
@@ -741,11 +740,11 @@ def test_launch_refuses_tensors_off_the_current_device(tmp_path):
     make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
                    probs=(0.3, 0.2, 0.5, 0.0), fugacity=5000.0)
     sysm = _load(str(tmp_path), "cuda:0", 16)
-    n_blk, n_tf = run_block_kernel.launches, split_uniform.launches
+    n0 = trace.counters()
     out = run_block_replicated(sysm.spec, replicate(sysm.spec, sysm.state,
                                                     8), 20, True)
-    assert run_block_kernel.launches == n_blk + 1
-    assert split_uniform.launches == n_tf + 1
+    assert build.launch_counts(n0)["blockg"] == 1
+    assert build.launch_counts(n0)["threefry"] == 1
     assert out.pos.device == torch.device("cuda", 0)
     assert bool(torch.isfinite(out.energy).all())
     assert np.array_equal(onehot_product(torch.from_numpy(x).to(dev),
@@ -763,9 +762,9 @@ def test_threefry_kernel_matches_plain(dtype):
     keys[0] = 0
     keys[1] = 0xFFFFFFFF
     keys[2, 0] = 0xFFFFFFFF
-    n0 = split_uniform.launches
+    n0 = trace.counters()
     new, u = split_uniform(keys, 400, dtype)
-    assert split_uniform.launches == n0 + 1
+    assert build.launch_counts(n0)["threefry"] == 1
     want_new, want_u = split_uniform_plain(keys, 400, dtype)
     bits = torch.int32 if dtype == torch.float32 else torch.int64
     assert torch.equal(new, want_new)
@@ -790,9 +789,9 @@ def test_block_kernel_rejected_overlap_keeps_energies(tmp_path):
     row[0], row[1], row[2] = 0.7, 0.25, 0.5
     row[6:9] = frac.float()
     row[15], row[16] = 0.0, 0.25
-    n0 = run_block_kernel.launches
+    n0 = trace.counters()
     out = run_block_kernel(spec, state, row[None, None].contiguous())
-    assert run_block_kernel.launches == n0 + 1
+    assert build.launch_counts(n0)["blockg"] == 1
     assert int(out.counters[0, 0, 0]) == 1
     assert int(out.counters[0, 1].sum()) == 0
     assert bool(torch.isfinite(out.energy).all())
@@ -807,9 +806,9 @@ def test_step_kernel_f32_delta_e_envelope():
     bounds (max 5e-4, mean 1e-4 kcal/mol)."""
     from maniac_tpu_torch.tools.delta_e_report import measure
     _device()
-    run_steps_kernel.launches = 0
+    n0 = trace.counters()
     rep = measure(200, 3, False, "cuda", 64, "step")
-    assert run_steps_kernel.launches == 200
+    assert build.launch_counts(n0)["stepg"] == 200
     assert rep["accepted_moves"] > 20
     assert rep["max_abs_dE_err_kcalmol"] < 5e-4, rep
     assert rep["mean_abs_dE_err_kcalmol"] < 1e-4, rep

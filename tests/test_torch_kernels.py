@@ -14,8 +14,8 @@ from maniac_tpu.kernels.resync import resync_pallas_grouped
 from maniac_tpu.mc.driver import _recalibrate as jax_recalibrate
 from maniac_tpu.mc.driver import refresh_reported_energy as jax_refresh
 from maniac_tpu.mc.driver import resync_amplitudes_body
-from maniac_tpu_torch.kernels import (dispatch_report, use_block_kernel,
-                                      use_resync_kernel)
+from maniac_tpu_torch.kernels import (build, dispatch_report,
+                                      use_block_kernel, use_resync_kernel)
 from maniac_tpu_torch.kernels.blockg import run_block_kernel
 from maniac_tpu_torch.kernels.resync import resync_grouped
 from maniac_tpu_torch.mc.driver import (_recalibrate, block_body,
@@ -54,7 +54,8 @@ def zif32(tmp_path):
 
 
 def _counts():
-    return run_block_kernel.launches, resync_grouped.launches
+    n = build.launch_counts()
+    return n["blockg"], n["resync"]
 
 
 def test_resync_plain_matches_pallas_and_xla(zif32):

@@ -21,6 +21,7 @@ from maniac_tpu_torch.mc.driver import draw_uniforms
 from maniac_tpu_torch.parallel.replicas import perturb_activity
 from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
                                       make_zif_like)
+from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.threefry import prng_key, uniform
 
 torch.set_num_threads(1)
@@ -100,6 +101,33 @@ def test_launch_raises_on_refusal(stub):
     stub.ret = 0
     build.launch("stepg_launch", [1], [2], [3.0], DEV)
     assert len(stub.calls) == 2
+
+
+def test_launch_counts_each_launcher_and_its_host_ns(stub):
+    """Every accepted launch adds one to launch.<launcher> (a refused one
+    nothing); with tracing on each also adds its host ns to
+    launch_ns.<launcher>, and with tracing off none is timed."""
+    before = trace.counters()
+    build.launch("blockg_launch", [1], [2], [3.0], DEV)
+    stub.ret = 100002
+    with pytest.raises(RuntimeError):
+        build.launch("blockg_launch", [1], [2], [3.0], DEV)
+    stub.ret = 0
+    assert trace.since(before) == {"launch.blockg": 1}
+    trace.enable(True)
+    try:
+        build.launch("blockg_launch", [1], [2], [3.0], DEV)
+        build.launch("stepg_launch", [1], [2], [3.0], DEV)
+    finally:
+        trace.enable(False)
+    moved = trace.since(before)
+    assert {k: moved[k] for k in ("launch.blockg", "launch.stepg")} == {
+        "launch.blockg": 2, "launch.stepg": 1}
+    assert moved["launch_ns.blockg"] > 0 and moved["launch_ns.stepg"] > 0
+    assert set(moved) == {"launch.blockg", "launch.stepg",
+                          "launch_ns.blockg", "launch_ns.stepg"}
+    assert build.launch_counts(before)["blockg"] == 2
+    assert trace.spans() == []
 
 
 def test_launch_refuses_a_device_that_is_not_current(monkeypatch):
@@ -252,10 +280,10 @@ def _step_calls(stub, spec, states, n_steps, seed):
     of each launch, (csrc/step_body.cuh's shared entries, csrc/stepg.cu's
     own ints))."""
     u = uniform(prng_key(seed), (states.B, n_steps, 21), spec.dtype)
-    n0, calls0 = stepg.run_steps_kernel.launches, len(stub.calls)
+    n0, calls0 = trace.counters(), len(stub.calls)
     out = stepg._run(spec, states, u)
     calls = [_unpack(c) for c in stub.calls[calls0:]]
-    assert stepg.run_steps_kernel.launches == n0 + n_steps == n0 + len(calls)
+    assert build.launch_counts(n0)["stepg"] == n_steps == len(calls)
     assert all(c[0] == "stepg_launch" for c in stub.calls[calls0:])
     return out, u, calls, (_shared(), _enum("stepg.cu", "StepgInt"))
 

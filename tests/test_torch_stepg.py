@@ -25,9 +25,8 @@ from maniac_tpu.mc.moves import _propose as jax_propose
 from maniac_tpu.mc.moves import mc_step_u as jax_mc_step_u
 from maniac_tpu.parallel.replicas import _with_activity
 from maniac_tpu_torch.io.writers import OutputWriter, snapshot
-from maniac_tpu_torch.kernels import step_gate_failure, use_step_kernel
-from maniac_tpu_torch.kernels.stepg import (run_steps_kernel,
-                                            step_core_plain)
+from maniac_tpu_torch.kernels import build, step_gate_failure, use_step_kernel
+from maniac_tpu_torch.kernels.stepg import step_core_plain
 from maniac_tpu_torch.mc.driver import run_steps_u
 from maniac_tpu_torch.mc.moves import _propose
 from maniac_tpu_torch.parallel.mesh import gather_replica_stats
@@ -38,6 +37,7 @@ from maniac_tpu_torch.system import E_TOT, from_numpy, to_device
 from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_framework_water, make_lj_gas,
                                       make_mixed_sizes, make_water_box)
+from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.logger import NullLogger
 from maniac_tpu_torch.utils.threefry import prng_key
 
@@ -130,9 +130,9 @@ def test_step_chain_matches_pallas_stepg(case32):
     the same uniforms; the CPU never launches the kernel."""
     sysm, spec, st, jst = case32
     U = uniforms(4, 25, seed=40, f32=True)
-    before = run_steps_kernel.launches
+    before = trace.counters()
     pst = run_steps_u(spec, st, torch.from_numpy(U))
-    assert run_steps_kernel.launches == before
+    assert build.launch_counts(before)["stepg"] == 0
     jout = jax_batch(sysm.spec, jst, U)
     assert_same_chain(jout, pst, pos_tol=F32_POS_TOL,
                       energy_tol=F32_ENERGY_TOL)
@@ -217,10 +217,10 @@ def test_sweep_matches_jax_per_replica_activity_f32(tmp_path, monkeypatch):
     U = uniforms(B, 30, seed=52, f32=True)
     sweep = perturb_activity(spec, acts)
     assert step_gate_failure(sweep) is None
-    before = run_steps_kernel.launches
+    before = trace.counters()
     pst = run_block_sweep_uniforms(sweep, replicate(spec, state, B),
                                    torch.from_numpy(U), recalibrate=True)
-    assert run_steps_kernel.launches == before
+    assert build.launch_counts(before)["stepg"] == 0
 
     def one(act, u):
         s = _with_activity(sysm.spec, act)
