@@ -40,11 +40,16 @@ the plain path otherwise, and dispatch_report says which. The device is
 decided only in the wrappers: for tensors on the CPU they run their plain
 torch version; for a CUDA tensor they launch the kernel or raise (there is
 no fallback). ``use_block_kernel``, ``use_step_kernel`` and
-``use_resync_kernel`` combine the two for a given device.
+``use_resync_kernel`` combine the two for a given device. A spec inside
+the gates whose sites reach past the kernels' minimum image is refused
+where it is loaded onto the card (``require_image_domain``).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -74,6 +79,65 @@ def _table_limit_failure(spec) -> str | None:
     if max(spec.kmax_xyz + spec.kmax2_xyz) > 31:
         return "k-grid order above 31"
     return None
+
+
+@functools.cache
+def image_thresholds(length: float) -> tuple[float, float, float]:
+    """(t1, t2, t3): the largest f32 t at which rintf(t / L) is at most 0,
+    1 and 2, for the f32 box length L (the f32 division rounded half to
+    even, as in dx - L rintf(dx / L)). Correctly rounded division is
+    monotone, so for 0 <= x <= t3 the count of t1 and t2 that x exceeds is
+    that integer, and odd in x: the kernels' minimum image without a division
+    (csrc/common.cuh min_image_axis) takes t1 and t2 and gives the bits of
+    dx - L rintf(dx / L) for |dx| <= t3 (fl(|dx| / L) <= 2.5). Found by
+    stepping with nextafter from L (k + 0.5)."""
+    L = np.float32(length)
+    up, down = np.float32(np.inf), np.float32(0.0)
+
+    def n(t):
+        return float(np.rint(np.float32(t) / L))
+
+    out = []
+    for k in (0, 1, 2):
+        t = np.float32(L * np.float32(k + 0.5))
+        while n(t) > k:
+            t = np.nextafter(t, down)
+        while n(np.nextafter(t, up)) <= k:
+            t = np.nextafter(t, up)
+        out.append(float(t))
+    return tuple(out)
+
+
+# the largest pair reach the gate takes, in box lengths: half a box inside
+# the thresholds' exact domain (t3 is some 2.5 L), room for the f32 drift
+# of positions over a run
+IMAGE_REACH_BOXES = 2.0
+
+
+def image_failure(spec) -> str | None:
+    """Why the kernels' minimum image does not take the spec, or None: on
+    an orthorhombic box every dx between two sites (spec.image_reach) must
+    lie within IMAGE_REACH_BOXES box lengths, inside the domain of the
+    image thresholds (image_thresholds); the triclinic 27-image search has
+    no such bound."""
+    if spec.is_triclinic:
+        return None
+    for axis, reach, length in zip("xyz", spec.image_reach, spec.host_box):
+        if reach > IMAGE_REACH_BOXES * length:
+            return (f"sites {reach:.6g} A apart along {axis}, beyond "
+                    f"{IMAGE_REACH_BOXES:g} box lengths ({length:.6g} A): "
+                    f"outside the kernels' minimum image")
+    return None
+
+
+def require_image_domain(spec) -> None:
+    """Raise ValueError for a spec the kernels take (step_gate_failure is
+    None) whose sites reach past their minimum image (image_failure). It is
+    refused where it is loaded onto the card (system.to_device), and not
+    routed to the plain path, which would run it many times slower."""
+    why = image_failure(spec)
+    if why is not None and step_gate_failure(spec) is None:
+        raise ValueError(f"{why}; wrap the sites into the box")
 
 
 def step_gate_failure(spec) -> str | None:

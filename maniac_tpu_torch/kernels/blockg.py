@@ -18,7 +18,7 @@ import torch
 from ..mc.driver import steps_plain
 from ..system import SimState, SystemSpec
 from ..utils import trace
-from . import block_gate_failure, build
+from . import block_gate_failure, build, image_failure
 from .stepg import RES_KEYS, STATE_KEYS, step_tables
 
 
@@ -33,7 +33,7 @@ def run_block_kernel(spec: SystemSpec, states: SimState, uniforms) -> SimState:
 
 def _launch(spec, states, uniforms):
     """Check the inputs, allocate the outputs and launch csrc/blockg.cu."""
-    failure = block_gate_failure(spec)
+    failure = block_gate_failure(spec) or image_failure(spec)
     if failure is not None:
         raise ValueError(f"the block kernel does not take this spec: "
                          f"{failure}")

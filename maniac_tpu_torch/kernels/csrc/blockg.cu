@@ -66,7 +66,10 @@
 // water boxes 5%).
 // Framework pairs loop over all frozen sites with minimum image, as the
 // oracle does (blockg's ghost-sorted windows were a TPU layout). erfc is
-// libdevice erfcf (common.cuh).
+// libdevice erfcf (common.cuh). A pair takes no division and, off the
+// frozen prefix, no branch region (common.cuh min_image_axis, pair_terms):
+// the same bits, and on SPC/E water (750 waters, a 30 A box) a 400-step
+// block at B = 1024 50.6 -> 43.6 ms (NVIDIA H100 80GB HBM3, 700 W).
 #include "step_body.cuh"
 
 namespace {
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   stage_image_shifts<TRICLINIC>(a.img, shifts);
   const float tstep = a.tstep[b], rstep = a.rstep[b];
   const float L[3] = {a.boxl[0], a.boxl[1], a.boxl[2]};
-  const MinImage<TRICLINIC> img{TRICLINIC ? shifts : L};
+  const MinImage<TRICLINIC> img = make_min_image<TRICLINIC>(a, L, shifts);
   Proposal pr;
   __syncthreads();
   SECTION_MARK(-1);

@@ -24,6 +24,8 @@
 
 #include <cuda_runtime.h>
 
+#include "prims.cuh"
+
 #define MANIAC_ERR_TABLES 100001   // argument table lengths do not match
 #define MANIAC_ERR_SHAPE 100002    // a size the kernel does not take
 
@@ -51,31 +53,43 @@ __device__ __forceinline__ void phase_powers(float theta, int k, float2* out) {
   }
 }
 
-// Squared minimum-image distance in an orthorhombic box (rintf rounds half
-// to even, like jnp.round / torch.round).
-__device__ __forceinline__ float min_image_r2(float dx, float dy, float dz,
-                                              const float* L) {
-  dx -= L[0] * rintf(dx / L[0]);
-  dy -= L[1] * rintf(dy / L[1]);
-  dz -= L[2] * rintf(dz / L[2]);
-  return dx * dx + dy * dy + dz * dz;
+// One axis of the orthorhombic minimum image, dx - L rintf(dx / L) (rintf
+// rounds half to even, like jnp.round / torch.round), without the
+// division. Correctly rounded division is monotone, so rintf(dx / L) is a
+// step function of |dx|, odd in dx: 0 up to t1, 1 up to t2 and 2 up to t3,
+// the largest floats where it is at most 0, 1 and 2 (kernels.
+// image_thresholds, found on the host). For |dx| <= t3, where the step
+// gate keeps every pair (kernels.image_failure), the count of thresholds
+// |dx| exceeds, with dx's sign, is that integer, and L n is exact: the same
+// bits as the division's form (csrc/vpu.cu's check scans every f32 of the
+// domain).
+__device__ __forceinline__ float min_image_axis(float dx, float L, float t1,
+                                                float t2) {
+  const float a = fabsf(dx);
+  const float n = (a > t1 ? 1.f : 0.f) + (a > t2 ? 1.f : 0.f);
+  return dx - L * copysignf(n, dx);
 }
 
 // The minimum image of the box kind, as a functor the energy core is
 // templated on (physics/pbc.py::min_image_dist2): MinImage<false> holds
-// the three box lengths of an orthorhombic box; MinImage<true> holds the
-// 27 lattice image shifts of a triclinic box (spec.image_shifts, staged in
-// shared memory once per CTA by stage_image_shifts) and takes the brute-
-// force minimum of |d + s|^2 over them, in the order of the table, as
-// maniac_tpu/kernels/blockg.py does. The caller floors r2 at 1e-18 after
+// the three box lengths of an orthorhombic box and their thresholds
+// (min_image_axis); MinImage<true> holds the 27 lattice image shifts of a
+// triclinic box (spec.image_shifts, staged in shared memory once per CTA
+// by stage_image_shifts) and takes the brute-force minimum of |d + s|^2
+// over them, in the order of the table, as maniac_tpu/kernels/blockg.py
+// does. make_min_image builds either. The caller floors r2 at 1e-18 after
 // the minimum.
 constexpr int NIMG = 27;
 
 template <bool TRICLINIC>
 struct MinImage {
-  const float* L;  // (3,) box lengths
+  const float* L;      // (3,) box lengths
+  float t1[3], t2[3];  // per axis, the thresholds (the kernel's float table)
   __device__ __forceinline__ float r2(float dx, float dy, float dz) const {
-    return min_image_r2(dx, dy, dz, L);
+    dx = min_image_axis(dx, L[0], t1[0], t2[0]);
+    dy = min_image_axis(dy, L[1], t1[1], t2[1]);
+    dz = min_image_axis(dz, L[2], t1[2], t2[2]);
+    return dx * dx + dy * dy + dz * dz;
   }
 };
 
@@ -93,6 +107,19 @@ struct MinImage<true> {
     return best;
   }
 };
+
+// The box's minimum image: L the box lengths and a's thresholds, or the
+// staged image shifts of a triclinic box.
+template <bool TRICLINIC, class Args>
+__device__ __forceinline__ MinImage<TRICLINIC> make_min_image(
+    const Args& a, const float* L, const float* shifts) {
+  if constexpr (TRICLINIC) {
+    return MinImage<true>{shifts};
+  } else {
+    return MinImage<false>{L, {a.img_t1[0], a.img_t1[1], a.img_t1[2]},
+                           {a.img_t2[0], a.img_t2[1], a.img_t2[2]}};
+  }
+}
 
 // Copy the 27 image shifts into shared memory (triclinic only: the kernels
 // give them room as __shared__ float[TRICLINIC ? 3 * NIMG : 1]; the caller
@@ -251,6 +278,82 @@ __device__ __forceinline__ void footprint_phase_tables(
   }
 }
 
+// The terms of one pair, footprint atom f of side SIDE and site s at (x,
+// y, z) with charge qs and LJ row entries eps, sig2 (f's class): LJ cut at
+// cut_sq into part[SIDE], the real-space Coulomb into part[2 + SIDE]. The
+// reciprocal and the root are prims.cuh's branch-free forms: r2 is
+// floored at 1e-18 and bounded by the box, so it and its reciprocal lie
+// in their domains and they give the bits of 1.f / r2 and sqrtf. Each
+// partial takes its term by a select, part or the fma that added the term
+// (nvcc's contraction of part += 4 eps (sr6^2 - sr6) and of part += qq
+// erfc inv_r): the bits of a conditional add, with no branch, so that ptxas
+// interleaves the two pairs of an iteration. Only on the frozen prefix
+// (FROZEN), where few pairs lie within rcut2, erfc stays behind its branch,
+// which whole warps skip: one branch-free body for both made the
+// flagship's block 6% slower (PERF.md).
+template <int SIDE, bool FROZEN, class Args, class Image>
+__device__ __forceinline__ void pair_terms(
+    const Args& a, const Footprint& fp, const Image& img, int f, float x,
+    float y, float z, float qs, float eps, float sig2, float cut_sq,
+    float rc2_sq, float (&part)[NRED]) {
+  float r2 = img.r2(x - fp.p[f][0], y - fp.p[f][1], z - fp.p[f][2]);
+  r2 = fmaxf(r2, 1e-18f);
+  const float inv_r2 = prim_rcp(r2);
+  const float inv_r = prim_sqrt(inv_r2);
+  const float r = r2 * inv_r;
+  const float sr2 = sig2 * inv_r2;
+  const float sr6 = sr2 * sr2 * sr2;
+  const float lj = fmaf(fmaf(sr6, sr6, -sr6), 4.f * eps, part[SIDE]);
+  part[SIDE] = eps != 0.f && r2 < cut_sq ? lj : part[SIDE];
+  const float qq = fp.q[f] * qs;
+  if constexpr (FROZEN) {
+    if (qq != 0.f && r2 < rc2_sq)
+      part[2 + SIDE] = fmaf(qq * erfcf(a.alpha2 * r), inv_r,
+                            part[2 + SIDE]);
+  } else {
+    const float c = fmaf(qq * erfcf(a.alpha * r), inv_r, part[2 + SIDE]);
+    part[2 + SIDE] = qq != 0.f && (!a.gg_cut || r2 < a.gg_rcut_sq)
+                         ? c : part[2 + SIDE];
+  }
+}
+
+// The pairs of one live site s with the footprint, into part: atom k of
+// the old side (f = k) and of the new side (f = A + k) in one iteration,
+// two independent pairs where both sides move (a translation, a rotation,
+// a swap), else the one (warp-uniform: the footprint is the CTA's). Each
+// partial still takes its side's atoms in order. The sides share their LJ
+// classes but in a swap, so the site's LJ row entries are read once a
+// class, sig2 only where eps is not 0.
+template <bool FROZEN, class Args, class Image>
+__device__ __forceinline__ void site_pairs(
+    const Args& a, const Footprint& fp, const Image& img, int s, float x,
+    float y, float z, float qs, float cut_sq, float rc2_sq,
+    float (&part)[NRED]) {
+  const int S = a.S, A = a.A_act;
+  for (int k = 0; k < A; ++k) {
+    const bool m0 = fp.m[k], m1 = fp.m[A + k];
+    if (!m0 && !m1) continue;
+    const int c0 = fp.cls[k], c1 = fp.cls[A + k];
+    const bool same = m0 && c1 == c0;
+    const float e0 = m0 ? a.eps_site[c0 * S + s] : 0.f;
+    const float e1 = !m1 ? 0.f : same ? e0 : a.eps_site[c1 * S + s];
+    const float g0 = e0 != 0.f ? a.sig2_site[c0 * S + s] : 0.f;
+    const float g1 = e1 == 0.f ? 0.f : same ? g0 : a.sig2_site[c1 * S + s];
+    if (m0 && m1) {
+      pair_terms<0, FROZEN>(a, fp, img, k, x, y, z, qs, e0, g0, cut_sq,
+                            rc2_sq, part);
+      pair_terms<1, FROZEN>(a, fp, img, A + k, x, y, z, qs, e1, g1, cut_sq,
+                            rc2_sq, part);
+    } else if (m0) {
+      pair_terms<0, FROZEN>(a, fp, img, k, x, y, z, qs, e0, g0, cut_sq,
+                            rc2_sq, part);
+    } else {
+      pair_terms<1, FROZEN>(a, fp, img, A + k, x, y, z, qs, e1, g1, cut_sq,
+                            rc2_sq, part);
+    }
+  }
+}
+
 // This thread's partial sums of the step's energy terms other than the far
 // field, part = [lj_old, lj_new, coul_old, coul_new, 0, 0, d_recip]: the
 // pair pass over the live sites (LJ cut at cutoff; real-space Coulomb
@@ -277,32 +380,10 @@ __device__ __forceinline__ void footprint_partials(
     if (mol == fp.ex_a || mol == fp.ex_b) continue;
     const float x = pos[s], y = pos[S + s], z = pos[2 * S + s];
     const float qs = a.site_q[s];
-    const bool frozen = s < a.S_frozen;
-#pragma unroll
-    for (int side = 0; side < 2; ++side) {
-      for (int f = side * a.A_act; f < (side + 1) * a.A_act; ++f) {
-        if (!fp.m[f]) continue;
-        float r2 = img.r2(x - fp.p[f][0], y - fp.p[f][1], z - fp.p[f][2]);
-        r2 = fmaxf(r2, 1e-18f);
-        const float inv_r2 = 1.f / r2;
-        const float inv_r = sqrtf(inv_r2);
-        const float r = r2 * inv_r;
-        const float eps = a.eps_site[(size_t)fp.cls[f] * S + s];
-        if (eps != 0.f && r2 < cut_sq) {
-          const float sr2 = a.sig2_site[(size_t)fp.cls[f] * S + s] * inv_r2;
-          const float sr6 = sr2 * sr2 * sr2;
-          part[side] += 4.f * eps * (sr6 * sr6 - sr6);
-        }
-        const float qq = fp.q[f] * qs;
-        if (qq == 0.f) continue;
-        if (frozen) {
-          if (r2 < rc2_sq)
-            part[2 + side] += qq * erfcf(a.alpha2 * r) * inv_r;
-        } else if (!a.gg_cut || r2 < a.gg_rcut_sq) {
-          part[2 + side] += qq * erfcf(a.alpha * r) * inv_r;
-        }
-      }
-    }
+    if (s < a.S_frozen)
+      site_pairs<true>(a, fp, img, s, x, y, z, qs, cut_sq, rc2_sq, part);
+    else
+      site_pairs<false>(a, fp, img, s, x, y, z, qs, cut_sq, rc2_sq, part);
   }
 
   SECTION_MARK(2);  // pair pass

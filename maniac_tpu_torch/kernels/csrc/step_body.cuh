@@ -90,6 +90,8 @@ enum StepInt {
 enum StepFloat {
   SF_ALPHA, SF_ALPHA2, SF_CUTOFF, SF_RCUT2, SF_GG_RCUT_SQ, SF_TEMP,
   SF_VOLUME, SF_FW_D0, SF_COULOMB_K, SF_TWO_PI, SF_PROB_CD, SF_SMALL_SQ,
+  // per axis, the minimum image's thresholds (kernels.image_thresholds)
+  SF_IMG_T1X, SF_IMG_T1Y, SF_IMG_T1Z, SF_IMG_T2X, SF_IMG_T2Y, SF_IMG_T2Z,
   SF_COUNT
 };
 
@@ -116,6 +118,7 @@ struct StepArgs {
   int has_res, Sres, Mres1;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi, prob_cd, small_sq;
+  float img_t1[3], img_t2[3];
 };
 
 // Fill the shared fields of a from the tables; false if a size is one the
@@ -204,6 +207,10 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   a.two_pi = f[SF_TWO_PI];
   a.prob_cd = f[SF_PROB_CD];
   a.small_sq = f[SF_SMALL_SQ];
+  for (int i = 0; i < 3; ++i) {
+    a.img_t1[i] = f[SF_IMG_T1X + i];
+    a.img_t2[i] = f[SF_IMG_T2X + i];
+  }
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
   return !(a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
            || a.n_active < 1 || a.n_active > a.R || kmax >= JMAX

@@ -56,7 +56,7 @@ __global__ void __launch_bounds__(STEP_THREADS, 4) stepg_kernel(Args a) {
               ss);
   stage_image_shifts<TRICLINIC>(a.img, shifts);
   const float L[3] = {a.boxl[0], a.boxl[1], a.boxl[2]};
-  const MinImage<TRICLINIC> img{TRICLINIC ? shifts : L};
+  const MinImage<TRICLINIC> img = make_min_image<TRICLINIC>(a, L, shifts);
   Proposal pr;
   __syncthreads();
 

@@ -187,12 +187,22 @@ enum CpassInt { KI_R, KI_C, KI_N, KI_TRANSPOSED, KI_COUNT };
 // The exhaustive check of prims.cuh: the f32 bit patterns lo, lo + stride,
 // ... (count of them, positive floats, so the order of the patterns is the
 // order of the values) through a branch-free primitive and the expression
-// it replaces, as nvcc builds the latter for the kernels. A grid-strided
+// it replaces, as nvcc builds the latter for the kernels. The minimum
+// image's check (PR_IMAGE, after PrimId's entries) scans alike: the
+// orthorhombic minimum image of one axis (common.cuh min_image_axis) for
+// a box length and its thresholds against dx - L rintf(dx / L), at each
+// pattern and at its negative (two values a pattern). A grid-strided
 // loop a thread, the thread's tallies reduced over its warp, one atomic a
 // warp. Bound: operations (the two sides and the compare a value).
 enum PrimId { PR_RCP, PR_SQRT, PR_RSQRT, PR_COUNT };
+constexpr int PR_IMAGE = PR_COUNT;
+enum CheckFloat { QF_L, QF_T1, QF_T2, QF_COUNT };  // PR_IMAGE's table
 constexpr unsigned ONE_BITS = 0x3f800000u;   // 1.0f
 constexpr int CHECK_CTAS = 1056;             // 8 CTAs of 256 an SM
+
+struct ImageAxis {
+  float L, t1, t2;
+};
 
 template <int P>
 __device__ __forceinline__ void prim_pair(float y, float& a, float& b) {
@@ -212,11 +222,12 @@ __device__ __forceinline__ void prim_pair(float y, float& a, float& b) {
 
 // out: [mismatches, values checked, the largest mismatching pattern below
 // 1.0f, the smallest at or above it]; the wrapper sets [0, 0, 0,
-// 0xffffffff]
-template <int P>
-__global__ void __launch_bounds__(THREADS)
-prim_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
-                  unsigned long long* __restrict__ out) {
+// 0xffffffff]. miss(y) is the count of pattern y's V values that differ.
+template <int V, class Miss>
+__device__ __forceinline__ void check_scan(unsigned lo,
+                                           unsigned long long count,
+                                           unsigned stride, Miss miss,
+                                           unsigned long long* out) {
   unsigned long long bad = 0, seen = 0;
   unsigned below = 0u, above = 0xffffffffu;
   const unsigned long long step =
@@ -225,11 +236,10 @@ prim_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
            (unsigned long long)blockIdx.x * blockDim.x + threadIdx.x;
        k < count; k += step) {
     const unsigned bits = lo + (unsigned)(k * stride);
-    float a, b;
-    prim_pair<P>(__uint_as_float(bits), a, b);
-    ++seen;
-    if (__float_as_uint(a) != __float_as_uint(b)) {
-      ++bad;
+    const int m = miss(__uint_as_float(bits));
+    seen += V;
+    if (m) {
+      bad += m;
       if (bits < ONE_BITS)
         below = max(below, bits);
       else
@@ -251,15 +261,54 @@ prim_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
   }
 }
 
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+prim_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
+                  unsigned long long* __restrict__ out) {
+  check_scan<1>(lo, count, stride, [](float y) {
+    float a, b;
+    prim_pair<P>(y, a, b);
+    return (int)(__float_as_uint(a) != __float_as_uint(b));
+  }, out);
+}
+
+__global__ void __launch_bounds__(THREADS)
+image_check_kernel(unsigned lo, unsigned long long count, unsigned stride,
+                   ImageAxis im, unsigned long long* __restrict__ out) {
+  check_scan<2>(lo, count, stride, [im](float y) {
+    int bad = 0;
+#pragma unroll
+    for (int sign = 0; sign < 2; ++sign) {
+      const float v = sign ? -y : y;
+      const float a = min_image_axis(v, im.L, im.t1, im.t2);
+      const float b = v - im.L * rintf(v / im.L);
+      bad += __float_as_uint(a) != __float_as_uint(b);
+    }
+    return bad;
+  }, out);
+}
+
 enum CheckPtr { QP_OUT, QP_COUNT };
 enum CheckInt { QI_PRIM, QI_LO, QI_VALUES, QI_STRIDE, QI_COUNT };
+
+int check_blocks(unsigned long long count) {
+  const unsigned long long need = (count + THREADS - 1) / THREADS;
+  return need < CHECK_CTAS ? (int)need : CHECK_CTAS;
+}
 
 template <int P>
 int launch_check(unsigned lo, unsigned long long count, unsigned stride,
                  unsigned long long* out, cudaStream_t s) {
-  const unsigned long long need = (count + THREADS - 1) / THREADS;
-  const int blocks = need < CHECK_CTAS ? (int)need : CHECK_CTAS;
-  prim_check_kernel<P><<<blocks, THREADS, 0, s>>>(lo, count, stride, out);
+  prim_check_kernel<P><<<check_blocks(count), THREADS, 0, s>>>(lo, count,
+                                                               stride, out);
+  return (int)cudaGetLastError();
+}
+
+int launch_image_check(unsigned lo, unsigned long long count,
+                       unsigned stride, ImageAxis im,
+                       unsigned long long* out, cudaStream_t s) {
+  image_check_kernel<<<check_blocks(count), THREADS, 0, s>>>(lo, count,
+                                                             stride, im, out);
   return (int)cudaGetLastError();
 }
 
@@ -320,8 +369,11 @@ extern "C" int cpass_launch(void* const* ptrs, int nptr, const int* ints,
 extern "C" int prim_check_launch(void* const* ptrs, int nptr, const int* ints,
                                  int nint, const float* floats, int nfloat,
                                  void* stream) {
-  (void)floats;
-  if (nptr != QP_COUNT || nint != QI_COUNT || nfloat != 0)
+  // the float table: the minimum image's box length and thresholds, none
+  // for a primitive of prims.cuh
+  const bool image = nint == QI_COUNT && ints[QI_PRIM] == PR_IMAGE;
+  if (nptr != QP_COUNT || nint != QI_COUNT
+      || nfloat != (image ? QF_COUNT : 0))
     return MANIAC_ERR_TABLES;
   const int lo = ints[QI_LO], count = ints[QI_VALUES];
   const int stride = ints[QI_STRIDE];
@@ -333,6 +385,10 @@ extern "C" int prim_check_launch(void* const* ptrs, int nptr, const int* ints,
     case PR_RCP: return launch_check<PR_RCP>(l, count, st, out, s);
     case PR_SQRT: return launch_check<PR_SQRT>(l, count, st, out, s);
     case PR_RSQRT: return launch_check<PR_RSQRT>(l, count, st, out, s);
+    case PR_IMAGE:
+      return launch_image_check(
+          l, count, st, ImageAxis{floats[QF_L], floats[QF_T1], floats[QF_T2]},
+          out, s);
     default: return MANIAC_ERR_SHAPE;
   }
 }

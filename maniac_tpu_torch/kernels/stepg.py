@@ -26,7 +26,7 @@ from ..mc.driver import steps_plain
 from ..mc.moves import N_UNIFORMS, _core_plain
 from ..system import SimState, SystemSpec
 from ..utils import trace
-from . import build, step_gate_failure
+from . import build, image_failure, image_thresholds, step_gate_failure
 from .resync import _check
 
 step_core_plain = _core_plain
@@ -92,13 +92,15 @@ def step_tables(spec: SystemSpec, states: SimState, uniforms,
     else:
         fw, kmax2, fw_d0, n_far_tiles = [0, 0], (0, 0, 0), 0.0, 0
     sc = spec.host_scalars
+    thresholds = [image_thresholds(L) for L in spec.host_box]
     ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
             spec.n_active, JzP, JxyP, *spec.kmax_xyz, *kmax2, n_far_tiles,
             int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
             int(spec.is_triclinic)]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
-              fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL]
+              fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL,
+              *(t[0] for t in thresholds), *(t[1] for t in thresholds)]
     return ptrs, ints, floats
 
 
@@ -117,7 +119,7 @@ def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     """Check the inputs once, clone the state once and launch csrc/stepg.cu
     once per step on the clone (the tables are the same for every step of
     the block but for the step index)."""
-    failure = step_gate_failure(spec)
+    failure = step_gate_failure(spec) or image_failure(spec)
     if failure is not None:
         raise ValueError(f"the step kernel does not take this spec: "
                          f"{failure}")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import build
+from . import build, image_thresholds
 from .resync import _check
 
 VPU_OPS = ("fma", "mul2", "div", "rsqrt", "sqrt", "exp", "round", "cmpsel",
@@ -102,6 +102,9 @@ PRIM_DOMAINS = {
     "sqrt": (float.fromhex("0x1p-102"), float.fromhex("0x1.fffffep+127")),
     "rsqrt": (float.fromhex("0x1p-126"), float.fromhex("0x1.fffffep+127")),
 }
+# the exhaustive check of the kernels' minimum image without a division
+# (csrc/common.cuh min_image_axis), vpu.cu's PR_IMAGE after PrimId's entries
+IMAGE_PRIM = len(PRIMS)
 _ONE_BITS = 0x3F800000
 _NO_BELOW, _NO_ABOVE = 0, 0xFFFFFFFF
 
@@ -111,20 +114,34 @@ def f32_bits(v: float) -> int:
     return int(np.float32(v).view(np.uint32))
 
 
-def _check_span(name: str, lo, hi, stride: int) -> tuple[int, int]:
+def _scan(what: str, domain, lo, hi, stride: int) -> tuple[int, int]:
     """(first bit pattern, count of patterns) of the scan lo, lo + stride,
-    ..., <= hi over positive f32 values (default: the primitive's
-    domain)."""
-    if name not in PRIMS:
-        raise ValueError(f"unknown primitive {name!r} (one of "
-                         f"{', '.join(PRIMS)})")
-    d_lo, d_hi = PRIM_DOMAINS[name]
+    ..., <= hi over positive f32 values (default: ``domain``)."""
+    d_lo, d_hi = domain
     lo_b = f32_bits(d_lo if lo is None else lo)
     hi_b = f32_bits(d_hi if hi is None else hi)
     if not (0 <= lo_b <= hi_b < 0x7F800000 and stride >= 1):
-        raise ValueError(f"{name}: the scan must cover positive finite "
+        raise ValueError(f"{what}: the scan must cover positive finite "
                          f"floats, lo <= hi, stride >= 1")
     return lo_b, (hi_b - lo_b) // stride + 1
+
+
+def _check_span(name: str, lo, hi, stride: int) -> tuple[int, int]:
+    """The scan of primitive ``name`` (default: its domain)."""
+    if name not in PRIMS:
+        raise ValueError(f"unknown primitive {name!r} (one of "
+                         f"{', '.join(PRIMS)})")
+    return _scan(name, PRIM_DOMAINS[name], lo, hi, stride)
+
+
+def image_domain(length: float) -> tuple[float, float]:
+    """The minimum image's domain of |dx| for the f32 box length: [0, t3]."""
+    return 0.0, image_thresholds(length)[2]
+
+
+def _image_span(length: float, lo, hi, stride: int) -> tuple[int, int]:
+    """The scan of the minimum image (default: image_domain)."""
+    return _scan("image", image_domain(length), lo, hi, stride)
 
 
 def _check_result(vals) -> dict:
@@ -132,6 +149,30 @@ def _check_result(vals) -> dict:
     return {"mismatches": bad, "checked": seen,
             "below": None if below == _NO_BELOW else below,
             "above": None if above == _NO_ABOVE else above}
+
+
+def _check_plain(span, stride: int, device, chunk: int, sides) -> dict:
+    """The tallies of a plain scan: ``sides(y)`` gives the two sides' f32
+    values of the patterns y, one or more values a pattern (stacked)."""
+    lo_b, count = span
+    bad = seen = 0
+    below, above = _NO_BELOW, _NO_ABOVE
+    for k0 in range(0, count, chunk):
+        bits = (lo_b + stride * torch.arange(
+            k0, min(count, k0 + chunk), dtype=torch.int64,
+            device=device)).to(torch.int32)
+        a, b = sides(bits.view(torch.float32))
+        bits = bits.repeat(a.numel() // bits.numel())
+        miss = bits[a.view(torch.int32) != b.view(torch.int32)].to(
+            torch.int64)
+        bad += int(miss.numel())
+        seen += int(bits.numel())
+        lo_miss, hi_miss = miss[miss < _ONE_BITS], miss[miss >= _ONE_BITS]
+        if lo_miss.numel():
+            below = max(below, int(lo_miss.max()))
+        if hi_miss.numel():
+            above = min(above, int(hi_miss.min()))
+    return _check_result((bad, seen, below, above))
 
 
 def prim_check_plain(name: str, lo=None, hi=None, stride: int = 1,
@@ -142,29 +183,16 @@ def prim_check_plain(name: str, lo=None, hi=None, stride: int = 1,
     whose f64 result is never an f32 rounding midpoint) and the f32
     expression; rsqrt, an approximation, is the f32 expression both
     sides."""
-    lo_b, count = _check_span(name, lo, hi, stride)
-    bad = 0
-    below, above = _NO_BELOW, _NO_ABOVE
-    for k0 in range(0, count, chunk):
-        bits = (lo_b + stride * torch.arange(
-            k0, min(count, k0 + chunk), dtype=torch.int64,
-            device=device)).to(torch.int32)
-        y = bits.view(torch.float32)
+    def sides(y):
         if name == "rcp":
-            a, b = (1.0 / y.double()).float(), 1.0 / y
-        elif name == "sqrt":
-            a, b = torch.sqrt(y.double()).float(), torch.sqrt(y)
-        else:
-            a = b = torch.rsqrt(y)
-        miss = bits[a.view(torch.int32) != b.view(torch.int32)].to(
-            torch.int64)
-        bad += int(miss.numel())
-        lo_miss, hi_miss = miss[miss < _ONE_BITS], miss[miss >= _ONE_BITS]
-        if lo_miss.numel():
-            below = max(below, int(lo_miss.max()))
-        if hi_miss.numel():
-            above = min(above, int(hi_miss.min()))
-    return _check_result((bad, count, below, above))
+            return (1.0 / y.double()).float(), 1.0 / y
+        if name == "sqrt":
+            return torch.sqrt(y.double()).float(), torch.sqrt(y)
+        r = torch.rsqrt(y)
+        return r, r
+
+    return _check_plain(_check_span(name, lo, hi, stride), stride, device,
+                        chunk, sides)
 
 
 def _prim_check_launch(name: str, out: torch.Tensor, lo, hi,
@@ -192,6 +220,58 @@ def prim_check(name: str, device, lo=None, hi=None,
     out = torch.tensor([0, 0, _NO_BELOW, _NO_ABOVE], dtype=torch.int64,
                        device=device)
     _prim_check_launch(name, out, lo, hi, stride)
+    return _check_result(out.tolist())
+
+
+def image_axis_plain(dx: torch.Tensor, length: float) -> torch.Tensor:
+    """The thresholded minimum image of one axis (csrc/common.cuh
+    min_image_axis) in torch f32: dx - L n, n the count of the thresholds
+    t1, t2 that |dx| exceeds, with dx's sign."""
+    t1, t2, _ = image_thresholds(length)
+    a = dx.abs()
+    n = (a > t1).to(dx.dtype) + (a > t2).to(dx.dtype)
+    return dx - np.float32(length) * torch.copysign(n, dx)
+
+
+def image_check_plain(length: float, lo=None, hi=None, stride: int = 1,
+                      device="cpu", chunk: int = 1 << 24) -> dict:
+    """Plain torch version of ``image_check``: image_axis_plain against
+    dx - L round(dx / L) in f32, at each value and its negative."""
+    L = np.float32(length)
+
+    def sides(y):
+        v = torch.cat([y, -y])
+        return image_axis_plain(v, length), v - L * torch.round(v / L)
+
+    return _check_plain(_image_span(length, lo, hi, stride), stride,
+                        device, chunk, sides)
+
+
+def _image_check_launch(length: float, out: torch.Tensor, lo, hi,
+                        stride: int) -> None:
+    """Launch csrc/vpu.cu's image_check_kernel over the scan into ``out``;
+    the float table is the box length and the thresholds t1, t2."""
+    lo_b, count = _image_span(length, lo, hi, stride)
+    build.launch("prim_check_launch", [out.data_ptr()],
+                 [IMAGE_PRIM, lo_b, count, stride],
+                 [length, *image_thresholds(length)[:2]], out.device)
+
+
+def image_check(length: float, device, lo=None, hi=None,
+                stride: int = 1) -> dict:
+    """The exhaustive check of the kernels' minimum image without a
+    division (csrc/common.cuh min_image_axis) for the f32 box length
+    ``length``: every f32 bit pattern |dx| = lo, lo + stride, ... up to hi
+    (default: image_domain), at both signs, against dx - L rintf(dx / L)
+    as nvcc builds it for the kernels. Returns prim_check's tallies, two
+    values a pattern. On a CUDA device it launches csrc/vpu.cu's
+    image_check_kernel; on the CPU it runs image_check_plain."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return image_check_plain(length, lo, hi, stride)
+    out = torch.tensor([0, 0, _NO_BELOW, _NO_ABOVE], dtype=torch.int64,
+                       device=device)
+    _image_check_launch(length, out, lo, hi, stride)
     return _check_result(out.tolist())
 
 

@@ -64,7 +64,7 @@ _META_FIELDS = (
     "Mtot", "K", "box_kind", "is_triclinic", "dtype_name", "has_reservoir",
     "kmax_xyz", "amp_shape", "fw_split", "S_frozen", "guest_base",
     "kmax2_xyz", "amp2_shape", "site_base_list", "use_table", "gg_cut",
-    "gg_rcut", "res_cap_list", "q_mixed_types")
+    "gg_rcut", "res_cap_list", "q_mixed_types", "image_reach")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -186,6 +186,7 @@ class SystemSpec:
     gg_rcut: float
     res_cap_list: tuple
     q_mixed_types: tuple  # covered types whose molecules differ in charges
+    image_reach: tuple    # per axis, the largest |dx| of two sites
 
     @property
     def dtype(self) -> torch.dtype:
@@ -202,6 +203,11 @@ class SystemSpec:
         return {name: float(getattr(self, name)) for name in (
             "alpha", "alpha2", "cutoff", "rcut2", "temp_K", "volume",
             "fw_d0")}
+
+    @functools.cached_property
+    def host_box(self) -> tuple:
+        """The box lengths (box_diag) as Python floats, read back once."""
+        return tuple(float(x) for x in self.box_diag.cpu())
 
 
 @dataclass
@@ -247,7 +253,8 @@ def disable_tf32() -> None:
 def to_device(obj, device, dtype=None):
     """Move a SystemSpec or SimState to ``device``; floating tensors are
     cast to ``dtype`` (default: keep). Picking a CUDA device turns TF32 off
-    (disable_tf32)."""
+    (disable_tf32); a spec the kernels take there must lie inside their
+    minimum image (kernels.require_image_domain raises otherwise)."""
     device = torch.device(device)
     if device.type == "cuda":
         disable_tf32()
@@ -259,7 +266,11 @@ def to_device(obj, device, dtype=None):
             kw[name] = t.to(device=device)
     if isinstance(obj, SystemSpec) and dtype is not None:
         kw["dtype_name"] = str(dtype).replace("torch.", "")
-    return dataclasses.replace(obj, **kw)
+    out = dataclasses.replace(obj, **kw)
+    if isinstance(obj, SystemSpec) and device.type == "cuda":
+        from .kernels import require_image_domain
+        require_image_domain(out)
+    return out
 
 
 def _grid_columns(ex_sel: np.ndarray, ey_sel: np.ndarray):
@@ -302,6 +313,46 @@ def _charge_table(site_q, base_list, A_list, cap_list, lo):
         offsets.extend(off)
     return (np.asarray(rows, dtype=np.int32).reshape(-1, 5),
             np.asarray(offsets or [0], dtype=np.int32), tuple(mixed))
+
+
+def _image_reach(leaves: dict, pos, com, n_mol, res_offset) -> tuple:
+    """Per axis, the largest |x_i - x_j| of two sites the MC moves can
+    give: the bound on every dx the kernels' minimum image takes, held to
+    the domain of their image thresholds where the spec is loaded onto the
+    card (kernels.require_image_domain). A molecule of an active type lies within ``rad`` of
+    its COM, and the COM within the box [lo, lo + L] (wrapped at load and
+    by a translation, drawn inside it by an insertion); ``rad`` is the
+    largest offset norm of an initial molecule, an insertion template and a
+    reservoir molecule (rotations keep the norms). Sites of inactive types
+    stay where they were loaded. ``leaves`` are the spec's arrays; pos
+    (..., 3, S), com (..., 3, Mtot + 1), n_mol (..., R + 1) and res_offset
+    (..., Sres, 3) the loaded state's."""
+    lo = np.asarray(leaves["bounds"], dtype=np.float64)[:, 0]
+    length = np.asarray(leaves["box_diag"], dtype=np.float64)
+    site_type = np.asarray(leaves["site_type"])
+    active = np.append(np.asarray(leaves["type_active"], dtype=bool), False)
+    S = site_type.shape[0]
+    pos = np.asarray(pos, dtype=np.float64).reshape(-1, 3, S)
+    com = np.asarray(com, dtype=np.float64)
+    com = com.reshape(-1, 3, com.shape[-1])
+    n_mol = np.asarray(n_mol).reshape(pos.shape[0], -1)
+    live = (np.asarray(leaves["site_midx"])[None]
+            < np.take_along_axis(n_mol, site_type[None].repeat(
+                pos.shape[0], 0), axis=1))
+    mobile = live & active[site_type][None]
+    fixed = live & ~active[site_type][None]
+    offsets = pos - com[:, :, np.asarray(leaves["site_mol"])]
+    rows = [np.linalg.norm(offsets, axis=1)[mobile],
+            np.linalg.norm(np.asarray(leaves["type_template_off"])[
+                active[:-1]], axis=-1).ravel(),
+            np.linalg.norm(np.asarray(res_offset).reshape(-1, 3), axis=-1)]
+    rad = max(float(np.max(r, initial=0.0)) for r in rows)
+    lo_all, hi_all = lo - rad, lo + length + rad
+    if fixed.any():
+        placed = pos.transpose(0, 2, 1)[fixed]
+        lo_all = np.minimum(lo_all, placed.min(axis=0))
+        hi_all = np.maximum(hi_all, placed.max(axis=0))
+    return tuple(float(x) for x in hi_all - lo_all)
 
 
 def _spec_from_leaves(leaves: dict) -> SystemSpec:
@@ -361,7 +412,10 @@ def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
 
     Spec leaves the port does not keep (TPU window tables) are ignored; the
     state's PRNG key is carried over; a single-chain state gains B = 1."""
-    spec = _spec_from_leaves(spec_arrays)
+    reach = _image_reach(spec_arrays, state_arrays["pos"],
+                         state_arrays["com"], state_arrays["n_mol"],
+                         state_arrays["res_offset"])
+    spec = _spec_from_leaves({**spec_arrays, "image_reach": reach})
     return (to_device(spec, device, dtype),
             state_from_numpy(state_arrays, device=device, dtype=dtype))
 
@@ -622,10 +676,11 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         site_base_list=tuple(base_list), use_table=use_table,
         gg_cut=bool(gg_cut), gg_rcut=float(gg_rcut),
         res_cap_list=res_cap_list, **fw_meta)
-    spec = _spec_from_leaves({**arrays, **meta})
-
     n_mol0 = np.zeros(R + 1, dtype=np.int32)
     n_mol0[:R] = parsed.n_mol
+    meta["image_reach"] = _image_reach(arrays, pos0.T, com0.T, n_mol0,
+                                       res_offset)
+    spec = _spec_from_leaves({**arrays, **meta})
     state = _state_from_arrays(dict(
         com=com0.T, pos=pos0.T, n_mol=n_mol0,
         amp_re=np.zeros(ewald.grid2_shape), amp_im=np.zeros(ewald.grid2_shape),

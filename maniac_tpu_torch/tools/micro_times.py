@@ -25,7 +25,11 @@ results per SM a clock; for K7's nine chains also the pass's floor in ms
 the card's maximum SM clock) and the share of it the device-paced time
 reaches; for T's f32 kernel, which has no loop, its instructions a value
 by pipe (threefry_mix) and the floor they give at the main path's (1024,
-400, 21), where chip_smoke.py phase 13b times it. When it times K6 it
+400, 21), where chip_smoke.py phase 13b times it; for the no-split block
+kernel (blockg_kernel<false,false,false>, K2's form on water boxes), each
+innermost loop that takes a root (MUFU.RSQ: the pair pass and the
+intramolecular terms) with its instructions, roots, branch regions (BSSY)
+and MUFU operations. When it times K6 it
 also reads the SM clock and power draw while K6 runs. A run that builds
 the library prints the K6 and K8 kernels' registers and spills.
 ``--kernels`` times only the kernels named. ``--prims`` runs the
@@ -54,6 +58,8 @@ from . import card_label, cuda_ms, require_cuda
 from .kernel_times import device_ms
 
 GROWTH_MIN = 1.8
+# the no-split form of the block kernel, as cuobjdump names it
+NO_SPLIT_FN = "blockg_kernelILb0ELb0ELb0E"
 PASSES = 3
 PAIR_VARIANTS = ("cur", "noerfc", "nowrap")
 CPASS_FORMS = ("cpass", "cpassT")
@@ -384,10 +390,25 @@ def chain_op(fn: str):
     return VPU_OPS[int(m.group(1))] if m else None
 
 
+def root_loops(insns) -> list:
+    """[(start, end, instructions, roots, branch regions, {MUFU op:
+    count})] of the innermost loops that take a root (MUFU.RSQ), slow
+    paths left out."""
+    out = []
+    for start, end, ops in innermost_loops(insns):
+        if ops.get("MUFU.RSQ"):
+            mufu = {op: k for op, k in sorted(ops.items())
+                    if op.startswith("MUFU")}
+            out.append((start, end, sum(ops.values()), ops["MUFU.RSQ"],
+                        ops.get("BSSY", 0), mufu))
+    return out
+
+
 def sass_report(out_dir: str) -> tuple[dict, tuple[float, float]]:
-    """cuobjdump -sass of the K6, K7, K8 and T kernels into out_dir, each
-    innermost loop's mix a pair, K7's an application and T's f32 kernel's
-    a value. Returns ({op: (the loop's instructions an application, the
+    """cuobjdump -sass of the K6, K7, K8 and T kernels and of the no-split
+    block kernel into out_dir, each innermost loop's mix a pair, K7's an
+    application, T's f32 kernel's a value and the block kernel's loops
+    with a root (root_loops). Returns ({op: (the loop's instructions an application, the
     issue floor in SM clocks an application)} for K7's chains (their loop
     of the most applications), T's threefry_floor)."""
     from ..kernels import build
@@ -401,7 +422,8 @@ def sass_report(out_dir: str) -> tuple[dict, tuple[float, float]]:
     pair_fns = [f for f in funcs
                 if "cpass_kernel" in f or "gpass_kernel" in f]
     t_fn, = [f for f in funcs if "threefry_kernelIfE" in f]
-    keep = pair_fns + list(chains.values()) + [t_fn]
+    k2_fn, = [f for f in funcs if NO_SPLIT_FN in f]
+    keep = pair_fns + list(chains.values()) + [t_fn, k2_fn]
     blocks = text.split("Function : ")
     (d / "micro_kernels.sass").write_text("".join(
         "Function : " + b for b in blocks[1:]
@@ -437,6 +459,10 @@ def sass_report(out_dir: str) -> tuple[dict, tuple[float, float]]:
                   f"{c} {v:.2f}" for c, v in per.items())
               + f"; slow ops {slow}; {total:.2f} instructions, issue floor "
                 f"{floor:.4f} SM clocks an application", flush=True)
+    for start, end, n, roots, regions, mufu in root_loops(funcs[k2_fn]):
+        print(f"sass K2 {k2_fn} loop 0x{start:x}-0x{end:x}: {n} "
+              f"instructions, {roots} roots ({n / roots:.1f} a root), "
+              f"{regions} branch regions, {mufu}", flush=True)
     every, warp0 = threefry_mix(funcs[t_fn])
     t_floor = threefry_floor(every, warp0)
     print(f"sass T {t_fn}: a value {sum(every.values())} instructions ("
@@ -489,8 +515,9 @@ def main(argv=None) -> int:
         description="K6-K8 on the card, device- and host-paced")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sass", metavar="DIR",
-                    help="write the K6, K7, K8 and T kernels' SASS into DIR "
-                         "and print their loops' instruction mix")
+                    help="write the K6, K7, K8, T and no-split K2 kernels' "
+                         "SASS into DIR and print their loops' instruction "
+                         "mix")
     ap.add_argument("--kernels", nargs="+", choices=("K6", "K7", "K8"),
                     default=("K6", "K7", "K8"), help="time only these")
     ap.add_argument("--prims", action="store_true",

@@ -1,7 +1,7 @@
 """Where the whole-block kernel's time goes, section by section, on the card.
 
-    python -m maniac_tpu_torch.tools.section_split [--system zif|mixed]
-        [--replicas 1024] [--steps 400]
+    python -m maniac_tpu_torch.tools.section_split
+        [--system zif|mixed|spce750] [--replicas 1024] [--steps 400]
 
 Builds an instrumented variant of the kernel library (the same sources
 compiled with -DMANIAC_SECTION_CLOCKS, beside the production build in the
@@ -33,23 +33,31 @@ SECTIONS = ("proposal", "phase tables", "pair pass", "k-space delta",
             "amplitude commit")
 SECTION_REPLICAS = 4096   # csrc/common.cuh
 DEFINES = ("MANIAC_SECTION_CLOCKS",)
-# chip_smoke.py's flagship and bench.py's mixed
+# chip_smoke.py's flagship and bench.py's mixed (capacity 192 a type), and
+# SPC/E water in the shape of the benchmark's spce750: 750 waters at 0.83
+# g/cm^3 (a 30 A box), 10 A cutoff, Ewald tolerance 1e-5, 298 K, capacity
+# 1024, the no-split form
 SYSTEMS = {
     "zif": ("make_zif_like", dict(n_cells=6, a=5.66, n_water=32,
-                                  fugacity=30.0)),
+                                  fugacity=30.0), 192),
     "mixed": ("make_framework_mixed", dict(n_cells=6, a=5.66, n_water=24,
                                            n_dimer=12, cutoff=8.5, tol=1e-5,
-                                           probs=(0.25, 0.15, 0.4, 0.2))),
+                                           probs=(0.25, 0.15, 0.4, 0.2)),
+              192),
+    "spce750": ("make_spce_box", dict(n_water=750, density=0.83,
+                                      cutoff=10.0, tol=1e-5, temp=298.0,
+                                      probs=(0.3, 0.2, 0.5, 0.0),
+                                      fugacity=1128.0), 1024),
 }
 
 
 def _load(system, dev):
     from .. import load_system, systems
-    make, kw = SYSTEMS[system]
+    make, kw, capacity = SYSTEMS[system]
     with tempfile.TemporaryDirectory() as tmp:
         getattr(systems, make)(tmp, **kw)
         return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
-                           f"{tmp}/parameters.inc", capacity=192,
+                           f"{tmp}/parameters.inc", capacity=capacity,
                            dtype=torch.float32, device=dev)
 
 

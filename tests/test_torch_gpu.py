@@ -7,14 +7,17 @@ without the suite's conftest:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import dataclasses
 import functools
 
 import numpy as np
 import pytest
 import torch
 
+from box_lengths import BOX_SYSTEMS, box_lengths
 from maniac_tpu_torch import load_system, replicate, run_block_replicated
-from maniac_tpu_torch.kernels import dispatch_report
+from maniac_tpu_torch.kernels import (IMAGE_REACH_BOXES, dispatch_report,
+                                      image_thresholds)
 from maniac_tpu_torch.kernels.blockg import run_block_kernel
 from maniac_tpu_torch.kernels.gpass import (GPASS_RTOL, GPASS_VARIANTS,
                                             gpass, gpass_plain, gpass_scale)
@@ -23,7 +26,8 @@ from maniac_tpu_torch.kernels.resync import resync_grouped, resync_plain
 from maniac_tpu_torch.kernels.stepg import run_steps_kernel
 from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS, PRIMS,
                                           VPU_OPS, VPU_RTOL, cpass,
-                                          cpass_plain, f32_bits, prim_check,
+                                          cpass_plain, f32_bits, image_check,
+                                          prim_check,
                                           vpu_chain, vpu_chain_plain)
 from maniac_tpu_torch.kernels.threefry import (split_uniform,
                                                split_uniform_plain)
@@ -31,7 +35,7 @@ from maniac_tpu_torch.mc.driver import resync_amplitudes, steps_plain
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
 from maniac_tpu_torch.kernels import build
-from maniac_tpu_torch.system import E_RECIP, E_TOT
+from maniac_tpu_torch.system import E_RECIP, E_TOT, to_device
 from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_framework_water,
                                       make_mixed_reservoir, make_mixed_sizes,
@@ -440,6 +444,46 @@ def test_prim_check_finds_no_mismatch(name):
     assert build.launch_counts(n0)["prim_check"] == 1
     assert res["mismatches"] == 0, res
     assert res["checked"] == f32_bits(hi) - f32_bits(lo) + 1
+
+
+@pytest.mark.parametrize("case", ["30.0", *BOX_SYSTEMS])
+def test_image_check_finds_no_mismatch(case, tmp_path):
+    """The exhaustive check of the kernels' minimum image without a
+    division (csrc/common.cuh min_image_axis): every f32 |dx| <= t3 and its
+    negative give the bits of dx - L rintf(dx / L), for L = 30 and the box
+    lengths of the test and bench systems."""
+    dev = _device()
+    lengths = [30.0] if case == "30.0" else box_lengths(case, tmp_path)
+    for length in lengths:
+        n0 = trace.counters()
+        res = image_check(length, dev)
+        assert build.launch_counts(n0)["prim_check"] == 1
+        assert res["mismatches"] == 0, (length, res)
+        assert res["checked"] == 2 * (
+            f32_bits(image_thresholds(length)[2]) + 1)
+
+
+def test_spec_past_the_image_domain_is_refused_on_the_card(tmp_path):
+    """A spec the kernels take whose sites reach past their minimum image
+    (kernels.image_failure) is refused where it is moved onto the card,
+    and the block and step kernels raise on it: neither the kernels nor
+    the plain path run it there."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=6.0)
+    host = _load(tmp_path, "cpu", 16).spec
+    L = host.host_box[1]
+    reach = (host.image_reach[0], IMAGE_REACH_BOXES * L * 1.01,
+             host.image_reach[2])
+    with pytest.raises(ValueError, match="along y"):
+        to_device(dataclasses.replace(host, image_reach=reach), dev,
+                  torch.float32)
+    sysm = _load(tmp_path, dev, 16)
+    far = dataclasses.replace(sysm.spec, image_reach=reach)
+    states = replicate(sysm.spec, sysm.state, 4)
+    u = _draw(sysm.spec, 4, 2, 5)
+    for run in (run_block_kernel, run_steps_kernel):
+        with pytest.raises(ValueError, match="minimum image"):
+            run(far, states, u)
 
 
 @pytest.mark.parametrize("shape,n", [((128, 1280), 512), ((128, 1280), 1),

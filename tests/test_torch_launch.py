@@ -12,11 +12,13 @@ import ctypes
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from maniac_tpu_torch import load_system, replicate
-from maniac_tpu_torch.kernels import blockg, build, gpass, stepg, vpu
+from maniac_tpu_torch.kernels import (blockg, build, gpass, image_thresholds,
+                                      stepg, vpu)
 from maniac_tpu_torch.mc.driver import draw_uniforms
 from maniac_tpu_torch.parallel.replicas import perturb_activity
 from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
@@ -414,6 +416,31 @@ def test_prim_check_tables_match_the_kernel(stub, name, span):
     assert ptrs == [out.data_ptr()]
     assert ints == [vpu.PRIMS.index(name), lo_b,
                     (hi_b - lo_b) // stride + 1, stride]
+
+
+@pytest.mark.parametrize("span", [(None, None, 1), (1.0, 4.0, 3)],
+                         ids=["domain", "1-4"])
+def test_image_check_tables_match_the_kernel(stub, span):
+    """The minimum image's check against csrc/vpu.cu's enums: the prim
+    check's pointer and int tables with PR_IMAGE (after PrimId's entries),
+    and the float table of the box length and the thresholds t1, t2."""
+    lo, hi, stride = span
+    length = 30.0
+    out = torch.zeros(4, dtype=torch.int64)
+    vpu._image_check_launch(length, out, lo, hi, stride)
+    ptrs, ints, floats = _unpack(stub.calls[-1])
+    qp, qi = _enum("vpu.cu", "CheckPtr"), _enum("vpu.cu", "CheckInt")
+    qf = _enum("vpu.cu", "CheckFloat")
+    t1, t2, t3 = image_thresholds(length)
+    lo_b = vpu.f32_bits(0.0 if lo is None else lo)
+    hi_b = vpu.f32_bits(t3 if hi is None else hi)
+    assert stub.calls[-1][0] == "prim_check_launch"
+    assert (len(ptrs), len(ints), len(floats)) == (
+        qp["QP_COUNT"], qi["QI_COUNT"], qf["QF_COUNT"])
+    assert ptrs == [out.data_ptr()]
+    assert ints == [_enum("vpu.cu", "PrimId")["PR_COUNT"], lo_b,
+                    (hi_b - lo_b) // stride + 1, stride]
+    assert floats == [float(np.float32(x)) for x in (length, t1, t2)]
 
 
 @pytest.mark.parametrize("shape", [(64, 47 * 128), (61, 1000), (1, 1)],

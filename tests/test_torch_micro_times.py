@@ -68,6 +68,16 @@ def test_innermost_loop_leaves_out_the_slow_path():
     assert (s2, e2) == (0x0, 0x20) and ops2["MUFU.EX2"] == 1
 
 
+def test_root_loops_keeps_the_loops_with_a_root():
+    """The block kernel's reader: kern_a's loop takes a root, kern_b's does
+    not; the loop's nine instructions without the slow path, its root, no
+    branch region, and its MUFU operations."""
+    funcs = mt.parse_sass(SASS)
+    assert mt.root_loops(funcs["kern_a"]) == [
+        (0x10, 0xb0, 9, 1, 0, {"MUFU.RCP": 1, "MUFU.RSQ": 1})]
+    assert mt.root_loops(funcs["kern_b"]) == []
+
+
 def test_loop_mix_classes_and_issue_floor():
     """A pair is a loop's MUFU.RSQ (else its MUFU.RCP); the floor is the
     larger of all instructions over 128 and the MUFU and conversion
