@@ -5,8 +5,10 @@ Two references, neither of which imports the program:
 
 * oracle.py, independent code: brute-force float64 sums of the energy
   components and the structure factors under the Fortran reference's
-  definitions, from the configuration's molecule, box, cutoff and Ewald
-  tolerance and the positions. It judges every energy and amplitude.
+  definitions, from the configuration's residue types (the writer's
+  arrays: each type's sites, frozen or active, and the written
+  positions), box, cutoff and Ewald tolerance and the positions. It
+  judges every energy and amplitude.
 * ref/, a frozen copy of the program's plain path: the threefry stream
   and the plain MC step. It replays the judged block step by step.
 
@@ -18,8 +20,15 @@ After the window, on the blocks the window ran last (the traffic's
 * ``capacity_violations``: populations outside [0, capacity] and
   non-finite values, over every replica of the final state; exact.
 * ``stalled_replicas``: replicas whose positions did not change at all
-  in a judged block, over every replica; exact (a sound block of 400
-  steps accepts some hundred moves).
+  over ``stall_blocks`` judged blocks (the traffic's, 1 where it names
+  none: each judged block alone), over every replica; exact (a sound
+  block of 400 steps accepts some hundred moves, while at 50 steps one
+  of 1024 replicas is still by chance in some 5% of runs, so a traffic
+  of short blocks counts over several).
+* ``frozen_moved``: over every replica of the final state, the frozen
+  sites that are not where the writer put them (by more than POS_AGREE_A
+  at the minimum image), and the frozen molecules missing or added;
+  exact (a configuration without frozen types reads 0).
 * ``setup_energy_rel``: the loaded state's energy against the oracle's of
   the written positions (the Ewald set-up and the weights that load_system
   derived all enter).
@@ -42,8 +51,17 @@ After the window, on the blocks the window ran last (the traffic's
 An energy's six components (LJ, reciprocal, real-space, self,
 intramolecular Coulomb, total) are compared one by one, each gap against
 the larger of the oracle's component and the median of its six
-magnitudes. A structure-factor gap is taken against the larger of 1 and
-the largest oracle amplitude of the replica.
+magnitudes, the oracle's energy of the frozen sites alone taken out of
+both first. A structure-factor gap is taken against the larger of 1 and
+the largest oracle amplitude of the replica, the frozen sites' part
+taken out. The gaps are whole; only the scale leaves out what the
+frozen sites alone give, a constant that would otherwise swamp the
+guests' part, where every move is (without frozen sites the scale is
+the oracle's whole energy and amplitudes, as it always was; a row with
+no guest part at all, no guest present, takes each component against the
+larger of it and the mean of the whole row's six magnitudes, which the
+running sums' leftovers of deleted guests are held to). A gap of 0 reads
+0, and one that is not a number, or infinite, reads the largest float.
 """
 
 from __future__ import annotations
@@ -60,8 +78,12 @@ from .ref.system import E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF, E_TOT
 # a replay agrees on positions within this (the JAX package's sentinel
 # rule, maniac_tpu/mc/driver.py::sentinel_passed)
 POS_AGREE_A = 1e-3
-EXACT = ("draw_mismatch", "capacity_violations", "stalled_replicas")
+EXACT = ("draw_mismatch", "capacity_violations", "stalled_replicas",
+         "frozen_moved")
 NUMBERS = ("setup_energy_rel", "replay_diverged", "energy_rel", "amp_rel")
+# a gap that is not a number reads the largest float, as an infinite one
+# does, so that it fails and the result line stays JSON
+WORST = torch.finfo(torch.float64).max
 
 
 def sample_rows(seed: int, B: int, n: int) -> torch.Tensor:
@@ -77,25 +99,34 @@ def components(energy) -> torch.Tensor:
     return energy.double()[..., order]
 
 
-def energy_gaps(energy, ref_energy) -> torch.Tensor:
+def energy_gaps(energy, ref_energy, constant=None) -> torch.Tensor:
     """(n, 6) relative gaps of the program's (n, 6) rows against the
-    oracle's."""
+    oracle's, each against the oracle's row less ``constant`` (the
+    frozen sites' energy alone, (6,); none without frozen sites)."""
     e, r = components(energy), ref_energy.double().to(energy.device)
-    scale = torch.maximum(r.abs(), r.abs().median(dim=1, keepdim=True)
+    part = r if constant is None else r - constant.to(r.device)
+    scale = torch.maximum(part.abs(), part.abs().median(dim=1, keepdim=True)
                           .values)
-    return (e - r).abs() / scale
+    # a row with no guest part (no guest present) against the whole row,
+    # with the mean of its magnitudes (half of them are 0 there)
+    whole = torch.maximum(r.abs(), r.abs().mean(dim=1, keepdim=True))
+    scale = torch.where((scale == 0).all(dim=1, keepdim=True), whole, scale)
+    gap = (e - r).abs()
+    return torch.where(gap == 0, 0.0, gap / scale).nan_to_num(nan=WORST)
 
 
 def amp_gap(st, oracle, ref_re, ref_im) -> float:
     """Largest structure-factor gap at the oracle's modes, each replica's
-    against the larger of 1 and its largest oracle amplitude."""
+    against the larger of 1 and its largest oracle amplitude less the
+    frozen sites' part."""
     modes = oracle.grid_index(st.amp_re.shape[-1])
     re = st.amp_re.flatten(1)[:, modes].double()
     im = st.amp_im.flatten(1)[:, modes].double()
     d = torch.maximum((re - ref_re).abs(), (im - ref_im).abs())
-    top = torch.maximum(ref_re.abs(), ref_im.abs())
+    fw_re, fw_im = (a.to(ref_re.device) for a in oracle.frozen_amp)
+    top = torch.maximum((ref_re - fw_re).abs(), (ref_im - fw_im).abs())
     scale = torch.clamp(top.max(dim=1).values, min=1.0)
-    return float((d.max(dim=1).values / scale).max())
+    return float((d.max(dim=1).values / scale).nan_to_num(nan=WORST).max())
 
 
 def diverged(st, ref_st) -> int:
@@ -129,19 +160,23 @@ def detached(st, idx):
 class Reference:
     """Both references for the cell: ref/ built from the cell's files
     (float32 for the replay, the control's dtype on request) and the
-    oracle for the configuration's molecule, on ``device``."""
+    oracle for the configuration's residue types, on ``device``."""
 
     def __init__(self, files, arrays, config, seed, device):
         self.host_spec, self.host_state = ref.build(
             files["input"], files["data"], files["params"],
             capacity=config["capacity"], seed=seed)
-        if self.host_spec.R != 1:
-            raise ValueError("the oracle takes one molecule type")
         self.device = device
         self.dtype = getattr(torch, config["dtype"])
-        self.arrays = arrays
+        self.residues, box = arrays["residues"], arrays["box"]
+        spec = self.host_spec
+        if ([not t["frozen"] for t in self.residues] != list(
+                spec.active_list) or [len(t["q_e"]) for t in self.residues]
+                != list(spec.A_list)):
+            raise ValueError("the written residue types are not the ones "
+                             "the deck declares")
         args = config["writer_args"]
-        self.oracle = Oracle(config["model"], arrays["L"], args["cutoff_A"],
+        self.oracle = Oracle(self.residues, box, args["cutoff_A"],
                              args["ewald_tolerance"], device)
         self._specs = {}
 
@@ -150,16 +185,39 @@ class Reference:
             self._specs[dtype] = ref.cast(self.host_spec, self.device, dtype)
         return self._specs[dtype]
 
-    def molecules(self, st, row: int) -> torch.Tensor:
-        """(n, A, 3) positions of the live molecules of a state's row."""
-        base = self.host_spec.site_base_list[0]
-        A = self.host_spec.A_list[0]
-        n = int(st.n_mol[row, 0])
-        return st.pos[row, :, base:base + n * A].T.reshape(n, A, 3)
+    def molecules(self, st, row: int) -> list:
+        """[(n, A, 3)] positions of the live molecules of a state's row, one
+        tensor for each active type in type order."""
+        spec = self.host_spec
+        out = []
+        for r in self.oracle.active:
+            base, A = spec.site_base_list[r], spec.A_list[r]
+            n = int(st.n_mol[row, r])
+            out.append(st.pos[row, :, base:base + n * A].T.reshape(n, A, 3))
+        return out
+
+    def frozen_moved(self, st) -> int:
+        """Frozen sites of every replica away from where the writer put
+        them, by more than POS_AGREE_A at the minimum image, and frozen
+        molecules missing or added."""
+        spec, bad = self.host_spec, 0
+        for r, t in enumerate(self.residues):
+            if not t["frozen"]:
+                continue
+            at = torch.as_tensor(t["pos"]).reshape(-1, 3).to(
+                self.device, torch.float64)
+            bad += int((st.n_mol[:, r] != at.shape[0] // spec.A_list[r])
+                       .sum())
+            base = spec.site_base_list[r]
+            p = st.pos[:, :, base:base + at.shape[0]].transpose(1, 2)
+            d = self.oracle.min_image(p.to(self.device, torch.float64) - at)
+            bad += int((d.abs().amax(dim=-1) > POS_AGREE_A).sum())
+        return bad
 
     def loaded_energy(self) -> torch.Tensor:
         """(6,) the oracle's energy of the written positions."""
-        return self.oracle.energies(torch.as_tensor(self.arrays["pos"]))
+        return self.oracle.energies([t["pos"] for t in self.residues
+                                     if not t["frozen"]])
 
     def fresh(self, st):
         """(energies (n, 6), re (n, K), im (n, K)): the oracle's of each
@@ -188,7 +246,7 @@ class Reference:
                 else ref.refresh(spec, st))
 
 
-def judge(drv, recent, reference, n_judged, seed):
+def judge(drv, recent, reference, n_judged, seed, stall_blocks: int = 1):
     """Every number of the comparison for a driver after its window, over
     ``recent``, the (state before, uniforms) of the judged blocks; frees
     the program's state on the way. Returns {name: value}."""
@@ -196,18 +254,23 @@ def judge(drv, recent, reference, n_judged, seed):
     posts = [pre for pre, _ in recent[1:]] + [drv.states]
     idx = sample_rows(seed, drv.B, n_judged)
     blocks = []
-    for (pre, u), post in zip(recent, posts):
+    for i, ((pre, u), post) in enumerate(zip(recent, posts)):
         keys_ref, u_ref = ref.draw(pre.key, u.shape[1], reference.dtype)
         out["draw_mismatch"] += int((u != u_ref).sum()) + int(
             (keys_ref != post.key).sum())
-        out["stalled_replicas"] += int(
-            (post.pos == pre.pos).flatten(1).all(dim=1).sum())
+        # runs of stall_blocks judged blocks, the last one shorter where
+        # the window ran fewer
+        if i % stall_blocks == stall_blocks - 1 or i == len(recent) - 1:
+            first = recent[i - i % stall_blocks][0]
+            out["stalled_replicas"] += int(
+                (post.pos == first.pos).flatten(1).all(dim=1).sum())
         blocks.append((detached(pre, idx), u_ref[idx.to(u_ref.device)]
                        .clone(), detached(post, idx)))
     out["capacity_violations"] = state_faults(drv.spec, drv.states)
+    out["frozen_moved"] = reference.frozen_moved(drv.states)
     loaded = drv.loaded_energy.clone()
     recent.clear()
-    del posts, pre, post, u, u_ref, keys_ref
+    del posts, pre, post, u, u_ref, keys_ref, first
     drv.states = drv.pre = drv.u = None
     gc.collect()
     if torch.cuda.is_available():
@@ -221,15 +284,17 @@ def readings(reference, loaded, blocks, idx, end_of_block):
     candidate's loaded (6,) energy row and, for each judged block, the
     rows (before, uniforms, after) of the judged replicas (the program's,
     or the control's put in its place)."""
+    constant = reference.oracle.frozen_energy
     out = {"setup_energy_rel": float(energy_gaps(
-        loaded[None], reference.loaded_energy()[None]).max()),
+        loaded[None], reference.loaded_energy()[None], constant).max()),
         "replay_diverged": 0, "energy_rel": 0.0, "amp_rel": 0.0}
+    worst = ""
     for pre_rows, u_rows, post_rows in blocks:
         replay = reference.replay(pre_rows, u_rows, end_of_block,
                                   reference.dtype)
         out["replay_diverged"] += diverged(post_rows, replay)
         energies, re, im = reference.fresh(post_rows)
-        gaps = energy_gaps(post_rows.energy, energies)
+        gaps = energy_gaps(post_rows.energy, energies, constant)
         if float(gaps.max()) >= out["energy_rel"]:
             out["energy_rel"] = float(gaps.max())
             row, comp = divmod(int(gaps.argmax()), gaps.shape[1])

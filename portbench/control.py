@@ -36,9 +36,11 @@ CONTROL_BLOCKS = 2      # blocks before the judged ones, the warm-up's among the
 
 
 def control_readings(workload: str, seed: int, device, root=run.ROOT,
-                     blocks: int = CONTROL_BLOCKS) -> dict:
-    """The control's numbers for one seed."""
-    bench = run.read_json(root / "BENCHMARK.json")
+                     blocks: int = CONTROL_BLOCKS, bench=None) -> dict:
+    """The control's numbers for one seed (``bench`` None reads ``root``'s
+    BENCHMARK.json)."""
+    if bench is None:
+        bench = run.read_json(root / "BENCHMARK.json")
     cell, _, config, traffic, _ = run.find_cell(bench, workload, root)
     tmp = tempfile.mkdtemp(prefix="portbench-control-")
     try:

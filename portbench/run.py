@@ -8,7 +8,12 @@ BENCHMARK.json's workload, ``configs/<config>.json`` (written by
 ``writers/<writer>.py``), ``traffic/<traffic>.json`` (driven by
 ``drivers/<driver>.py``), the cell's limits ``limits/<cell>.json`` and,
 with ``--trace 1``, each per-layer metric that lists the cell as
-``metrics/<name>.py``. Set-up is everything from the start of this module
+``metrics/<name>.py``. Where one of those sets ``PROGRAM_SPANS = True``,
+the traced run turns the program's own tracing on from the start
+(maniac_tpu_torch/utils/trace.py) and profiles the window with
+spans.ProgramTracer, so that the Trace the readers get carries the
+program's spans and counters (spans.ProgramTrace); otherwise the program's
+tracing stays off. Set-up is everything from the start of this module
 to the first timed block: imports, the CUDA context, the kernel library
 built or found, the system written and loaded, the drivers' replication,
 one warm-up block. The window then runs whole blocks,
@@ -139,26 +144,46 @@ def host_counts(records):
                   for c in rec) for rec in records]
 
 
-def per_layer(bench, cell_name, tr, root: Path = ROOT) -> dict:
-    """Each per-layer metric that lists the cell, read from the trace;
-    a reader that finds nothing returns None and the metric is left
-    out."""
+def readers(bench, cell_name, root: Path = ROOT) -> list:
+    """(metric entry, reader module) of each per-layer metric that lists
+    the cell."""
+    return [(m, load_module(root / PKG.name / "metrics" / f"{m['name']}.py",
+                            m["name"]))
+            for m in bench["per_layer"]
+            if cell_name in m.get("workloads", [cell_name])]
+
+
+def per_layer(metric_readers, tr) -> dict:
+    """Each metric read from the trace; a reader that finds nothing
+    returns None and the metric is left out."""
     out = {}
-    for m in bench["per_layer"]:
-        if cell_name not in m.get("workloads", [cell_name]):
-            continue
-        value = load_module(root / PKG.name / "metrics"
-                            / f"{m['name']}.py",
-                            m["name"]).read(tr)
+    for m, mod in metric_readers:
+        value = mod.read(tr)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}
     return out
 
 
-def run(args, log=sys.stderr, root: Path = ROOT, device=None) -> dict:
+def program_tracing(on: bool) -> None:
+    """The program's spans and timed counters on, from a clean registry,
+    or off."""
+    from maniac_tpu_torch.utils import trace as program_trace
+    if on:
+        program_trace.reset()
+    program_trace.enable(on)
+
+
+def run(args, log=sys.stderr, root: Path = ROOT, device=None,
+        bench: dict | None = None, program_spans: bool | None = None
+        ) -> dict:
     """One run; ``device`` None looks for the card the cell asks for (the
-    tests pass the CPU and a copy's ``root`` to rehearse the rest)."""
-    bench = read_json(root / "BENCHMARK.json")
+    tests pass the CPU and a copy's ``root`` to rehearse the rest);
+    ``bench`` None reads ``root``'s BENCHMARK.json (a rehearsal passes its
+    own, in memory); ``program_spans`` None turns the program's tracing on
+    where a reader of the cell sets PROGRAM_SPANS (spans.run_traced passes
+    True)."""
+    if bench is None:
+        bench = read_json(root / "BENCHMARK.json")
     cell, _, config, traffic, limits = find_cell(bench, args.workload, root)
     if device is None:
         if not torch.cuda.is_available():
@@ -171,8 +196,15 @@ def run(args, log=sys.stderr, root: Path = ROOT, device=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     device = torch.device(device)
     on_card = device.type == "cuda"
+    metric_readers = readers(bench, args.workload, root) if args.trace \
+        else []
+    if program_spans is None:
+        program_spans = any(getattr(mod, "PROGRAM_SPANS", False)
+                            for _, mod in metric_readers)
     marks = {"start": time.perf_counter() - T0}
     tmp = tempfile.mkdtemp(prefix="portbench-")
+    if program_spans:
+        program_tracing(True)
     try:
         files, arrays = write_files(config, args.seed, tmp, root)
         marks["written"] = time.perf_counter() - T0
@@ -183,7 +215,11 @@ def run(args, log=sys.stderr, root: Path = ROOT, device=None) -> dict:
                              traffic["driver"])
         drv = driver.Driver(ctx)
         marks["driver"] = time.perf_counter() - T0
-        tracer = trace.Tracer(bool(args.trace))
+        if program_spans:
+            from . import spans
+            tracer = spans.ProgramTracer(bool(args.trace))
+        else:
+            tracer = trace.Tracer(bool(args.trace))
         drv.block(tracer.span)                       # warm-up
         program.sync()
         setup_s = time.perf_counter() - T0
@@ -206,19 +242,27 @@ def run(args, log=sys.stderr, root: Path = ROOT, device=None) -> dict:
         setup = dict(drv.setup)
         t0 = time.perf_counter()
         numbers = compare.judge(drv, recent, reference,
-                                int(traffic["judged_replicas"]), args.seed)
+                                int(traffic["judged_replicas"]), args.seed,
+                                int(traffic.get("stall_blocks", 1)))
         log.write(f"# comparison {time.perf_counter() - t0:.1f} s\n")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        if program_spans:
+            program_tracing(False)
     correct, checks = compare.verdict(numbers, limits["limits"])
     if args.trace:
-        dev_ops, spans, win = tracer.read()
-        tr = trace.Trace(device_ops=dev_ops, spans=spans, window=win,
-                         blocks=blocks, B=drv.B, n_steps=drv.n_steps,
-                         records=host_counts(records), setup=setup,
-                         spec=ref_cpu_spec(reference),
-                         state1=reference.host_state)
-        metrics = per_layer(bench, args.workload, tr, root)
+        dev_ops, harness_spans, win = tracer.read()
+        fields = dict(device_ops=dev_ops, spans=harness_spans, window=win,
+                      blocks=blocks, B=drv.B, n_steps=drv.n_steps,
+                      records=host_counts(records), setup=setup,
+                      spec=ref_cpu_spec(reference),
+                      state1=reference.host_state)
+        if program_spans:
+            tr = spans.ProgramTrace(**fields, program=tracer.program,
+                                    counters=tracer.counters)
+        else:
+            tr = trace.Trace(**fields)
+        metrics = per_layer(metric_readers, tr)
     else:
         metrics = {"mc_steps_per_s": {"value": steps / elapsed,
                                       "unit": "steps/s"},

@@ -3,9 +3,11 @@
     python -m portbench.spans --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-One run.run of the cell, as ``python -m portbench.run`` makes it, with the
-program's tracing (maniac_tpu_torch/utils/trace.py) turned on before the
-cell's files are written, so that the set-up's spans record too. The
+One run.run of the cell with its ``program_spans`` on: the program's
+tracing (maniac_tpu_torch/utils/trace.py) turned on before the cell's
+files are written, so that the set-up's spans record too, and the window
+profiled by ProgramTracer, the path that ``python -m portbench.run``
+takes in a cell one of whose readers sets PROGRAM_SPANS. The
 program's counters and the interpreter's garbage collections are read
 over the window. The result line gains ``"program"``: ``launch.host_us``,
 ``launch.host_us_by`` and ``gc`` always, the rest with ``--trace 1``,
@@ -31,9 +33,7 @@ of the tracing).
   queued from that span and the activities by name, per block.
 
 Standard error adds the set-up's spans (seconds by name, nested) with
-``kernels.builds`` and the idle table. The benchmark's own runs never run
-this; it reads the profile through the harness's Tracer and changes no
-file of the benchmark.
+``kernels.builds`` and the idle table.
 """
 
 from __future__ import annotations
@@ -107,17 +107,6 @@ class ProgramTracer(trace.Tracer):
              if e.device_type() != cuda and e.name() in names),
             key=lambda r: (r[1], -r[2]))
         return self.read_out
-
-
-@contextlib.contextmanager
-def program_tracer():
-    """run.run's Tracer replaced by ProgramTracer."""
-    saved = trace.Tracer
-    trace.Tracer = ProgramTracer
-    try:
-        yield
-    finally:
-        trace.Tracer = saved
 
 
 def idle_intervals(t) -> list:
@@ -275,13 +264,7 @@ def run_traced(args, log=sys.stderr, **kw) -> dict:
     """run.run(args, **kw) with the program's tracing on; the result
     gains ``"program"``, with the span readings where ``args.trace``."""
     from maniac_tpu_torch.utils import trace as program_trace
-    program_trace.reset()
-    program_trace.enable(True)
-    try:
-        with program_tracer():
-            result = run.run(args, log=log, **kw)
-    finally:
-        program_trace.enable(False)
+    result = run.run(args, log=log, program_spans=True, **kw)
     tracer = ProgramTracer.last
     for line in setup_lines(program_trace.spans(),
                             program_trace.counters()):
@@ -321,4 +304,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # run.run imports portbench.spans: run that module, whose
+    # ProgramTracer.last is the one the run sets
+    from portbench import spans
+    sys.exit(spans.main())

@@ -17,3 +17,19 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: this test runs on the H100")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def blocks(monkeypatch):
+    """``blocks(n)`` makes an untraced run's window run n blocks, whatever
+    the clock reads: run.window's own loop, one block a call."""
+    from portbench import run
+    window = run.window
+
+    def fix(n):
+        def fixed(drv, tracer, seconds, judged_blocks):
+            out = [window(drv, tracer, 0.0, judged_blocks) for _ in range(n)]
+            return (n, sum(o[1] for o in out), [r for o in out for r in o[2]],
+                    [b for o in out for b in o[3]][-judged_blocks:])
+        monkeypatch.setattr(run, "window", fixed)
+    return fix

@@ -8,13 +8,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from portbench import run
 
 PKG = run.PKG
 # the plain reference and the yardstick's counting
 REFERENCE = [p for p in PKG.rglob("*.py") if "ref" in p.relative_to(PKG)
              .parts] + [PKG / "bounds.py", PKG / "systems.py",
-                        PKG / "oracle.py"] + sorted(
+                        PKG / "oracle.py", PKG / "compare.py",
+                        PKG / "tests" / "framework.py"] + sorted(
                             (PKG / "writers").glob("*.py"))
 
 
@@ -49,19 +52,29 @@ def test_forbidden_names_compare_whole():
                                   "flax"]) == ["flax", "jax", "maniac_tpu"]
 
 
-def test_a_run_loads_no_jax(tmp_path):
-    """A whole rehearsal run in a fresh process, then the modules it
-    loaded, by top-level name."""
+RUNS = {
+    "tiny": "root = tiny.make_copy(Path(TMP)); bench = None\n"
+            "cell = 'tiny_spce.tiny_replicas'\n",
+    "framework": "root, bench = framework.make_copy(Path(TMP), 'small')\n"
+                 "cell = framework.cell_name('fw_mixed', 'small')\n",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(RUNS))
+def test_a_run_loads_no_jax(tmp_path, kind):
+    """A whole rehearsal run in a fresh process (the tiny water box, and
+    the framework with two guest types through the residue writer, the
+    generalised oracle and comparison), then the modules it loaded, by
+    top-level name."""
     code = (
         "import sys, json\n"
         "from pathlib import Path\n"
         "from types import SimpleNamespace\n"
         "from portbench import run\n"
-        "from portbench.tests import tiny\n"
-        f"root = tiny.make_copy(Path({str(tmp_path)!r}))\n"
-        "a = SimpleNamespace(workload='tiny_spce.tiny_replicas', seed=3,\n"
-        "                    seconds=0.1, trace=1)\n"
-        "run.run(a, root=root, device='cpu')\n"
+        "from portbench.tests import framework, tiny\n"
+        f"TMP = {str(tmp_path)!r}\n" + RUNS[kind] +
+        "a = SimpleNamespace(workload=cell, seed=3, seconds=0.1, trace=1)\n"
+        "run.run(a, root=root, device='cpu', bench=bench)\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                          capture_output=True, text=True, timeout=600)

@@ -51,7 +51,9 @@ def place(n_water: int, L: float, model: dict, seed: int) -> np.ndarray:
 
 def write(outdir: str, seed: int, config: dict) -> dict:
     """The deck, data and pair-coefficient files of the configuration;
-    returns {"pos": (n_water, A, 3), "L": box edge} as written."""
+    returns the written arrays in the residue form: {"residues": [the
+    model as one active type, with its "pos" (n_water, A, 3)], "box": the
+    three edges}."""
     args, model = config["writer_args"], config["model"]
     os.makedirs(outdir, exist_ok=True)
     pos = place(args["n_water"], args["L"], model, seed)
@@ -70,4 +72,5 @@ def write(outdir: str, seed: int, config: dict) -> dict:
     _write_inc(f"{outdir}/parameters.inc",
                [(1, 1, eps[0], model["sigma_A"][0]),
                 (2, 2, eps[1], model["sigma_A"][1])])
-    return {"pos": pos, "L": float(args["L"])}
+    return {"residues": [dict(model, frozen=False, pos=pos)],
+            "box": (float(args["L"]),) * 3}
