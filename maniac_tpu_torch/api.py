@@ -77,6 +77,7 @@ def load_system(input_file: str, data_file: str, params_file: str,
             spec, state = build_spec_and_state(deck, parsed, eps, sig, ewald,
                                                reservoir=reservoir,
                                                capacity=capacity)
+        _count_loaded(spec, state)
         with trace.span("load.to_device"):
             spec = to_device(spec, device, dtype)
             state = to_device(state, device, dtype)
@@ -85,6 +86,17 @@ def load_system(input_file: str, data_file: str, params_file: str,
                 state = initialize_state(spec, state)
     return LoadedSystem(deck=deck, parsed=parsed, reservoir=reservoir,
                         ewald=ewald, spec=spec, state=state)
+
+
+def _count_loaded(spec: SystemSpec, state: SimState) -> None:
+    """Counters of what the load built: ``load.frozen_sites`` (live sites of
+    the frozen types), ``load.far_coefficients`` (the far table's nonzero
+    coefficients) and ``load.active_types``."""
+    frozen = sum(int(state.n_mol[0, r]) * spec.A_list[r]
+                 for r in range(spec.R) if not spec.active_list[r])
+    trace.count("load.frozen_sites", frozen)
+    trace.count("load.far_coefficients", int((spec.far_coef != 0).sum()))
+    trace.count("load.active_types", spec.n_active)
 
 
 def _check_consistency(primary: ParsedSystem, reservoir: ParsedSystem,

@@ -46,4 +46,18 @@ def _launch(spec, states, uniforms):
     # blockg.cu's own pointers after the shared ones: the input state
     ptrs += [getattr(states, k).data_ptr() for k in STATE_KEYS + RES_KEYS]
     build.launch("blockg_launch", ptrs, ints, floats, states.pos.device)
+    trace.count(f"blockg.form.{form(spec)}")
     return out
+
+
+def form(spec: SystemSpec) -> str:
+    """The template form of csrc/blockg.cu (<TRICLINIC, MULTI, FAR>) a
+    launch for ``spec`` takes, as its counter ``blockg.form.<form>``
+    names it: the forms' flags joined by ``_`` (``tricl``, ``multi``,
+    ``far``; a triclinic box has no far form), ``single`` for none."""
+    far = (spec.fw_split and not spec.is_triclinic
+           and spec.far_units.shape[0] > 0)
+    flags = [name for name, on in (("tricl", spec.is_triclinic),
+                                   ("multi", spec.n_active >= 2),
+                                   ("far", far)) if on]
+    return "_".join(flags) or "single"

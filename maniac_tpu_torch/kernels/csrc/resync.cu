@@ -6,8 +6,12 @@
 // For each replica b it rebuilds the structure factor
 //   A(k) = fw_amp(k) + sum_{live guest sites s} q_s e^{i k.r_s}
 // on the dense (JzP, JxyP) grid (pad modes, row >= Jz or col_jx < 0, hold
-// fw_amp), then E_RECIP = C 2pi/V sum_k w_k |A(k)|^2, and E_TOT +=
-// E_RECIP_new - E_RECIP_old.
+// fw_amp), then E_RECIP = C 2pi/V sum_k w_k |A(k)|^2. The terms a
+// population fixes are set too: E_SELF and E_INTRA from the populations
+// (a molecule's constants of its type), and a replica without guests
+// takes the frozen sites' own LJ and real-space Coulomb (fw_pair); E_TOT
+// is the sum of the five. Only the guests' pair terms stay running
+// (mc/driver.py::resync_amplitudes_body, the same operations).
 //
 // Bound on the H100: f32 operations on the water boxes (resv, tricl: some
 // 430 charged sites a replica at 2601 real modes), bytes on the framework
@@ -68,6 +72,11 @@ enum ResyncPtr {
                  // molecule, charged atoms per molecule, first entry of
                  // RP_Q_OFFSETS, type
   RP_Q_OFFSETS,  // (n,) i32 charged atoms' offsets within a molecule
+  RP_SELF,       // (R,) f32 self energy of a molecule of each type
+  RP_INTRA,      // (R,) f32 intramolecular energy of a molecule of each
+                 // type (0 for a frozen type)
+  RP_ACTIVE,     // (R,) bool type_active
+  RP_FW_PAIR,    // (2,) f32 the frozen sites' own LJ, real-space Coulomb
   RP_AMP_RE,     // out (B, JzP * JxyP) f32
   RP_AMP_IM,
   RP_ENERGY_OUT, // out (B, 6) f32
@@ -92,6 +101,10 @@ struct ResyncArgs {
   const int* col_jy;
   const int* regions;
   const int* offsets;
+  const float* self_e;
+  const float* intra_e;
+  const bool* active;
+  const float* fw_pair;
   float* amp_re;
   float* amp_im;
   float* energy_out;
@@ -411,8 +424,11 @@ __global__ void __launch_bounds__(MAX_THREADS) resync_kernel(ResyncArgs a) {
   RS_MARK(RS_EPILOGUE);
 }
 
-// E_RECIP and E_TOT of each replica from its tiles' partial sums, in tile
-// order.
+// The energy of each replica from its tiles' partial sums, in tile order
+// (E_RECIP), and from its populations, type after type, a product then a
+// sum (no FMA) as the plain version: E_SELF, E_INTRA; the frozen sites'
+// own pair terms where no guest (a live molecule of an active type) is
+// left; E_TOT the sum of the five.
 __global__ void resync_energy_kernel(ResyncArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
@@ -420,13 +436,28 @@ __global__ void resync_energy_kernel(ResyncArgs a) {
   const float* p = a.partial + (size_t)b * tiles;
   float s = 0.f;
   for (int t = 0; t < tiles; ++t) s += p[t];
-  const float* ein = a.energy_in + 6 * b;
-  float* eout = a.energy_out + 6 * b;
   // recip_energy: sum * COULOMB_K * TWOPI / V, in that order
   const float e_recip = s * a.coulomb_k * a.two_pi / a.volume;
-  for (int i = 0; i < 6; ++i) eout[i] = ein[i];
-  eout[5] = ein[5] + (e_recip - ein[0]);
+  const int* n_mol = a.n_mol + (size_t)b * a.R1;
+  float e_self = 0.f, e_intra = 0.f;
+  int guests = 0;
+  for (int r = 0; r < a.R1 - 1; ++r) {
+    const int n = __ldg(n_mol + r);
+    e_self = __fadd_rn(e_self, __fmul_rn(__ldg(a.self_e + r), (float)n));
+    e_intra = __fadd_rn(e_intra, __fmul_rn(__ldg(a.intra_e + r), (float)n));
+    if (a.active[r]) guests += n;
+  }
+  const float* ein = a.energy_in + 6 * b;
+  float* eout = a.energy_out + 6 * b;
+  const float e_lj = guests ? ein[1] : __ldg(a.fw_pair);
+  const float e_coul = guests ? ein[2] : __ldg(a.fw_pair + 1);
   eout[0] = e_recip;
+  eout[1] = e_lj;
+  eout[2] = e_coul;
+  eout[3] = e_self;
+  eout[4] = e_intra;
+  eout[5] = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(e_recip, e_lj), e_coul),
+                                e_self), e_intra);
 }
 
 }  // namespace
@@ -448,6 +479,10 @@ extern "C" int resync_launch(void* const* ptrs, int nptr, const int* ints,
   a.col_jx = static_cast<const int*>(ptrs[RP_COL_JX]);
   a.col_jy = static_cast<const int*>(ptrs[RP_COL_JY]);
   a.offsets = static_cast<const int*>(ptrs[RP_Q_OFFSETS]);
+  a.self_e = static_cast<const float*>(ptrs[RP_SELF]);
+  a.intra_e = static_cast<const float*>(ptrs[RP_INTRA]);
+  a.active = static_cast<const bool*>(ptrs[RP_ACTIVE]);
+  a.fw_pair = static_cast<const float*>(ptrs[RP_FW_PAIR]);
   a.amp_re = static_cast<float*>(ptrs[RP_AMP_RE]);
   a.amp_im = static_cast<float*>(ptrs[RP_AMP_IM]);
   a.energy_out = static_cast<float*>(ptrs[RP_ENERGY_OUT]);

@@ -611,7 +611,8 @@ __device__ __forceinline__ void mc_step(
     const float delta_e = (e_other_new + e_recip_new)
                           - (e_other_old + e_recip_old);
     const float p_acc = p_accept(pr.pref, delta_e, a.temp);
-    const bool acc = pr.gate && pr.u_acc <= p_acc;
+    // strict, as mc/moves.py: u_acc 0.0 never takes a move of p_acc 0
+    const bool acc = pr.gate && pr.u_acc < p_acc;
 
     // compaction first (t_old's last molecule moves into the freed
     // slot), then the written molecule: new rows win where both apply

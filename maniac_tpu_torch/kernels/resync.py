@@ -5,7 +5,9 @@ resync_pallas_grouped (kernel ``_resyncg_kernel``) and, at B = 1,
 resync_pallas (``_resync_kernel``). For a CUDA state it launches
 csrc/resync.cu; for a CPU state it runs ``resync_plain``, the torch
 synthesis of mc/driver.py::resync_amplitudes_body. Both return the state
-with fresh amplitudes, E_RECIP recomputed and E_TOT adjusted.
+with fresh amplitudes and E_RECIP, E_SELF and E_INTRA from the
+populations, the frozen sites' own pair terms in a replica without
+guests, and E_TOT the sum of the components.
 
 The kernel synthesizes the charged live sites only, read off the spec's
 charge table (``q_regions``, ``q_offsets``: system.py ``_charge_table``),
@@ -111,10 +113,15 @@ def _launch(spec: SystemSpec, states: SimState) -> SimState:
     amp_im = torch.empty_like(amp_re)
     energy = torch.empty_like(states.energy)
     partial = torch.empty((B, tiling.tiles), dtype=f32, device=dev)
+    _check("type_self_energy", spec.type_self_energy, (spec.R,), f32, dev)
+    _check("type_intra_energy", spec.type_intra_energy, (spec.R,), f32, dev)
+    _check("type_active", spec.type_active, (spec.R,), torch.bool, dev)
+    _check("fw_pair_energy", spec.fw_pair_energy, (2,), f32, dev)
     ins = [states.pos, states.n_mol, states.energy, spec.site_q,
            spec.two_pi_Hinv.contiguous(), spec.k_weights, spec.fw_amp_re,
            spec.fw_amp_im, spec.k_col_jx, spec.k_col_jy, spec.q_regions,
-           spec.q_offsets]
+           spec.q_offsets, spec.type_self_energy, spec.type_intra_energy,
+           spec.type_active, spec.fw_pair_energy]
     for t in ins:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("spec tables must be contiguous on the state's "
@@ -128,7 +135,8 @@ def _launch(spec: SystemSpec, states: SimState) -> SimState:
 
 
 def resync_grouped(spec: SystemSpec, states: SimState) -> SimState:
-    """Re-synthesize amplitudes and E_RECIP for every replica."""
+    """Re-synthesize amplitudes and E_RECIP, and set the terms a
+    population fixes, for every replica."""
     if states.pos.device.type == "cpu":
         return resync_plain(spec, states)
     with trace.span("kernels.resync"):

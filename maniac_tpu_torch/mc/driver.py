@@ -15,9 +15,11 @@ from ..constants import (MAX_ROTATION_ANGLE, MAX_TRANSLATION_STEP,
                          MIN_ROTATION_ANGLE, MIN_TRANSLATION_STEP,
                          MIN_TRIALS_FOR_RECALIBRATION, TARGET_ACCEPTANCE,
                          TOL_ACCEPTANCE, TYPE_ROTATION, TYPE_TRANSLATION)
-from ..physics.energy import (active_site_mask, full_amplitudes, recip_energy,
+from ..physics.energy import (active_site_mask, full_amplitudes,
+                              full_intra_energy, recip_energy,
                               site_positions, system_energy)
-from ..system import E_RECIP, E_TOT, SimState, SystemSpec
+from ..system import (E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF, E_TOT,
+                      SimState, SystemSpec)
 from ..utils import trace
 from .moves import _core_plain, mc_step_u
 
@@ -116,16 +118,38 @@ def resync(spec: SystemSpec, state: SimState) -> SimState:
 
 
 def resync_amplitudes_body(spec: SystemSpec, state: SimState) -> SimState:
-    """Re-synthesize the structure factors and E_RECIP from positions,
-    leaving the other energy components running: the per-block f32 drift
-    bound (DIVERGENCES.md #13). Plain path of kernels/resync.py."""
+    """Re-synthesize the structure factors and E_RECIP from positions, and
+    set the terms a population fixes: E_SELF and E_INTRA from the
+    populations (spec.type_self_energy, spec.type_intra_energy: a rigid
+    molecule's constants; E_INTRA from the positions where a type's
+    molecules differ in their charges), and in a replica without guests
+    the frozen sites' own LJ and real-space Coulomb (spec.fw_pair_energy);
+    E_TOT is then the sum of the five. Only the guests' pair terms stay
+    running: the per-block f32 drift bound (DIVERGENCES.md #13), which
+    running self and intra sums of strongly charged molecules (some
+    1e4-1e5 K apiece, nearly cancelling) and the leftovers of deleted
+    guests would otherwise pass. Plain path of kernels/resync.py."""
     pos = site_positions(spec, state)
-    active = active_site_mask(spec, state.n_mol)
+    n = state.n_mol
+    active = active_site_mask(spec, n)
     amp_re, amp_im = full_amplitudes(spec, pos, active)
-    e_recip = recip_energy(spec, amp_re, amp_im)
     e = state.energy.clone()
-    e[:, E_TOT] += e_recip - e[:, E_RECIP]
-    e[:, E_RECIP] = e_recip
+    e[:, E_RECIP] = recip_energy(spec, amp_re, amp_im)
+    # a product then a sum, type after type, as csrc/resync.cu
+    e_self = torch.zeros_like(e[:, E_SELF])
+    e_intra = torch.zeros_like(e[:, E_INTRA])
+    for r in range(spec.R):
+        nr = n[:, r].to(e.dtype)
+        e_self = e_self + spec.type_self_energy[r] * nr
+        e_intra = e_intra + spec.type_intra_energy[r] * nr
+    e[:, E_SELF] = e_self
+    e[:, E_INTRA] = (full_intra_energy(spec, state, pos)
+                     if spec.q_mixed_types else e_intra)
+    empty = (n[:, spec.active_type_ids.long()] == 0).all(dim=1)
+    e[:, E_LJ] = torch.where(empty, spec.fw_pair_energy[0], e[:, E_LJ])
+    e[:, E_COUL] = torch.where(empty, spec.fw_pair_energy[1], e[:, E_COUL])
+    e[:, E_TOT] = (e[:, E_RECIP] + e[:, E_LJ] + e[:, E_COUL] + e[:, E_SELF]
+                   + e[:, E_INTRA])
     return state.replace(amp_re=amp_re, amp_im=amp_im, energy=e)
 
 

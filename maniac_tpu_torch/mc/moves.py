@@ -296,7 +296,11 @@ def _core_plain(spec: SystemSpec, st: SimState, pre: dict) -> dict:
     # torch.minimum propagates NaN (a NaN p_acc rejects), as jnp.minimum
     p_acc = torch.minimum(pre["pref"] * torch.exp(-delta_e / spec.temp_K),
                           torch.ones_like(delta_e))
-    acc = pre["gate"] & (pre["u_acc"] <= p_acc)
+    # strict: a move whose acceptance probability is 0 (exp underflows)
+    # is never accepted, as in the Fortran reference; u_acc is 0.0 for one
+    # f32 draw in 2^23, where the JAX package's <= accepts (PERF.md, "Where
+    # the port departs from the JAX package")
+    acc = pre["gate"] & (pre["u_acc"] < p_acc)
     accf = acc.to(fdt)
 
     # compaction first (the type's last molecule moves into the removed

@@ -389,6 +389,34 @@ def full_intra_energy(spec: SystemSpec, state, pos):
     return total
 
 
+def template_intra_energy(spec: SystemSpec) -> torch.Tensor:
+    """(R,) intra_energy of one molecule of each active type at its
+    insertion template (rigid: every molecule the type inserts has it, and
+    a move keeps a molecule's geometry); 0 for a frozen type, which
+    full_intra_energy leaves out."""
+    A = spec.type_template_off.shape[1]
+    mask = (torch.arange(A)[None, :]
+            < torch.tensor([min(a, A) for a in spec.A_list])[:, None])
+    e = intra_energy(spec, spec.type_template_off, spec.type_q_rows, mask)
+    return torch.where(spec.type_active, e, 0.0)
+
+
+def frozen_pair_energy(spec: SystemSpec, pos, n_mol) -> torch.Tensor:
+    """(2,) LJ and real-space Coulomb of the frozen types' molecules among
+    themselves, pos (S, 3) and n_mol (R + 1,) of one replica: what a replica
+    without guests holds. Zero without two frozen molecules (the pairs
+    inside one are excluded)."""
+    n = torch.zeros_like(n_mol)
+    for r in range(spec.R):
+        if not spec.active_list[r]:
+            n[r] = n_mol[r]
+    if int(n.sum()) < 2:
+        return pos.new_zeros(2)
+    e_lj, e_coul = full_pair_energy(spec, pos[None],
+                                    active_site_mask(spec, n[None]))
+    return torch.stack([e_lj[0], e_coul[0]])
+
+
 def system_energy(spec: SystemSpec, state):
     """Full from-scratch energy and fresh structure factors (reference:
     ComputeSystemEnergy, src/energy_utils.f90:18-35). Returns

@@ -37,6 +37,7 @@ device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -52,6 +53,7 @@ from .geometry import image_shifts
 from .io.deck import InputDeck
 from .io.lammps_data import ParsedSystem
 from .physics.fwsplit import build_far_table
+from .utils import trace
 from .utils.threefry import prng_key
 
 # energy component indices (internal unit: Kelvin)
@@ -115,6 +117,9 @@ class SystemSpec:
     type_active: torch.Tensor     # (R,) bool
     type_activity: torch.Tensor   # (R,) 1/A^3
     type_self_energy: torch.Tensor  # (R,) K per molecule
+    # (R,) K per molecule of an active type, from its insertion template
+    # (physics/energy.py template_intra_energy); 0 for a frozen type
+    type_intra_energy: torch.Tensor
     type_template_off: torch.Tensor  # (R, A_act, 3) insertion template
     type_q_rows: torch.Tensor     # (R, A_act)
     type_cls_rows: torch.Tensor   # (R, A_act) int32
@@ -145,6 +150,10 @@ class SystemSpec:
     fw_d0: torch.Tensor
     fw_amp_re: torch.Tensor       # (JzP, JxyP)
     fw_amp_im: torch.Tensor
+    # the frozen sites' LJ and real-space Coulomb among themselves (K):
+    # what a replica without guests holds (physics/energy.py
+    # frozen_pair_energy; the resync sets such a replica's so)
+    fw_pair_energy: torch.Tensor  # (2,)
     # reservoir layout (flat per-type slots, as the primary's; one slot per
     # type when there is no reservoir)
     res_type_site_base: torch.Tensor  # (R,) int32
@@ -355,13 +364,14 @@ def _image_reach(leaves: dict, pos, com, n_mol, res_offset) -> tuple:
     return tuple(float(x) for x in hi_all - lo_all)
 
 
-def _spec_from_leaves(leaves: dict) -> SystemSpec:
+def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
     """Assemble a host (float64 / int32) SystemSpec from numpy arrays and
-    meta values keyed by field name."""
+    meta values keyed by field name; ``pos`` (3, S) and ``n_mol`` (R + 1,)
+    of one replica give the frozen sites' own pair energy."""
     kw = {}
     derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy",
                "far_coef", "far_rows", "far_units", "q_regions", "q_offsets",
-               "q_mixed_types")
+               "q_mixed_types", "fw_pair_energy", "type_intra_energy")
     for f in dataclasses.fields(SystemSpec):
         if f.name not in _META_FIELDS and f.name not in derived:
             kw[f.name] = _host_tensor(leaves[f.name])
@@ -384,7 +394,15 @@ def _spec_from_leaves(leaves: dict) -> SystemSpec:
     kw.update({name: leaves[name] for name in _META_FIELDS
                if name not in derived})
     kw["dtype_name"] = "float64"
-    return SystemSpec(**kw)
+    kw["fw_pair_energy"] = torch.zeros(2, dtype=torch.float64)
+    kw["type_intra_energy"] = torch.zeros(len(kw["A_list"]),
+                                          dtype=torch.float64)
+    spec = SystemSpec(**kw)
+    from .physics.energy import frozen_pair_energy, template_intra_energy
+    return dataclasses.replace(
+        spec, type_intra_energy=template_intra_energy(spec),
+        fw_pair_energy=frozen_pair_energy(spec, _host_tensor(pos).T,
+                                          _host_tensor(n_mol)))
 
 
 def _state_from_arrays(arrays: dict) -> SimState:
@@ -415,7 +433,11 @@ def from_numpy(spec_arrays: dict, state_arrays: dict, *, device, dtype):
     reach = _image_reach(spec_arrays, state_arrays["pos"],
                          state_arrays["com"], state_arrays["n_mol"],
                          state_arrays["res_offset"])
-    spec = _spec_from_leaves({**spec_arrays, "image_reach": reach})
+    pos = np.asarray(state_arrays["pos"])
+    n_mol = np.asarray(state_arrays["n_mol"])
+    spec = _spec_from_leaves({**spec_arrays, "image_reach": reach},
+                             pos.reshape(-1, *pos.shape[-2:])[0],
+                             n_mol.reshape(-1, n_mol.shape[-1])[0])
     return (to_device(spec, device, dtype),
             state_from_numpy(state_arrays, device=device, dtype=dtype))
 
@@ -587,18 +609,21 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
         # framework_split on with use_table)
         fw_mode = "off"
     from .physics.fwsplit import build_fwsplit
-    fws = build_fwsplit(
-        box, float(ewald.alpha), float(ewald.real_space_cutoff),
-        kmax_xyz=tuple(int(k) for k in ewald.kmax),
-        amp_shape=tuple(ewald.grid2_shape),
-        R=R, active_list=active, A_list=A_list, cap_list=cap_list,
-        n_mol_init=parsed.n_mol, type_site_base=type_site_base,
-        site_q=site_q, site_cls=site_cls, pos0=pos0,
-        eps_cls=eps_cls, sig_cls=sig_cls, class_base=class_base,
-        lj_idx=lj_idx, Lmax=Lmax, active_ids=active_ids,
-        mol_radius=mol_rad, enabled=fw_mode,
-        alpha2=getattr(deck, "fw_alpha2", 0.0),
-        rcut2=getattr(deck, "fw_rcut2", 0.0))
+    # a span only where there is a frozen type to build the split from
+    with (trace.span("load.fwsplit") if fw_mode != "off" and not all(active)
+          else contextlib.nullcontext()):
+        fws = build_fwsplit(
+            box, float(ewald.alpha), float(ewald.real_space_cutoff),
+            kmax_xyz=tuple(int(k) for k in ewald.kmax),
+            amp_shape=tuple(ewald.grid2_shape),
+            R=R, active_list=active, A_list=A_list, cap_list=cap_list,
+            n_mol_init=parsed.n_mol, type_site_base=type_site_base,
+            site_q=site_q, site_cls=site_cls, pos0=pos0,
+            eps_cls=eps_cls, sig_cls=sig_cls, class_base=class_base,
+            lj_idx=lj_idx, Lmax=Lmax, active_ids=active_ids,
+            mol_radius=mol_rad, enabled=fw_mode,
+            alpha2=getattr(deck, "fw_alpha2", 0.0),
+            rcut2=getattr(deck, "fw_rcut2", 0.0))
     if fw_mode == "on" and not fws.enabled:
         raise ValueError(f"framework_split on but ineligible: {fws.reason}")
     if fws.enabled:
@@ -680,7 +705,7 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     n_mol0[:R] = parsed.n_mol
     meta["image_reach"] = _image_reach(arrays, pos0.T, com0.T, n_mol0,
                                        res_offset)
-    spec = _spec_from_leaves({**arrays, **meta})
+    spec = _spec_from_leaves({**arrays, **meta}, pos0.T, n_mol0)
     state = _state_from_arrays(dict(
         com=com0.T, pos=pos0.T, n_mol=n_mol0,
         amp_re=np.zeros(ewald.grid2_shape), amp_im=np.zeros(ewald.grid2_shape),

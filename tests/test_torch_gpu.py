@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from box_lengths import BOX_SYSTEMS, box_lengths
+from zero_uniform import creation_rows
 from maniac_tpu_torch import load_system, replicate, run_block_replicated
 from maniac_tpu_torch.kernels import (IMAGE_REACH_BOXES, dispatch_report,
                                       image_thresholds)
@@ -35,7 +36,8 @@ from maniac_tpu_torch.mc.driver import resync_amplitudes, steps_plain
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep)
 from maniac_tpu_torch.kernels import build
-from maniac_tpu_torch.system import E_RECIP, E_TOT, to_device
+from maniac_tpu_torch.system import (E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF,
+                                     E_TOT, to_device)
 from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_framework_water,
                                       make_mixed_reservoir, make_mixed_sizes,
@@ -147,9 +149,12 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
     0.05 K); bench.py's four systems after 10 plain steps with the edge
     replicas (no guests, every covered type at capacity, a charged-site
     count that is not a multiple of the kernel's chunk; at B = 1 each
-    alone, and a fourth), where E_TOT moves by E_RECIP's change and the
-    other energies stay as they came in, the replica without guests holds
-    fw_amp exactly, and two launches on one input give the same bits."""
+    alone, and a fourth), where the guests' LJ and real-space Coulomb stay
+    as they came in and a replica without guests takes the frozen sites'
+    own (spec.fw_pair_energy), E_SELF and E_INTRA (from the populations)
+    are the plain version's bit for bit, E_TOT is the sum of the five, the
+    replica without guests holds fw_amp exactly, and two launches on one
+    input give the same bits."""
     dev = _device()
     if system == "zif_small":
         _zif_small(str(tmp_path))
@@ -179,9 +184,15 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
         torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
         torch.testing.assert_close(k.energy[:, E_RECIP],
                                    p.energy[:, E_RECIP], rtol=E_RTOL, atol=0)
-        assert torch.equal(k.energy[:, 1:5], st.energy[:, 1:5])
-        assert torch.equal(k.energy[:, E_TOT], st.energy[:, E_TOT] + (
-            k.energy[:, E_RECIP] - st.energy[:, E_RECIP]))
+        pair = [E_LJ, E_COUL]
+        guests = st.n_mol[:, spec.active_type_ids.long()].sum(1) > 0
+        assert torch.equal(k.energy[:, pair], torch.where(
+            guests[:, None], st.energy[:, pair], spec.fw_pair_energy))
+        assert torch.equal(k.energy[:, E_SELF], p.energy[:, E_SELF])
+        assert torch.equal(k.energy[:, E_INTRA], p.energy[:, E_INTRA])
+        e = k.energy
+        assert torch.equal(e[:, E_TOT], e[:, E_RECIP] + e[:, E_LJ]
+                           + e[:, E_COUL] + e[:, E_SELF] + e[:, E_INTRA])
         if k_in == 0:
             assert torch.equal(k.amp_re[0], spec.fw_amp_re)
             assert torch.equal(k.amp_im[0], spec.fw_amp_im)
@@ -840,6 +851,27 @@ def test_block_kernel_rejected_overlap_keeps_energies(tmp_path):
     assert int(out.counters[0, 1].sum()) == 0
     assert bool(torch.isfinite(out.energy).all())
     assert torch.equal(out.energy, state.energy)
+
+
+@pytest.mark.parametrize("kernel", ["block", "step"])
+def test_kernels_take_no_move_of_probability_zero_at_a_zero_uniform(
+        tmp_path, kernel):
+    """K2 and K3 on tests/zero_uniform.py's two creations at u_acc 0.0:
+    the one whose exp(-dE / T) underflows to 0 is rejected and the one of
+    positive probability accepted, as by the plain step (the strict rule
+    u_acc < p_acc)."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.25, 0.25, 0.5, 0.0), fugacity=5000.0)
+    sysm = _load(str(tmp_path), dev, 16)
+    spec, state = sysm.spec, sysm.state
+    states = replicate(spec, state, 2)
+    u = creation_rows(spec, state)
+    k = (_assert_block_parity(spec, states, u) if kernel == "block"
+         else _assert_steps_parity(spec, states, u, 0))
+    assert k.counters[:, 0, 0].tolist() == [1, 1]
+    assert k.counters[:, 1, 0].tolist() == [0, 1]
+    assert torch.equal(k.energy[0], state.energy[0])
 
 
 def test_step_kernel_f32_delta_e_envelope():

@@ -21,6 +21,7 @@ from maniac_tpu_torch.parallel.replicas import replicate
 from maniac_tpu_torch.systems import (make_framework_mixed, make_mixed_sizes,
                                       make_water_box, make_zif_like)
 
+from zero_uniform import creation_rows
 from torch_parity import (F32_ENERGY_TOL, F32_POS_TOL, assert_same_chain,
                           jax_batch, load_both, uniforms)
 
@@ -110,7 +111,11 @@ def test_edge_uniforms_at_move_thresholds(tmp_path):
             r = np.full(21, 0.37, np.float32)
             r[0], r[1] = u_move, u_cd
             r[13] = np.nextafter(np.float32(1), np.float32(0))
-            r[2] = 0.0  # accept whenever the gate allows
+            # the stream's least nonzero uniform: accept whenever the gate
+            # allows and the move's probability is not 0 (at u_acc 0.0 the
+            # port and the JAX package part: PERF.md, "Where the port
+            # departs from the JAX package")
+            r[2] = 2.0 ** -23
             rows.append(r)
     U = np.stack(rows)[None]                       # one replica, n steps
     jst = jax_batch(sysm.spec, sysm.state, U)
@@ -120,6 +125,31 @@ def test_edge_uniforms_at_move_thresholds(tmp_path):
     trials = pst.counters[0, 0].numpy()
     assert trials[0] > 0 and trials[1] > 0 and trials[2] > 0
     assert trials[3] > 0
+
+
+def test_zero_uniform_takes_no_move_of_probability_zero(tmp_path):
+    """u_acc 0.0 against a creation whose exp(-dE / T) underflows to 0
+    (dE finite) is rejected, and against a creation of positive
+    probability accepted: the strict rule u_acc < p_acc, where the JAX
+    package's <= would accept both, in the step core and through a whole
+    step (f32)."""
+    _water(str(tmp_path))
+    _, spec, state = load_both(str(tmp_path), capacity=16, f32=True)
+    states = replicate(spec, state, 2)
+    U = creation_rows(spec, state)
+    pre = _propose(spec, states, U[:, 0])
+    core = _core_plain(spec, states, pre)
+    p_acc = pre["pref"] * torch.exp(-core["delta_e"] / spec.temp_K)
+    assert bool(pre["gate"].all()) and (pre["u_acc"] == 0.0).all()
+    assert bool(torch.isfinite(core["delta_e"]).all())
+    assert float(p_acc[0]) == 0.0 and float(p_acc[1]) > 0.0
+    assert core["acc"].tolist() == [False, True]
+    out = run_steps_u(spec, states, U, core=_core_plain)
+    assert out.counters[:, 0, TYPE_CREATION].tolist() == [1, 1]
+    assert out.counters[:, 1, TYPE_CREATION].tolist() == [0, 1]
+    assert out.n_mol[:, 0].tolist() == [int(state.n_mol[0, 0]),
+                                        int(state.n_mol[0, 0]) + 1]
+    assert torch.equal(out.energy[0], state.energy[0])
 
 
 def _overlap_row(spec, state):

@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from maniac_tpu_torch import load_system, replicate
-from maniac_tpu_torch.kernels import build
+from maniac_tpu_torch.kernels import blockg, build
 from maniac_tpu_torch.mc.driver import block_body_u, draw_uniforms, resync
 from maniac_tpu_torch.parallel.replicas import run_block_uniforms
 from maniac_tpu_torch.systems import make_water_box
@@ -147,6 +147,69 @@ def test_profiled_spans_are_the_profile_ranges(deck):
             p_start, p_minus, _ = ranges[s.parent]
             assert p_start <= start
             assert start - minus_dur <= p_start - p_minus
+
+
+def _load_config(name: str, outdir: Path):
+    """A benchmark configuration (portbench/configs/<name>.json) written by
+    its writer and loaded on the CPU in float32, without the initial
+    energy."""
+    from portbench import run
+    cfg = run.read_json(run.PKG / "configs" / f"{name}.json")
+    files, _ = run.write_files(cfg, 2 ** 33 + 5, str(outdir))
+    return load_system(files["input"], files["data"], files["params"],
+                       capacity=cfg["capacity"], dtype=torch.float32,
+                       device="cpu", logger=NullLogger(), seed=2 ** 33 + 5,
+                       compute_initial_energy=False)
+
+
+@pytest.mark.parametrize("config,split,frozen,far,active", [
+    ("flue_slit", True, 1792, 0, 2), ("spce750", False, 0, 0, 1)])
+def test_load_records_the_split_and_counts_what_it_built(
+        tmp_path, config, split, frozen, far, active):
+    """The framework split's build is a ``load.fwsplit`` span under
+    ``load.build`` where there is a frozen type to build it from (the
+    graphite slit) and no span where there is none (bulk water); the load
+    counts its live frozen sites, the far table's nonzero coefficients and
+    its active types."""
+    trace.enable(True)
+    sysm = _load_config(config, tmp_path)
+    got = trace.spans()
+    pairs = [(s.name, None if s.parent is None else got[s.parent].name)
+             for s in got]
+    assert sysm.spec.fw_split is split
+    assert (("load.fwsplit", "load.build") in pairs) is split
+    assert [n for n, _ in pairs].count("load.fwsplit") == int(split)
+    assert {k: v for k, v in trace.counters().items()
+            if k.startswith("load.")} == {
+        "load.frozen_sites": frozen, "load.far_coefficients": far,
+        "load.active_types": active}
+
+
+def test_block_launch_counts_its_form(tmp_path, monkeypatch):
+    """Each launch of the block kernel adds one to ``launch.blockg`` and
+    one to the counter of its template form: ``blockg.form.multi`` on
+    the graphite slit (a frozen prefix, two species, no far table), once a
+    block; with the launcher stubbed, so on the CPU."""
+    calls = []
+    monkeypatch.setattr(build, "launch",
+                        lambda name, *a: (calls.append(name),
+                                          trace.count("launch.blockg")))
+    sysm = _load_config("flue_slit", tmp_path)
+    spec = sysm.spec
+    assert blockg.form(spec) == "multi"
+    states = replicate(spec, sysm.state, 2)
+    before = trace.counters()
+    for _ in range(3):
+        states, u = draw_uniforms(spec, states, 4)
+        blockg._launch(spec, states, u)
+    assert calls == ["blockg_launch"] * 3
+    assert trace.since(before) == {"launch.blockg": 3,
+                                   "blockg.form.multi": 3}
+    # outside the ``launch.`` prefix, so that portbench's launch_host_us
+    # counts each launch once
+    t = _hand_made([], {"launch.blockg": 3, "blockg.form.multi": 3,
+                        "launch_ns.blockg": 4500})
+    assert program_spans.launch_host_us(t) == pytest.approx(1.5, rel=1e-12)
 
 
 def test_counters_add_and_reset():
