@@ -91,11 +91,15 @@ def load_system(input_file: str, data_file: str, params_file: str,
 def _count_loaded(spec: SystemSpec, state: SimState) -> None:
     """Counters of what the load built: ``load.frozen_sites`` (live sites of
     the frozen types), ``load.far_coefficients`` (the far table's nonzero
-    coefficients) and ``load.active_types``."""
+    coefficients), ``load.kspace_modes`` and ``load.commit_modes`` (the
+    weighted and the real k-space modes the footprint kernels walk, of the
+    spec's (JzP, JxyP) grid) and ``load.active_types``."""
     frozen = sum(int(state.n_mol[0, r]) * spec.A_list[r]
                  for r in range(spec.R) if not spec.active_list[r])
     trace.count("load.frozen_sites", frozen)
     trace.count("load.far_coefficients", int((spec.far_coef != 0).sum()))
+    trace.count("load.kspace_modes", int(spec.k_weighted_modes.shape[0]))
+    trace.count("load.commit_modes", int(spec.k_real_modes.shape[0]))
     trace.count("load.active_types", spec.n_active)
 
 

@@ -30,7 +30,9 @@
 //
 // Bound on the H100: arithmetic, and the step chain. Per step and replica
 // the pair passes cover 2160 framework sites and the live guests, the
-// k-space delta the 9216 modes, and the far field (the framework split)
+// k-space delta the modes of nonzero weight (2,975 of the flagship's
+// 9,216-mode grid; an accepted move's commit its 6,348 real modes), and
+// the far field (the framework split)
 // one complex multiply-add per nonzero alpha2 coefficient (23,675 on the
 // flagship) and charged footprint atom. Without the split there is no far
 // field and the pair pass covers every live site instead of the guests
@@ -42,10 +44,11 @@
 // Design: 256 threads per replica run all n_steps of step_body.cuh's
 // mc_step (the step stepg.cu runs once a launch): thread 0 proposes from
 // its uniform row and publishes the footprints in shared memory; all
-// threads sweep the framework and live guest sites and the k-space modes,
-// contract the far table one axis at a time (common.cuh far_sweep: y first
-// from a shared table of weighted y powers, then each row closed with its
-// x and z powers; tiles staged by cp.async), and make one block reduction;
+// threads sweep the framework and live guest sites and the weighted
+// k-space modes, contract the far table one axis at a time (common.cuh
+// far_sweep: y first from a shared table of weighted y powers, then each
+// row closed with its x and z powers; tiles staged by cp.async), and make
+// one block reduction;
 // thread 0 decides and commits; on acceptance every thread recomputes the
 // delta of its own modes and adds it to the amplitudes (no 74 KB delta
 // buffer). Positions, COMs, amplitudes and the reservoir offsets and COMs
@@ -64,6 +67,15 @@
 // pair pass and k-space delta now lead). A replica's state is a static
 // __shared__ variable (carved from the dynamic shared memory it cost the
 // water boxes 5%).
+// The k-space delta and the amplitude commit walk the host's lists of the
+// weighted and the real modes (system._mode_lists; rows m, jx, jy, jz),
+// thread t entries t, t + 256, ...: the (JzP, JxyP) grid pads its rows to
+// a multiple of 8 and its columns to one of 128 for the TPU's (8, 128)
+// tiles, and walking it thread t took column t of every row, so warps
+// whose columns held no weighted mode idled and the rest ran part-empty
+// (on SPC/E water 63 warp-iterations of the delta for 1,152 modes, warp 0
+// 17 of them, against 4-5 each now). Every mode's update is computed as
+// the grid's walk computed it; only the delta's sum takes another order.
 // Framework pairs loop over all frozen sites with minimum image, as the
 // oracle does (blockg's ghost-sorted windows were a TPU layout). erfc is
 // libdevice erfcf (common.cuh). A pair takes no division and, off the

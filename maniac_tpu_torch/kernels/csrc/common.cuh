@@ -8,13 +8,16 @@
 // keep full f32 accuracy.
 //
 // The footprint energy shared by the whole-block and per-step kernels is
-// here too: the pair pass and the k-space sum per thread (footprint_partials)
-// and the far field of the framework split as a separable contraction over
-// the host's far table (far_sweep, section below): on the H100 it is bound
-// by the FMA pipe and shared-memory reads (4 FMA and one 16-byte read of two
-// atoms' y powers per nonzero coefficient and atom pair), where the
-// per-mode triple product it replaces was bound by index arithmetic and
-// lane-divergent shared reads at some 20 instructions per mode and atom.
+// here too: the pair pass and the k-space sum per thread (footprint_partials;
+// the sum walks the host's dense list of the modes with weight, not the
+// (JzP, JxyP) grid, whose padding to the TPU's (8, 128) tiles left whole
+// warps without a mode) and the far field of the framework split as a
+// separable contraction over the host's far table (far_sweep, section
+// below): on the H100 it is bound by the FMA pipe and shared-memory reads
+// (4 FMA and one 16-byte read of two atoms' y powers per nonzero
+// coefficient and atom pair), where the per-mode triple product it
+// replaces was bound by index arithmetic and lane-divergent shared reads at
+// some 20 instructions per mode and atom.
 //
 // Every launcher has a plain C interface: a table of device pointers, a
 // table of ints, a table of floats (each with its length, checked against
@@ -367,7 +370,6 @@ __device__ __forceinline__ void footprint_partials(
     const int* nmol, const float* pos, const float* ampre,
     const float* ampim, const Image& img, int tid, float (&part)[NRED]) {
   const int S = a.S, F = 2 * a.A_act;
-  const int K = a.JzP * a.JxyP;
   const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
 #pragma unroll
   for (int i = 0; i < NRED; ++i) part[i] = 0.f;
@@ -388,14 +390,13 @@ __device__ __forceinline__ void footprint_partials(
 
   SECTION_MARK(2);  // pair pass
 
-  // k-space: sum_k w_k (2 A.d + |d|^2) over the modes with weight
-  for (int m = tid; m < K; m += STEP_THREADS) {
-    const float w = a.kw[m];
-    if (w == 0.f) continue;
-    const int row = m / a.JxyP, col = m - row * a.JxyP;
-    const float2 d = footprint_mode(tab, fp.wk, 0, F, a.col_jx[col],
-                                    a.col_jy[col], row - a.kz);
-    const float ar = ampre[m], ai = ampim[m];
+  // k-space: sum_k w_k (2 A.d + |d|^2) over the host's list of the modes
+  // with weight (m, jx, jy, jz), dense, so every warp takes its share
+  for (int i = tid; i < a.n_kw; i += STEP_THREADS) {
+    const int4 k = a.kmodes[i];
+    const float w = a.kmode_w[i];
+    const float2 d = footprint_mode(tab, fp.wk, 0, F, k.y, k.z, k.w);
+    const float ar = ampre[k.x], ai = ampim[k.x];
     part[6] += w * (2.f * (ar * d.x + ai * d.y) + d.x * d.x + d.y * d.y);
   }
 }

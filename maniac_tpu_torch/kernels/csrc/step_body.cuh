@@ -11,8 +11,8 @@
 // contract the far table (common.cuh far_sweep) and make one block
 // reduction; thread 0 decides and commits positions, COMs, populations,
 // energies, counters and the reservoir rows (commit_reservoir); on
-// acceptance every thread recomputes the delta of its own modes and adds it
-// to the amplitudes. Nothing else is written.
+// acceptance every thread recomputes the delta of its own modes of the real
+// mode list and adds it to the amplitudes. Nothing else is written.
 //
 // Both kernels take the tables below (StepPtr, StepInt, StepFloat, in this
 // order; kernels/stepg.py::step_tables packs them) and append their own
@@ -62,9 +62,9 @@ enum StepPtr {
   SP_BOXL,         // (3,) f32 box lengths
   SP_H,            // (3, 3) f32
   SP_H2PI,         // (3, 3) f32
-  SP_KW,           // (K,) f32 k_weights
-  SP_COL_JX,       // (JxyP,) i32, -1 = pad
-  SP_COL_JY,       // (JxyP,) i32 signed
+  SP_KMODES,       // (n_kw,) int4 m, jx, jy, jz of the weighted modes
+  SP_KMODE_W,      // (n_kw,) f32 their weights
+  SP_RMODES,       // (n_kr,) int4 m, jx, jy, jz of the real modes
   SP_FAR_COEF,     // (n_far_tiles, FAR_TILE4) float4 far table coefficients
   SP_FAR_ROWS,     // (n_groups * 32,) int4 jz, jx, y0 + ky2, length
   SP_FAR_UNITS,    // (n_far_tiles, FAR_WARPS) int4 row base, t0, nt, flags
@@ -85,7 +85,7 @@ enum StepInt {
   SI_B, SI_NSTEPS, SI_S, SI_S_FROZEN, SI_GUEST_BASE, SI_R, SI_MTOT,
   SI_A_ACT, SI_N_ACTIVE, SI_JZP, SI_JXYP, SI_KX, SI_KY, SI_KZ, SI_KX2,
   SI_KY2, SI_KZ2, SI_N_FAR_TILES, SI_GG_CUT, SI_HAS_RES, SI_SRES, SI_MRES1,
-  SI_TRICLINIC, SI_SHARED
+  SI_TRICLINIC, SI_N_KW, SI_N_KR, SI_SHARED
 };
 enum StepFloat {
   SF_ALPHA, SF_ALPHA2, SF_CUTOFF, SF_RCUT2, SF_GG_RCUT_SQ, SF_TEMP,
@@ -107,7 +107,8 @@ struct StepArgs {
   const float* type_self; const float* templ; const float* type_q;
   const int* type_cls; const int* mol_site_start;
   const float* p_cum; const float* lo; const float* boxl; const float* H;
-  const float* h2pi; const float* kw; const int* col_jx; const int* col_jy;
+  const float* h2pi; const int4* kmodes; const float* kmode_w;
+  const int4* rmodes;
   const float4* far_coef; const int4* far_rows; const int4* far_units;
   float* res_off; float* res_com; int* res_n;
   const int* res_site_base; const int* res_mol_base; const int* res_cap;
@@ -115,7 +116,7 @@ struct StepArgs {
   const int* act_ids; const float* Hinv; const float* img;
   int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, n_active;
   int JzP, JxyP, kx, ky, kz, kx2, ky2, kz2, n_far_tiles, gg_cut;
-  int has_res, Sres, Mres1;
+  int has_res, Sres, Mres1, n_kw, n_kr;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi, prob_cd, small_sq;
   float img_t1[3], img_t2[3];
@@ -157,9 +158,9 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   a.boxl = static_cast<const float*>(p[SP_BOXL]);
   a.H = static_cast<const float*>(p[SP_H]);
   a.h2pi = static_cast<const float*>(p[SP_H2PI]);
-  a.kw = static_cast<const float*>(p[SP_KW]);
-  a.col_jx = static_cast<const int*>(p[SP_COL_JX]);
-  a.col_jy = static_cast<const int*>(p[SP_COL_JY]);
+  a.kmodes = static_cast<const int4*>(p[SP_KMODES]);
+  a.kmode_w = static_cast<const float*>(p[SP_KMODE_W]);
+  a.rmodes = static_cast<const int4*>(p[SP_RMODES]);
   a.far_coef = static_cast<const float4*>(p[SP_FAR_COEF]);
   a.far_rows = static_cast<const int4*>(p[SP_FAR_ROWS]);
   a.far_units = static_cast<const int4*>(p[SP_FAR_UNITS]);
@@ -195,6 +196,8 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   a.has_res = n[SI_HAS_RES];
   a.Sres = n[SI_SRES];
   a.Mres1 = n[SI_MRES1];
+  a.n_kw = n[SI_N_KW];
+  a.n_kr = n[SI_N_KR];
   a.alpha = f[SF_ALPHA];
   a.alpha2 = f[SF_ALPHA2];
   a.cutoff = f[SF_CUTOFF];
@@ -214,7 +217,9 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
   return !(a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
            || a.n_active < 1 || a.n_active > a.R || kmax >= JMAX
-           || a.JzP < 2 * a.kz + 1 || a.n_far_tiles < 0
+           || a.JzP < 2 * a.kz + 1 || a.n_far_tiles < 0 || a.n_kw < 0
+           || a.n_kw > a.JzP * a.JxyP || a.n_kr < 0
+           || a.n_kr > a.JzP * a.JxyP
            || (n[SI_TRICLINIC] && (a.S_frozen != 0 || a.n_far_tiles != 0)));
 }
 
@@ -566,8 +571,7 @@ __device__ __forceinline__ void mc_step(
     float* ampim, float* res_off, float* res_com, float tstep, float rstep,
     Proposal& pr, int tid) {
   Footprint& fp = ss.fp;
-  const int S = a.S, M1 = a.Mtot + 1, K = a.JzP * a.JxyP;
-  const int F = 2 * a.A_act, Jz = 2 * a.kz + 1;
+  const int S = a.S, M1 = a.Mtot + 1, F = 2 * a.A_act;
   int* nmol = ss.nmol;
   float* energy = ss.energy;
   int* counters = ss.counters;
@@ -652,15 +656,15 @@ __device__ __forceinline__ void mc_step(
   __syncthreads();
   SECTION_MARK(6);
 
-  if (fp.acc) {  // amp += d on every grid mode (recomputed, not stored)
-    for (int m = tid; m < K; m += STEP_THREADS) {
-      const int row = m / a.JxyP, col = m - row * a.JxyP;
-      const int jx = a.col_jx[col];
-      if (row >= Jz || jx < 0) continue;  // d = 0 on pad modes
-      const float2 d = footprint_mode(ss.tab, fp.wk, 0, F, jx, a.col_jy[col],
-                                      row - a.kz);
-      ampre[m] += d.x;
-      ampim[m] += d.y;
+  // amp += d on every real mode (recomputed, not stored), the host's list
+  // of them (pad modes are never touched): each mode's update is the same
+  // whichever thread makes it
+  if (fp.acc) {
+    for (int i = tid; i < a.n_kr; i += STEP_THREADS) {
+      const int4 k = a.rmodes[i];
+      const float2 d = footprint_mode(ss.tab, fp.wk, 0, F, k.y, k.z, k.w);
+      ampre[k.x] += d.x;
+      ampim[k.x] += d.y;
     }
   }
   __syncthreads();

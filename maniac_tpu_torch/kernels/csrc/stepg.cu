@@ -14,7 +14,8 @@
 // (an isotherm sweep: act_stride R, the table (B, R)).
 //
 // Bound on the H100: per replica and step the k-space delta reads the
-// replica's 2K amplitudes once and the pair pass its live positions; the
+// replica's amplitudes at the weighted modes once (the host's list of them,
+// as blockg.cu) and the pair pass its live positions; the
 // operations are those of blockg.cu's step (pair pass, k-space delta, far
 // field) plus the proposal. The step is one launch for B replicas; at B = 1
 // it is one CTA on one SM, so a single chain's step is its latency.

@@ -70,8 +70,9 @@ def step_tables(spec: SystemSpec, states: SimState, uniforms,
               spec.type_self_energy, spec.type_template_off,
               spec.type_q_rows, spec.type_cls_rows, spec.mol_site_start,
               spec.p_cum, spec.bounds[:, 0].contiguous(), spec.box_diag,
-              spec.H, spec.two_pi_Hinv, spec.k_weights, spec.k_col_jx,
-              spec.k_col_jy, spec.far_coef, spec.far_rows, spec.far_units]
+              spec.H, spec.two_pi_Hinv, spec.k_weighted_modes,
+              spec.k_weighted_w, spec.k_real_modes, spec.far_coef,
+              spec.far_rows, spec.far_units]
     res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
                   spec.res_cap, spec.res_H]
     box_tables = [spec.active_type_ids, spec.Hinv, spec.image_shifts]
@@ -96,7 +97,8 @@ def step_tables(spec: SystemSpec, states: SimState, uniforms,
     ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
             spec.n_active, JzP, JxyP, *spec.kmax_xyz, *kmax2, n_far_tiles,
             int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
-            int(spec.is_triclinic)]
+            int(spec.is_triclinic), int(spec.k_weighted_modes.shape[0]),
+            int(spec.k_real_modes.shape[0])]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL,

@@ -21,6 +21,11 @@ Differences from the JAX data model:
   grid ``k2_col_*``) are derived from the 0/1 selectors ``ex_sel``/
   ``ey_sel``: the port reads phase powers by index instead of expanding
   them with selector matmuls.
+* The k-space mode lists (``k_weighted_modes``, ``k_weighted_w``,
+  ``k_real_modes``) are derived from ``k_weights`` and the column tables:
+  the modes the footprint kernels walk, as rows (m, jx, jy, jz), so that
+  they skip the pad rows and columns of the (JzP, JxyP) layout
+  (``_mode_lists``).
 * The far table (``far_coef``, ``far_rows``, ``far_units``) is derived from
   the far-field coefficients: their nonzero entries laid out for the
   footprint kernels' separable contraction (physics/fwsplit.py FarTable).
@@ -91,6 +96,12 @@ class SystemSpec:
     ey_sel: torch.Tensor        # (Jy, JxyP) 0/1
     k_col_jx: torch.Tensor      # (JxyP,) int32 jx of each column, -1 = pad
     k_col_jy: torch.Tensor      # (JxyP,) int32 signed jy of each column
+    # the modes the footprint kernels walk (_mode_lists): rows (flat grid
+    # index m, jx, jy, jz) of the modes with weight, ascending, and their
+    # weights; rows of the real modes (not pad), ascending
+    k_weighted_modes: torch.Tensor  # (n_weighted, 4) int32
+    k_weighted_w: torch.Tensor      # (n_weighted,)
+    k_real_modes: torch.Tensor      # (n_real, 4) int32
     two_pi_Hinv: torch.Tensor   # (3,3): theta = two_pi_Hinv @ r
     alpha: torch.Tensor
     cutoff: torch.Tensor
@@ -293,6 +304,28 @@ def _grid_columns(ex_sel: np.ndarray, ey_sel: np.ndarray):
     return jx, jy
 
 
+def _mode_lists(k_weights, col_jx, col_jy, kz: int):
+    """The k-space modes the footprint kernels walk, each a row (m, jx, jy,
+    jz) of its flat index m = row * JxyP + col in the (JzP, JxyP) grid and
+    its signed indices: (the modes of nonzero weight, ascending, which the
+    k-space delta sums; their weights; the real modes, row < 2 kz + 1 and
+    col_jx >= 0, ascending, which an accepted move's amplitude commit
+    updates). The grid pads rows to a multiple of 8 and columns to one of
+    128, the TPU's tiles: walking the lists, no thread takes a pad mode."""
+    w = np.asarray(k_weights).ravel()
+    col_jx, col_jy = np.asarray(col_jx), np.asarray(col_jy)
+    JxyP = col_jx.shape[0]
+    row, col = np.divmod(np.arange(w.shape[0]), JxyP)
+    table = np.stack([np.arange(w.shape[0]), col_jx[col], col_jy[col],
+                      row - kz], axis=1).astype(np.int32)
+    real = (row < 2 * kz + 1) & (col_jx[col] >= 0)
+    weighted = w != 0
+    if (weighted & ~real).any():
+        raise ValueError("a k-space mode of nonzero weight lies in the "
+                         "grid's padding")
+    return table[weighted], w[weighted], table[real]
+
+
 def _host_tensor(a) -> torch.Tensor:
     """C-contiguous host tensor (a copy): float64, bool or int32 by kind."""
     a = np.asarray(a)
@@ -370,6 +403,7 @@ def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
     of one replica give the frozen sites' own pair energy."""
     kw = {}
     derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy",
+               "k_weighted_modes", "k_weighted_w", "k_real_modes",
                "far_coef", "far_rows", "far_units", "q_regions", "q_offsets",
                "q_mixed_types", "fw_pair_energy", "type_intra_energy")
     for f in dataclasses.fields(SystemSpec):
@@ -380,6 +414,11 @@ def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
         jx, jy = _grid_columns(np.asarray(leaves[ex]), np.asarray(leaves[ey]))
         kw[f"{dst}_col_jx"] = torch.from_numpy(jx)
         kw[f"{dst}_col_jy"] = torch.from_numpy(jy)
+    modes, weights, real = _mode_lists(leaves["k_weights"], kw["k_col_jx"],
+                                       kw["k_col_jy"], leaves["kmax_xyz"][2])
+    kw["k_weighted_modes"] = torch.from_numpy(modes)
+    kw["k_weighted_w"] = _host_tensor(weights)
+    kw["k_real_modes"] = torch.from_numpy(real)
     far = build_far_table(leaves["c2_re"], leaves["c2_im"], kw["k2_col_jx"],
                           kw["k2_col_jy"], leaves["kmax2_xyz"][1],
                           leaves["kmax2_xyz"][2])

@@ -1,7 +1,8 @@
 """Where the whole-block kernel's time goes, section by section, on the card.
 
     python -m maniac_tpu_torch.tools.section_split
-        [--system zif|mixed|spce750] [--replicas 1024] [--steps 400]
+        [--system zif|mixed|spce750 | --deck DIR --capacity N]
+        [--replicas 1024] [--steps 400]
 
 Builds an instrumented variant of the kernel library (the same sources
 compiled with -DMANIAC_SECTION_CLOCKS, beside the production build in the
@@ -13,7 +14,15 @@ path's shape (``--replicas`` replicas, ``--steps`` steps) after one warm-up
 block, and prints each section's share of the ticks summed over the
 replicas, beside the instrumented call's time and the production kernel's
 time on the same inputs (the barriers the instrumented build adds cost time
-of their own).
+of their own). ``--deck DIR`` splits a written deck instead (DIR's
+input.maniac, topology.data and parameters.inc, loaded at ``--capacity``
+molecules a type), such as the benchmark's graphite slit as its writer
+leaves it:
+
+    python -c "from portbench import run; run.write_files(
+        run.read_json(run.PKG / 'configs/flue_slit.json'), 1, 'slit')"
+    python -m maniac_tpu_torch.tools.section_split --deck slit \
+        --capacity 128
 """
 
 from __future__ import annotations
@@ -51,25 +60,30 @@ SYSTEMS = {
 }
 
 
+def _load_deck(d, capacity, dev):
+    from .. import load_system
+    return load_system(f"{d}/input.maniac", f"{d}/topology.data",
+                       f"{d}/parameters.inc", capacity=capacity,
+                       dtype=torch.float32, device=dev)
+
+
 def _load(system, dev):
-    from .. import load_system, systems
+    from .. import systems
     make, kw, capacity = SYSTEMS[system]
     with tempfile.TemporaryDirectory() as tmp:
         getattr(systems, make)(tmp, **kw)
-        return load_system(f"{tmp}/input.maniac", f"{tmp}/topology.data",
-                           f"{tmp}/parameters.inc", capacity=capacity,
-                           dtype=torch.float32, device=dev)
+        return _load_deck(tmp, capacity, dev)
 
 
-def section_split(system: str, replicas: int, steps: int, seed: int = 1234):
-    """(shares by section, instrumented ms, production ms) of one block."""
+def section_split(sysm, replicas: int, steps: int, seed: int = 1234):
+    """(shares by section, instrumented ms, production ms) of one block of
+    the loaded system ``sysm`` (on the card)."""
     from .. import replicate, run_block_replicated
     from ..kernels import build
     from ..kernels.blockg import run_block_kernel
     from ..mc.driver import draw_uniforms
     from ..utils.threefry import prng_key
-    dev = torch.device("cuda", 0)
-    sysm = _load(system, dev)
+    dev = sysm.spec.device
     spec = sysm.spec
     state = sysm.state.replace(key=prng_key(seed, dev)[None])
     states = run_block_replicated(spec, replicate(spec, state, replicas),
@@ -104,19 +118,29 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="section_split",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--system", choices=sorted(SYSTEMS), default="zif")
+    ap.add_argument("--deck", help="a directory with input.maniac, "
+                    "topology.data and parameters.inc (replaces --system)")
+    ap.add_argument("--capacity", type=int, help="molecules a type, with "
+                    "--deck")
     ap.add_argument("--replicas", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=400)
     args = ap.parse_args(argv)
+    if (args.deck is None) != (args.capacity is None):
+        ap.error("--deck and --capacity go together")
     if not require_cuda("section_split"):
         return 1
-    shares, ms_inst, ms_prod = section_split(args.system, args.replicas,
-                                             args.steps)
+    dev = torch.device("cuda", 0)
+    if args.deck is None:
+        name, sysm = args.system, _load(args.system, dev)
+    else:
+        name, sysm = args.deck, _load_deck(args.deck, args.capacity, dev)
+    shares, ms_inst, ms_prod = section_split(sysm, args.replicas, args.steps)
     label = f"{torch.cuda.get_device_name(0)}, {card_label()}"
-    print(f"section_split {args.system}: B={args.replicas} x {args.steps} "
+    print(f"section_split {name}: B={args.replicas} x {args.steps} "
           f"steps; instrumented {ms_inst:.3f} ms, production "
           f"{ms_prod:.3f} ms ({label})")
-    for name, share in zip(SECTIONS, shares):
-        print(f"section_split {args.system}: {name} {100 * share:.1f}% "
+    for section, share in zip(SECTIONS, shares):
+        print(f"section_split {name}: {section} {100 * share:.1f}% "
               f"({share * ms_inst:.3f} ms of the instrumented call)")
     return 0
 

@@ -917,3 +917,102 @@ def test_block_kernel_bigs_matches_plain():
     assert int(accepted.sum()) > 0
     bound = bench.energy_bound(sysm.state.energy[0], accepted)
     assert bool(((k.energy - p.energy).double().abs() <= bound).all())
+
+
+def _bench_config(name, d, dev, seed=2 ** 33 + 11):
+    """The benchmark's configuration ``name`` (portbench/configs), written
+    by its writer from ``seed`` and loaded on the card in float32."""
+    from portbench import run
+    cfg = run.read_json(run.PKG / "configs" / f"{name}.json")
+    files, _ = run.write_files(cfg, seed, str(d))
+    return load_system(files["input"], files["data"], files["params"],
+                       capacity=cfg["capacity"], dtype=torch.float32,
+                       device=dev, seed=seed)
+
+
+BENCH_FORMS = {"spce750": "single", "flue_slit": "multi"}
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_FORMS))
+def test_kernels_match_plain_on_the_benchmark_configs(tmp_path, name):
+    """K2 (the no-split form on spce750, the frozen-prefix two-species form
+    on the graphite slit) and K3 against the plain steps on the benchmark's
+    configurations, B = 8, on the same uniforms: K2's 60 steps with the
+    same decisions, positions within POS_TOL and energies within
+    bench.energy_bound; K3's 40 steps with _assert_steps_parity's limits,
+    no replica diverged. Moves accepted, swaps tried on the slit."""
+    from maniac_tpu_torch import bench
+    from maniac_tpu_torch.kernels import blockg
+    dev = _device()
+    sysm = _bench_config(name, tmp_path, dev)
+    spec = sysm.spec
+    assert blockg.form(spec) == BENCH_FORMS[name]
+    states = replicate(spec, sysm.state, 8)
+    u = _draw(spec, 8, 60, 21)
+    k, p = run_block_kernel(spec, states, u), steps_plain(spec, states, u)
+    assert bool(bench.same_decisions(k, p).all())
+    accepted = (k.counters[:, 1] - states.counters[:, 1]).sum(1)
+    assert int(accepted.sum()) > 0
+    pos_err, _, e_ok = bench.block_errors(
+        k, p, bench.same_decisions(k, p),
+        bench.energy_bound(sysm.state.energy[0], accepted))
+    assert pos_err <= POS_TOL and e_ok
+    if spec.n_active > 1:
+        assert int(k.counters[:, 0, 4].sum()) > 0
+    ks = _assert_steps_parity(spec, states, _draw(spec, 8, 40, 22), 0)
+    assert int(ks.counters[:, 1].sum()) > 0
+
+
+def _padded_walk_spec(spec):
+    """``spec`` with the padded grid's walk for the kernels' mode lists:
+    every mode of the (JzP, JxyP) grid in grid order for the k-space
+    delta, each with its k_weights entry (0 on a pad mode, whose indices
+    are 0), and the real modes in grid order for the commit. Thread t then
+    takes the modes m = t + 256 i that the padded loops gave it, in their
+    order, and a mode without weight adds an exact zero to its sum: the
+    block's bits as the padded walk made them."""
+    K = spec.k_weights.numel()
+    table = torch.zeros((K, 4), dtype=torch.int32, device=spec.device)
+    table[:, 0] = torch.arange(K, dtype=torch.int32, device=spec.device)
+    table[spec.k_real_modes[:, 0].long()] = spec.k_real_modes
+    return dataclasses.replace(
+        spec, k_weighted_modes=table,
+        k_weighted_w=spec.k_weights.flatten().contiguous())
+
+
+@pytest.mark.parametrize("kernel", ["block", "step"])
+@pytest.mark.parametrize("name", sorted(BENCH_FORMS))
+def test_compact_mode_lists_keep_the_padded_walks_amplitudes(tmp_path, name,
+                                                             kernel):
+    """K2 (a 400-step block) and K3 (50 steps) at B = 64 on the same
+    uniforms, walking the compact mode lists and walking the padded grid
+    (_padded_walk_spec): only the k-space delta's summation order differs,
+    so at most 2 replicas decide otherwise (a near tie); on the rest the
+    positions and COMs are equal and the amplitudes equal bit for bit, pad
+    modes untouched, E_RECIP within 1e-5 of the largest |E_RECIP| (a
+    running sum of accepted deltas of that size, in f32)."""
+    dev = _device()
+    sysm = _bench_config(name, tmp_path, dev)
+    spec = sysm.spec
+    padded = _padded_walk_spec(spec)
+    assert padded.k_weighted_modes.shape[0] == spec.k_weights.numel() > \
+        spec.k_weighted_modes.shape[0]
+    run = run_block_kernel if kernel == "block" else run_steps_kernel
+    states = replicate(spec, sysm.state, 64)
+    u = _draw(spec, 64, 400 if kernel == "block" else 50, 23)
+    c, p = run(spec, states, u), run(padded, states, u)
+    from maniac_tpu_torch.bench import same_decisions
+    same = same_decisions(c, p)
+    assert int((~same).sum()) <= 2
+    assert int((c.counters[:, 1] - states.counters[:, 1])[same].sum()) > 0
+    for field in ("pos", "com", "amp_re", "amp_im"):
+        assert torch.equal(getattr(c, field)[same],
+                           getattr(p, field)[same]), field
+    pad = torch.ones(spec.k_weights.numel(), dtype=torch.bool, device=dev)
+    pad[spec.k_real_modes[:, 0].long()] = False
+    for field in ("amp_re", "amp_im"):
+        assert torch.equal(getattr(c, field).flatten(1)[:, pad],
+                           getattr(states, field).flatten(1)[:, pad])
+    e_c, e_p = c.energy[same, E_RECIP], p.energy[same, E_RECIP]
+    scale = max(1.0, float(p.energy[:, E_RECIP].abs().max()))
+    assert float((e_c - e_p).abs().max()) <= 1e-5 * scale

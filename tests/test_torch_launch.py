@@ -276,6 +276,33 @@ def test_block_tables_match_the_kernel(stub, system, request):
         spec.host_scalars["fw_d0"] if spec.fw_split else 0.0, rel=1e-6)
 
 
+@pytest.mark.parametrize("system", ["zif32", "water32"])
+@pytest.mark.parametrize("kernel", ["block", "step"])
+def test_kernels_take_the_mode_lists(stub, system, kernel, request):
+    """Both step kernels get the spec's two k-space mode lists and the
+    weights, and their lengths as csrc/step_body.cuh's SI_N_KW and
+    SI_N_KR; nothing of the padded grid's k_weights or column tables."""
+    sysm = request.getfixturevalue(system)
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, 2)
+    _, u = draw_uniforms(spec, states, 2)
+    if kernel == "block":
+        blockg._launch(spec, states, u)
+    else:
+        stepg._run(spec, states, u)
+    ptrs, ints, _ = _unpack(stub.calls[-1])
+    sh = _shared()
+    for key, t in (("SP_KMODES", spec.k_weighted_modes),
+                   ("SP_KMODE_W", spec.k_weighted_w),
+                   ("SP_RMODES", spec.k_real_modes)):
+        assert ptrs[sh[key]] == t.data_ptr(), key
+    assert ints[sh["SI_N_KW"]] == spec.k_weighted_modes.shape[0] > 0
+    assert ints[sh["SI_N_KR"]] == spec.k_real_modes.shape[0] > ints[
+        sh["SI_N_KW"]]
+    for t in (spec.k_weights, spec.k_col_jx, spec.k_col_jy):
+        assert t.data_ptr() not in ptrs
+
+
 def _step_calls(stub, spec, states, n_steps, seed):
     """run_steps_kernel's launches (stepg._run on CPU tensors) of one
     n_steps block: (the returned state, the uniforms, the unpacked tables

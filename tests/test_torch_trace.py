@@ -162,15 +162,17 @@ def _load_config(name: str, outdir: Path):
                        compute_initial_energy=False)
 
 
-@pytest.mark.parametrize("config,split,frozen,far,active", [
-    ("flue_slit", True, 1792, 0, 2), ("spce750", False, 0, 0, 1)])
+@pytest.mark.parametrize("config,split,frozen,far,modes,active", [
+    ("flue_slit", True, 1792, 0, (1073, 2470), 2),
+    ("spce750", False, 0, 0, (1152, 2601), 1)])
 def test_load_records_the_split_and_counts_what_it_built(
-        tmp_path, config, split, frozen, far, active):
+        tmp_path, config, split, frozen, far, modes, active):
     """The framework split's build is a ``load.fwsplit`` span under
     ``load.build`` where there is a frozen type to build it from (the
     graphite slit) and no span where there is none (bulk water); the load
-    counts its live frozen sites, the far table's nonzero coefficients and
-    its active types."""
+    counts its live frozen sites, the far table's nonzero coefficients, the
+    weighted and the real k-space modes the kernels walk, and its active
+    types."""
     trace.enable(True)
     sysm = _load_config(config, tmp_path)
     got = trace.spans()
@@ -182,6 +184,7 @@ def test_load_records_the_split_and_counts_what_it_built(
     assert {k: v for k, v in trace.counters().items()
             if k.startswith("load.")} == {
         "load.frozen_sites": frozen, "load.far_coefficients": far,
+        "load.kspace_modes": modes[0], "load.commit_modes": modes[1],
         "load.active_types": active}
 
 
