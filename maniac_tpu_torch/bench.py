@@ -113,7 +113,7 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64}
 DECK_KNOBS = (("MANIAC_BENCH_FW_RCUT2", "fw_rcut2"),
               ("MANIAC_BENCH_FW_ALPHA2", "fw_alpha2"),
               ("MANIAC_BENCH_EWALD_ALPHA", "ewald_alpha"))
-# the kernel check (chip_smoke.py phase 2's bounds): replicas of the timed
+# the kernel check (tests/test_torch_gpu.py's bounds): replicas of the timed
 # state and steps on the same uniforms; replicas whose decisions may differ
 # (a Metropolis decision at its threshold may flip under f32 summation
 # order); positions, COMs and reservoir rows (A); energy components (K)

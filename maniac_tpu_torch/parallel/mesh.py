@@ -16,8 +16,7 @@ replica order, then the single-device reductions on the rank's device, so
 that the statistics do not depend on the world size either. (An
 all-reduce of partial sums would add in another order for every world
 size.) run_ranks starts the processes of a world on one host and waits
-for them, as the dry run (entry.dryrun_multichip), the tests and
-chip_smoke.py do.
+for them, as the dry run (entry.dryrun_multichip) and the tests do.
 """
 
 from __future__ import annotations

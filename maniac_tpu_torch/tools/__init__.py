@@ -6,17 +6,16 @@ clock64-instrumented build), ``launch_cost`` (the host's cost of a
 kernel launch), ``kernel_times`` (the step and one-hot kernels, each
 timed two ways), ``micro_times`` (the micro-benchmark kernels timed two
 ways and their loops' SASS), ``resync_times`` (the resync kernel at B =
-1024 and B = 1, and its time by section), ``cli_times`` (the command line's
-isotherm and single chain, run after run in one process) and
-``sentinel_rate`` (the sentinel's divergences over long command-line
-runs), each run as ``python -m maniac_tpu_torch.tools.<name>``.
+1024 and B = 1, and its time by section) and ``sentinel_rate`` (the
+sentinel's divergences over long command-line runs), each run as
+``python -m maniac_tpu_torch.tools.<name>``.
 They need a CUDA device and exit 1 without one; every time they print
 comes with the card's name and power limit. The validation tools
 ``delta_e_report`` (the f32 per-move dE envelope), ``validate_spce``
 (SPC/E's Widom mu_ex) and ``run_examples`` (the named examples through
 the command line) run on the card by default, and on the CPU when given
 ``--platform cpu``. ``bounds`` has no command line: it counts the least
-time the card could take for a kernel call's work, for chip_smoke.py and
+time the card could take for a kernel call's work, for
 ``python -m maniac_tpu_torch.bench``.
 """
 

@@ -4,9 +4,8 @@ The larger of the bytes the call must move (each input read once, each
 output written once) over the card's memory rate and its f32 operations
 over the card's f32 peak, both counted from the call's own inputs and
 outputs; where the work depends on the data (trials that need energies,
-live sites), only what this call's data needs is counted. chip_smoke.py's
-kernels line and ``python -m maniac_tpu_torch.bench``'s layers line read
-them, so the two give the same bound for the same call.
+live sites), only what this call's data needs is counted.
+``python -m maniac_tpu_torch.bench``'s layers line reads them.
 """
 
 from __future__ import annotations

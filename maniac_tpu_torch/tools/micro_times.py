@@ -14,7 +14,7 @@ enqueues them); device-paced times are the smallest of three passes
 (device_min_ms). K6's cur, noerfc and nowrap and K8's two forms are also
 timed device-paced at twice the work (200 steps; n 1024), with the ratio,
 which is near 2 when every step and iteration is computed (GROWTH_MIN is
-the least chip_smoke.py accepts). ``--sass DIR`` writes
+the least tests/test_torch_gpu.py accepts). ``--sass DIR`` writes
 ``cuobjdump -sass`` of the K6, K7, K8 and T kernels into DIR and prints,
 for each innermost loop, its instructions a pair (K7: an application of
 the op) by class (FP32 pipe, MUFU, conversions, integer and the rest; the
@@ -25,7 +25,7 @@ results per SM a clock; for K7's nine chains also the pass's floor in ms
 the card's maximum SM clock) and the share of it the device-paced time
 reaches; for T's f32 kernel, which has no loop, its instructions a value
 by pipe (threefry_mix) and the floor they give at the main path's (1024,
-400, 21), where chip_smoke.py phase 13b times it; for the no-split block
+400, 21); for the no-split block
 kernel (blockg_kernel<false,false,false>, K2's form on water boxes), each
 innermost loop that takes a root (MUFU.RSQ: the pair pass and the
 intramolecular terms) with its instructions, roots, branch regions (BSSY)

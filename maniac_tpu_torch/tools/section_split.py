@@ -42,7 +42,7 @@ SECTIONS = ("proposal", "phase tables", "pair pass", "k-space delta",
             "amplitude commit")
 SECTION_REPLICAS = 4096   # csrc/common.cuh
 DEFINES = ("MANIAC_SECTION_CLOCKS",)
-# chip_smoke.py's flagship and bench.py's mixed (capacity 192 a type), and
+# bench.py's flagship (zif) and mixed (capacity 192 a type), and
 # SPC/E water in the shape of the benchmark's spce750: 750 waters at 0.83
 # g/cm^3 (a 30 A box), 10 A cutoff, Ewald tolerance 1e-5, 298 K, capacity
 # 1024, the no-split form

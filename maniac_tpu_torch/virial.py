@@ -1,7 +1,7 @@
 """The dilute LJ gas against its virial expansion: an anchor of GCMC
 sampling that lies outside the codebase (the counterpart of
 tests/test_virial_anchor.py's system and estimators, shared by
-tests/test_torch_virial_anchor.py on the CPU and chip_smoke.py phase 15b
+tests/test_torch_virial_anchor.py on the CPU and tests/test_torch_gpu_runs.py
 on the card).
 
     rho(z) = z - 2 B2(T) z^2 + O(z^3)

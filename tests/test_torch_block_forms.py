@@ -7,7 +7,7 @@ to maniac_tpu/kernels/blockg.py::run_block_grouped in interpret mode on the
 same numpy uniforms (quantity-major, unpacked as maniac_tpu/mc/driver.py::
 block_body_group does), then the step-size recalibration and the amplitude
 resync of both packages. The CUDA forms are held to the plain block on the
-card (tests/test_torch_gpu.py, chip_smoke.py phases 8-9).
+card (tests/test_torch_gpu.py).
 
 The mixed cases are inside both packages' block gates: a framework with
 the static split and two active species, and two species with no

@@ -8,7 +8,7 @@ maniac_tpu/physics/energy.py::fw_far_energy on numpy-seeded positions and
 weights, on the split framework fixture of tests/test_torch_energy.py, a
 two-species framework (bench.py's mixed shape) and a slit pore, whose box
 is not cubic and whose rows are ragged. The kernels themselves are held to
-the plain path on the card (tests/test_torch_gpu.py, chip_smoke.py)."""
+the plain path on the card (tests/test_torch_gpu.py)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ without the suite's conftest:
 
 import dataclasses
 import functools
+import math
+import tempfile
 
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ import torch
 
 from box_lengths import BOX_SYSTEMS, box_lengths
 from zero_uniform import creation_rows
-from maniac_tpu_torch import load_system, replicate, run_block_replicated
+from maniac_tpu_torch import (bench, load_system, replicate,
+                              run_block_replicated)
 from maniac_tpu_torch.kernels import (IMAGE_REACH_BOXES, dispatch_report,
                                       image_thresholds)
 from maniac_tpu_torch.kernels.blockg import run_block_kernel
@@ -28,13 +31,19 @@ from maniac_tpu_torch.kernels.stepg import run_steps_kernel
 from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS, PRIMS,
                                           VPU_OPS, VPU_RTOL, cpass,
                                           cpass_plain, f32_bits, image_check,
-                                          prim_check,
+                                          prim_check, prim_check_plain,
                                           vpu_chain, vpu_chain_plain)
 from maniac_tpu_torch.kernels.threefry import (split_uniform,
                                                split_uniform_plain)
-from maniac_tpu_torch.mc.driver import resync_amplitudes, steps_plain
+from maniac_tpu_torch.mc.driver import (draw_uniforms, drift_report,
+                                        resync_amplitudes, sentinel_check,
+                                        sentinel_passed, steps_plain)
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
-                                                run_block_sweep)
+                                                run_block_sweep,
+                                                run_block_uniforms)
+from maniac_tpu_torch.physics.energy import (active_site_mask,
+                                             full_amplitudes, recip_energy,
+                                             site_positions)
 from maniac_tpu_torch.kernels import build
 from maniac_tpu_torch.system import (E_COUL, E_INTRA, E_LJ, E_RECIP, E_SELF,
                                      E_TOT, to_device)
@@ -44,20 +53,26 @@ from maniac_tpu_torch.systems import (make_framework_mixed,
                                       make_slit_pore, make_water_box,
                                       make_water_reservoir, make_zif_like,
                                       tiny_system)
+from maniac_tpu_torch.tools import gpass_bench
 from maniac_tpu_torch.tools.gpass_bench import check_inputs
 from maniac_tpu_torch.tools.gpass_bench import inputs as gpass_inputs
+from maniac_tpu_torch.tools.kernel_times import isotherm_spec
+from maniac_tpu_torch.tools.micro_times import (CPASS_FORMS, GROWTH_MIN,
+                                                PAIR_VARIANTS, growth)
 from maniac_tpu_torch.tools.resync_times import SYSTEMS as RESYNC_SYSTEMS
 from maniac_tpu_torch.tools.resync_times import (edge_replicas, load_cell,
                                                  replica)
 from maniac_tpu_torch.tools.vpu_bench import cpass_inputs, plane
-from maniac_tpu_torch.utils.hwprobe import onehot_operands, probe_onehot_exact
+from maniac_tpu_torch.utils.hwprobe import (hw_precision_check,
+                                            onehot_operands,
+                                            probe_onehot_exact)
 from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.threefry import prng_key, split, uniform
 
 pytestmark = pytest.mark.gpu
 
-# the chip_smoke.py / tests/test_blockg.py bounds: decisions identical,
-# positions to f32 ulp, running energies summed in another order
+# tests/test_blockg.py's bounds: decisions identical, positions to f32 ulp,
+# running energies summed in another order
 POS_TOL = 1e-4      # Angstrom
 ENERGY_TOL = 5.0    # Kelvin
 AMP_TOL = 2e-4
@@ -136,8 +151,10 @@ def _bench_cell(name):
 
 def _resync_cases():
     """(system, B) of the resync checks: bench.py's four systems at B = 1,
-    7 and 1024, and the small framework fixture at B = 8."""
-    return [(name, B) for name in RESYNC_SYSTEMS for B in (1, 7, 1024)] + [
+    7, 64 and 1024 (each a tiling of its own on the water boxes), and the
+    small framework fixture at B = 8."""
+    return [(name, B) for name in RESYNC_SYSTEMS
+            for B in (1, 7, 64, 1024)] + [
         ("zif_small", 8)]
 
 
@@ -176,9 +193,7 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
     states = edge_replicas(spec, states, seed=B)
     batches = [replica(states, i) for i in range(n)] if B == 1 else [states]
     for k_in, st in enumerate(batches):
-        k, again = resync_grouped(spec, st), resync_grouped(spec, st)
-        for f in ("amp_re", "amp_im", "energy"):
-            assert torch.equal(getattr(k, f), getattr(again, f)), f
+        k = _resync_twice(spec, st, k_in == 0)
         p = resync_plain(spec, st)
         torch.testing.assert_close(k.amp_re, p.amp_re, rtol=0, atol=AMP_TOL)
         torch.testing.assert_close(k.amp_im, p.amp_im, rtol=0, atol=AMP_TOL)
@@ -193,9 +208,19 @@ def test_resync_kernel_matches_plain(tmp_path, system, B):
         e = k.energy
         assert torch.equal(e[:, E_TOT], e[:, E_RECIP] + e[:, E_LJ]
                            + e[:, E_COUL] + e[:, E_SELF] + e[:, E_INTRA])
-        if k_in == 0:
-            assert torch.equal(k.amp_re[0], spec.fw_amp_re)
-            assert torch.equal(k.amp_im[0], spec.fw_amp_im)
+
+
+def _resync_twice(spec, st, edges):
+    """K1 on ``st`` launched twice, which must give the same bits; with
+    ``edges`` (edge_replicas' first batch) replica 0, which has no guests,
+    holds fw_amp exactly. Returns the result."""
+    k, again = resync_grouped(spec, st), resync_grouped(spec, st)
+    for f in ("amp_re", "amp_im", "energy"):
+        assert torch.equal(getattr(k, f), getattr(again, f)), f
+    if edges:
+        assert torch.equal(k.amp_re[0], spec.fw_amp_re)
+        assert torch.equal(k.amp_im[0], spec.fw_amp_im)
+    return k
 
 
 def test_launch_counts_and_refusals(tmp_path):
@@ -447,7 +472,8 @@ def test_vpu_chain_kernel_matches_plain_at_the_range_ends(op):
 def test_prim_check_finds_no_mismatch(name):
     """The exhaustive check of csrc/prims.cuh: every f32 in the
     primitive's domain gives the bits of the expression it replaces, and
-    every value of the domain is checked."""
+    every value of the domain is checked; the plain version of the check
+    on the card finds the same."""
     dev = _device()
     lo, hi = PRIM_DOMAINS[name]
     n0 = trace.counters()
@@ -455,6 +481,9 @@ def test_prim_check_finds_no_mismatch(name):
     assert build.launch_counts(n0)["prim_check"] == 1
     assert res["mismatches"] == 0, res
     assert res["checked"] == f32_bits(hi) - f32_bits(lo) + 1
+    plain = prim_check_plain(name, device=dev)
+    assert plain["mismatches"] == 0, plain
+    assert plain["checked"] == res["checked"]
 
 
 @pytest.mark.parametrize("case", ["30.0", *BOX_SYSTEMS])
@@ -584,11 +613,10 @@ def _assert_steps_parity(spec, states, u, max_diverged):
     counters, extras, reservoir counts) identical on all but max_diverged
     replicas; on the rest positions, COMs and reservoir rows within 1e-4 A,
     energies within 5 K, the amplitudes the kernel committed within
-    AMP_TOL max(1, max|A|) and E_RECIP within 1e-5 relative (chip_smoke.py
-    phase 4's limits). The kernel launches once a step, leaves the input
-    state as it was, keeps every energy finite and, with a reservoir,
-    conserves box + reservoir + drops on every replica. Returns the
-    kernel's state."""
+    AMP_TOL max(1, max|A|) and E_RECIP within 1e-5 relative. The kernel
+    launches once a step, leaves the input state as it was, keeps every
+    energy finite and, with a reservoir, conserves box + reservoir + drops
+    on every replica. Returns the kernel's state."""
     before = {name: v.clone() for name, v in vars(states).items()}
     n0 = trace.counters()
     k = run_steps_kernel(spec, states, u)
@@ -875,11 +903,11 @@ def test_kernels_take_no_move_of_probability_zero_at_a_zero_uniform(
 
 
 def test_step_kernel_f32_delta_e_envelope():
-    """chip_smoke.py phase 15a's envelope through the step kernel
-    (tools/delta_e_report: the flagship chemistry, 64 replicas from seed 3,
-    200 steps, one launch a step): every accepted move's f32 running dE
-    against an f64 recompute on the card, within tests/test_precision.py's
-    bounds (max 5e-4, mean 1e-4 kcal/mol)."""
+    """The f32 dE envelope through the step kernel (tools/delta_e_report:
+    the flagship chemistry, 64 replicas from seed 3, 200 steps, one launch
+    a step): every accepted move's f32 running dE against an f64
+    recompute on the card, within tests/test_precision.py's bounds (max
+    5e-4, mean 1e-4 kcal/mol)."""
     from maniac_tpu_torch.tools.delta_e_report import measure
     _device()
     n0 = trace.counters()
@@ -1016,3 +1044,319 @@ def test_compact_mode_lists_keep_the_padded_walks_amplitudes(tmp_path, name,
     e_c, e_p = c.energy[same, E_RECIP], p.energy[same, E_RECIP]
     scale = max(1.0, float(p.energy[:, E_RECIP].abs().max()))
     assert float((e_c - e_p).abs().max()) <= 1e-5 * scale
+
+
+# ---- the main path's checks at its own sizes -------------------------------
+# bench.py's systems at the main path's batch and block; a block of the
+# main path; the replicas a K2 or K3 check on its batch may see diverge (a
+# Metropolis decision at its threshold may flip under f32 summation order)
+MAIN_REPLICAS, MAIN_STEPS = 1024, 400
+MAIN_DIVERGED = MAIN_REPLICAS // 64
+
+
+def _amp_check(amp_re, amp_im, e_recip, ref_re, ref_im, ref_e):
+    """Amplitudes against a reference synthesis within 1e-4 max(1,
+    max|A_ref|), E_RECIP within 1e-5 relative (an exact match is no
+    error, also where E_RECIP is 0)."""
+    scale = max(1.0, float(torch.maximum(ref_re.abs(), ref_im.abs()).max()))
+    err = float(torch.maximum((amp_re - ref_re).abs(),
+                              (amp_im - ref_im).abs()).max())
+    assert err <= 1e-4 * scale, (err, scale)
+    d_e = (e_recip - ref_e).abs()
+    rel = float(torch.where(d_e == 0, 0.0, d_e / ref_e.abs()).max())
+    assert rel <= 1e-5, rel
+
+
+def _recip(st):
+    """_amp_check's three arguments of one state."""
+    return st.amp_re, st.amp_im, st.energy[:, E_RECIP]
+
+
+def _resync_check(spec, states):
+    """K1 on ``states`` against its plain version (_amp_check), then on
+    their edge replicas (tools/resync_times.edge_replicas; at B < 3 each
+    alone): two launches on one input give the same bits, and the replica
+    without guests holds fw_amp exactly."""
+    _amp_check(*_recip(resync_grouped(spec, states)),
+               *_recip(resync_plain(spec, states)))
+    single = states.B < 3
+    edges = edge_replicas(spec, replicate(spec, states, 3) if single
+                          else states, seed=states.B)
+    for i, st in enumerate([replica(edges, i) for i in range(3)] if single
+                           else [edges]):
+        _amp_check(*_recip(_resync_twice(spec, st, i == 0)),
+                   *_recip(resync_plain(spec, st)))
+
+
+def _block_check(k, p, max_diverged, e_bound=None):
+    """Kernel (k) against plain (p) outputs of one block: the decisions
+    (bench.same_decisions) alike on all but max_diverged replicas; on the
+    rest positions, COMs and reservoir rows within POS_TOL and energies
+    within ENERGY_TOL, or within e_bound (B, 6) where given. Returns the
+    mask of the replicas that decided alike."""
+    same = bench.same_decisions(k, p)
+    assert int((~same).sum()) <= max_diverged, int((~same).sum())
+    pos_err, e_err, e_ok = bench.block_errors(k, p, same, e_bound)
+    assert pos_err <= POS_TOL and e_ok, (pos_err, e_err)
+    return same
+
+
+def _main_cell(system):
+    """bench.py's system on the card, loaded once: the four of
+    _bench_cell, ``water_box`` (resv's box without its reservoir) and
+    bigS at the bench's capacity (``bigS``) and at the reference's cap of
+    5000 a type (``bigS-5000``, src/parameters.f90:8)."""
+    if system.startswith("bigS"):
+        return _big_cell(5000 if system == "bigS-5000" else None)
+    if system == "water_box":
+        return _water_box_cell()
+    return _bench_cell(system)
+
+
+@functools.cache
+def _big_cell(capacity):
+    return bench.load("bigS", torch.device("cuda"), capacity)
+
+
+@functools.cache
+def _water_box_cell():
+    with tempfile.TemporaryDirectory() as tmp:
+        make_water_box(tmp, **RESYNC_SYSTEMS["resv"][1])
+        return _load(tmp, torch.device("cuda"), 192)
+
+
+@functools.cache
+def _main_states(system):
+    """MAIN_REPLICAS replicas of ``system`` after one block of the main
+    path."""
+    sysm = _main_cell(system)
+    return run_block_replicated(
+        sysm.spec, replicate(sysm.spec, sysm.state, MAIN_REPLICAS),
+        MAIN_STEPS, False, True)
+
+
+@pytest.mark.parametrize("system", ["flagship", "mixed", "resv", "tricl",
+                                    "bigS", "bigS-5000"])
+def test_main_path_at_its_batch(system):
+    """The main path (replicate(B = 1024) -> run_block_replicated(400
+    steps, resync=True)) on bench.py's systems: the dispatch names K2 and
+    K1 (and K3 with a reservoir); a block launches T, K2 and K1 once each;
+    a block drawing its uniforms and the same block on them drawn ahead
+    make the same decisions; the state is finite, every population within
+    [0, capacity], box + reservoir + drops conserved, and replica 0's
+    amplitudes and E_RECIP match a fresh synthesis (_amp_check). At that
+    batch K2 holds to the plain steps for 10 steps (_block_check, at most
+    B/64 replicas diverged; bigS's energies within bench.energy_bound) and
+    K1 to its plain version on the result and its edge replicas. bigS also
+    passes bench.kernel_check (8 replicas x 50 steps, at most one
+    diverged) with K1 on its result."""
+    dev = _device()
+    sysm = _main_cell(system)
+    spec = sysm.spec
+    e_load = sysm.state.energy[0] if system.startswith("bigS") else None
+    report = dispatch_report(spec, dev)
+    assert "block: CUDA whole-block kernel" in report
+    assert "resync: CUDA resync kernel" in report
+    if spec.has_reservoir:
+        assert "step: CUDA per-step kernel" in report
+    start = replicate(spec, sysm.state, MAIN_REPLICAS)
+    n0 = trace.counters()
+    states = run_block_replicated(spec, start, MAIN_STEPS, False, True)
+    launched = build.launch_counts(n0)
+    for name in ("threefry", "blockg", "resync"):
+        assert launched[name] == 1, launched
+    ahead, u = draw_uniforms(spec, start, MAIN_STEPS)
+    ahead = run_block_uniforms(spec, ahead, u, False, True)
+    assert torch.equal(ahead.n_mol, states.n_mol)
+    assert torch.equal(ahead.counters, states.counters)
+    assert bench.state_check(spec, start, states)
+    ref_re, ref_im = full_amplitudes(
+        spec, site_positions(spec, states)[:1],
+        active_site_mask(spec, states.n_mol[:1]))
+    _amp_check(states.amp_re[:1], states.amp_im[:1],
+               states.energy[:1, E_RECIP], ref_re, ref_im,
+               recip_energy(spec, ref_re, ref_im))
+    st, u = draw_uniforms(spec, states, 10)
+    k = run_block_kernel(spec, st, u)
+    bound = None if e_load is None else bench.energy_bound(
+        e_load, (k.counters[:, 1] - st.counters[:, 1]).sum(1))
+    _block_check(k, steps_plain(spec, st, u), MAIN_DIVERGED, bound)
+    _resync_check(spec, k)
+    if e_load is not None:
+        _, _, k = bench.kernel_check(
+            spec, replicate(spec, sysm.state, bench.CHECK_REPLICAS), e_load)
+        _resync_check(spec, k)
+
+
+def _step_chains_check(spec, states, max_diverged, n_steps):
+    """K3 against the plain steps on the same uniforms: one step, then an
+    n_steps chain (none where 0): _block_check's bounds, and on the
+    replicas that decided alike the amplitudes the kernel committed and
+    E_RECIP within _amp_check's; one launch a step, and the input state
+    left as it was."""
+    before = {name: v.clone() for name, v in vars(states).items()}
+    keyed = states    # the uniforms' keys advance here, not in states
+    for n in (1, n_steps) if n_steps else (1,):
+        keyed, u = draw_uniforms(spec, keyed, n)
+        n0 = trace.counters()
+        k = run_steps_kernel(spec, states, u)
+        assert build.launch_counts(n0)["stepg"] == n
+        p = steps_plain(spec, states, u)
+        same = _block_check(k, p, max_diverged)
+        _amp_check(k.amp_re[same], k.amp_im[same], k.energy[same, E_RECIP],
+                   p.amp_re[same], p.amp_im[same], p.energy[same, E_RECIP])
+    for name, v in vars(states).items():
+        assert torch.equal(v, before[name]), name
+
+
+# id: (system, B, replicas that may diverge, chain steps); B = 1024 is
+# the main path's states after a block, under the system's spec or the
+# isotherm's (8 fugacities x 128 replicas, one activity table a replica)
+STEP_CHAINS = {
+    "flagship-64": ("flagship", 64, 1, 50),
+    "flagship-1": ("flagship", 1, 0, 50),
+    "flagship-1024": ("flagship", MAIN_REPLICAS, MAIN_DIVERGED, 0),
+    "isotherm-1024": ("isotherm", MAIN_REPLICAS, MAIN_DIVERGED, 50),
+    "mixed-64": ("mixed", 64, 1, 50),
+    "water_box-64": ("water_box", 64, 1, 50),
+    "resv-64": ("resv", 64, 1, 50),
+    "tricl-64": ("tricl", 64, 1, 50),
+    "tricl-1": ("tricl", 1, 0, 50),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CHAINS))
+def test_step_kernel_chains_on_the_bench_systems(case):
+    """K3 against the plain steps on bench.py's systems
+    (_step_chains_check): at B = 64, at B = 1 (the single chain's shape,
+    no divergence allowed) and at the main path's batch."""
+    dev = _device()
+    system, B, max_diverged, n_steps = STEP_CHAINS[case]
+    sysm = _main_cell("flagship" if system == "isotherm" else system)
+    spec = sysm.spec
+    if B == MAIN_REPLICAS:
+        states = _main_states("flagship")
+        if system == "isotherm":
+            spec = isotherm_spec(spec)
+    else:
+        states = replicate(spec, sysm.state, B)
+    assert "step: CUDA per-step kernel" in dispatch_report(spec, dev)
+    _step_chains_check(spec, states, max_diverged, n_steps)
+
+
+def test_load_on_the_card_turns_tf32_off(tmp_path):
+    """Moving a system onto the card turns TF32 off for matmul and cuDNN,
+    though it was on."""
+    dev = _device()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        _zif_small(str(tmp_path))
+        _load(str(tmp_path), dev, 16)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def test_hw_precision_check_passes():
+    """utils/hwprobe.hw_precision_check(blocks=4), K5's caller, returns
+    "pass" and launches K5 and K2."""
+    _device()
+    n0 = trace.counters()
+    verdict, detail = hw_precision_check(blocks=4)
+    launched = build.launch_counts(n0)
+    assert verdict == "pass", detail
+    assert launched["onehot"] >= 1 and launched["blockg"] >= 1
+
+
+def test_sentinel_passes_its_block_and_flags_another():
+    """sentinel_check on the flagship (B = 64, 50 steps, the resync): no
+    mismatch against the block's own result, and counter mismatches
+    against the state one block further on."""
+    _device()
+    sysm = _bench_cell("flagship")
+    spec = sysm.spec
+    st, u1 = draw_uniforms(spec, replicate(spec, sysm.state, 64), 50)
+    _, u2 = draw_uniforms(spec, st, 50)
+    post = run_block_uniforms(spec, st, u1, False, True)
+    post2 = run_block_uniforms(spec, post, u2, False, True)
+    same = sentinel_check(spec, st, post, u1, False, resync=True)
+    assert sentinel_passed(same), same
+    other = sentinel_check(spec, st, post2, u1, False, resync=True)
+    assert other["counter_mismatch"] > 0, other
+
+
+@pytest.mark.parametrize("variant", GPASS_VARIANTS)
+def test_gpass_kernel_matches_plain_at_the_tools_shape(variant):
+    """K6 at tools/gpass_bench's defaults (G 64, 47 x 128 sites, FL 2,
+    FQ 6, 100 steps): the full pass, its Coulomb rows alone and its LJ
+    rows alone (FQ 0, on check_inputs), each launched once and within
+    GPASS_RTOL of the plain version's sum of |terms|."""
+    dev = _device()
+    G, S, n = gpass_bench.G, gpass_bench.NC * 128, gpass_bench.NSTEP
+    fl, fq = gpass_bench.FL, gpass_bench.FQ
+    full = gpass_inputs(G, S, fl, dev)
+    for ins, q in ((full, fq), ((*full[:4], full[4][:0], full[5][:0]), fq),
+                   (check_inputs(G, S, fl, 0, n, dev), 0)):
+        n0 = trace.counters()
+        k = float(gpass(*ins, n, q, variant))
+        assert build.launch_counts(n0)["gpass"] == 1
+        assert math.isfinite(k)
+        assert abs(k - float(gpass_plain(*ins, n, q, variant))) \
+            <= GPASS_RTOL * gpass_scale(*ins, n, q, variant)
+
+
+@pytest.mark.parametrize("kernel", [*PAIR_VARIANTS, *CPASS_FORMS])
+def test_micro_kernel_time_grows_with_its_work(kernel):
+    """K6's pair variants at the tool's shape and K8's two forms take at
+    least GROWTH_MIN times as long, device-paced, at twice the steps or
+    iterations (tools/micro_times.growth): a kernel that hoisted a term
+    out of its loop would not."""
+    dev = _device()
+    if kernel in PAIR_VARIANTS:
+        ins = gpass_inputs(gpass_bench.G, gpass_bench.NC * 128,
+                           gpass_bench.FL, dev)
+
+        def fn(k):
+            return gpass(*ins, k * gpass_bench.NSTEP, gpass_bench.FQ, kernel)
+    else:
+        ins = cpass_inputs(128, 1280, dev)
+
+        def fn(k):
+            return cpass(*ins, k * 512, kernel == "cpassT")
+    a, b, ratio = growth(fn, 20)
+    assert ratio >= GROWTH_MIN, (a, b)
+
+
+def test_tabulated_water_box_on_the_card_matches_the_cpu(tmp_path):
+    """tests/test_tabulated.py's GCMC water box with use_table, f64, B =
+    16, two blocks of 100 steps from one seed, on the card and on the
+    CPU: the dispatch names the tabulated potentials (the plain torch
+    step), every replica's bookkeeping within 1e-6 K of a recompute, the
+    same decisions, and energies within 1e-9 relative of the CPU's."""
+    dev = _device()
+    make_water_box(str(tmp_path), n_water=8, L=14.0, cutoff=5.0, tol=1e-4,
+                   probs=(0.3, 0.2, 0.5, 0.0), fugacity=5000.0,
+                   use_table="true")
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        sysm = load_system(f"{tmp_path}/input.maniac",
+                           f"{tmp_path}/topology.data",
+                           f"{tmp_path}/parameters.inc", dtype=torch.float64,
+                           device=where, seed=1234)
+        states = replicate(sysm.spec, sysm.state, 16)
+        for _ in range(2):
+            states = run_block_replicated(sysm.spec, states, 100, True)
+        runs[where.type] = (sysm.spec, states)
+    spec, card = runs["cuda"]
+    cpu = runs["cpu"][1]
+    assert "tabulated potentials" in dispatch_report(spec, dev)
+    assert max(drift_report(spec, card, b)["drift_K"]
+               for b in range(16)) <= 1e-6
+    assert torch.equal(card.n_mol.cpu(), cpu.n_mol)
+    assert torch.equal(card.counters.cpu(), cpu.counters)
+    rel = (card.energy.cpu() - cpu.energy).abs() / cpu.energy.abs().clamp(
+        min=1.0)
+    assert float(rel.max()) <= 1e-9

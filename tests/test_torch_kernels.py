@@ -3,7 +3,7 @@ wrappers against the JAX package, the whole slice, and the dispatch.
 
 On the CPU each wrapper runs its plain torch version (a CUDA kernel has no
 CPU mode); the kernels themselves are held to these plain versions on the
-card by chip_smoke.py and tests/test_torch_gpu.py."""
+card by tests/test_torch_gpu.py."""
 
 import jax
 import numpy as np

@@ -39,7 +39,7 @@ def _tricl(d):
 
 
 def _zif(d):
-    # the flagship's framework (chip_smoke.py, bench.py's zif) and its far
+    # the flagship's framework (bench.py's zif) and its far
     # table, at the flagship's size
     make_zif_like(str(d), n_cells=6, a=5.66, n_water=32, fugacity=30.0)
     return load_system(*_files(d), capacity=192, device="cpu",

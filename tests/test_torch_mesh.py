@@ -4,10 +4,11 @@ gloo: one process a rank, the replica axis split over the ranks.
 
 The ranks of every world size are spawned once, all at a time, in a
 module-scoped fixture (this file run as a program is one rank: ``python
-tests/test_torch_mesh.py <rank> <world> <init URL> <decks> <out>``); the
-parametrised cases assert on what they saved. Every multi-process case has
-its own timeout. JAX is imported only by the case that runs it, so that a
-rank imports torch alone.
+tests/test_torch_mesh.py <rank> <world> <init URL> <decks> <out>
+[device]``, the device cpu, or cuda:0 for tests/test_torch_gpu_runs.py's
+ranks sharing a card); the parametrised cases assert on what they saved.
+Every multi-process case has its own timeout. JAX is imported only by the
+case that runs it, so that a rank imports torch alone.
 """
 
 import os
@@ -20,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from maniac_tpu_torch import load_system, replicate, run_block_replicated
+from maniac_tpu_torch.kernels import build, dispatch_report, use_block_kernel
 from maniac_tpu_torch.parallel.mesh import (INIT_TIMEOUT, Mesh,
                                             gather_mean_population,
                                             gather_replica_stats, make_mesh,
@@ -28,6 +30,7 @@ from maniac_tpu_torch.parallel.mesh import (INIT_TIMEOUT, Mesh,
                                             shard_replicas)
 from maniac_tpu_torch.system import E_TOT
 from maniac_tpu_torch.systems import make_lj_gas, tiny_system
+from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.logger import NullLogger
 
 torch.set_num_threads(1)
@@ -37,6 +40,8 @@ SHAPES = ("lj", "flagship", "mixed", "resv", "tricl")
 WORLDS = (1, 2, 4)
 # tests/test_cli_and_parallel.py::test_mesh_sharded_replicas's block
 N_REPLICAS, N_STEPS = 16, 60
+# steps of rank 0's K2 check on a card
+CHECK_STEPS = 50
 FIELDS = ("n_mol", "counters", "energy", "pos", "com", "key", "amp_re",
           "amp_im", "res_n", "extras", "trans_step", "rot_step")
 # seconds all the ranks of the fixture (or of one launcher run) may take
@@ -72,11 +77,13 @@ def _files(root, shape):
              f"{d}/parameters.inc"), res)
 
 
-def _load(root, shape):
+def _load(root, shape, device="cpu"):
+    """A shape in f64 on the CPU, in f32 (the kernels' dtype) on a card."""
     files, res = _files(root, shape)
     return load_system(*files, reservoir_file=res,
                        capacity=None if shape == "lj" else 16,
-                       dtype=torch.float64, device="cpu",
+                       dtype=torch.float64 if torch.device(device).type
+                       == "cpu" else torch.float32, device=device,
                        logger=NullLogger())
 
 
@@ -97,28 +104,59 @@ def _count_collectives() -> dict:
     return counts
 
 
-def _rank_main(rank, world, init, decks, out):
+def _fields(st, names=FIELDS):
+    """The named fields of a state, on the host."""
+    return {f: getattr(st, f).cpu() for f in names}
+
+
+def _card_checks(mesh, spec, states):
+    """Rank 0's kernel runs on a card: where K2 takes the spec, K2 and the
+    plain steps on the same uniforms for CHECK_STEPS steps; one sharded
+    block with the resync, the resync's launches in it, and the plain
+    resync of its result."""
+    from maniac_tpu_torch.kernels.blockg import run_block_kernel
+    from maniac_tpu_torch.kernels.resync import resync_plain
+    from maniac_tpu_torch.mc.driver import draw_uniforms, steps_plain
+    every = list(vars(states))
+    out = {}
+    if use_block_kernel(spec, mesh.device):
+        st, u = draw_uniforms(spec, states, CHECK_STEPS)
+        out["block"] = (_fields(run_block_kernel(spec, st, u), every),
+                        _fields(steps_plain(spec, st, u), every))
+    n0 = trace.counters()
+    rs = run_block_sharded(mesh, spec, states, N_STEPS, False, resync=True)
+    out["resync_launches"] = build.launch_counts(n0)["resync"]
+    out["resync"] = (_fields(rs, every), _fields(resync_plain(spec, rs),
+                                                 every))
+    return out
+
+
+def _rank_main(rank, world, init, decks, out, device="cpu"):
     """One rank: every shape sharded over the world at N_REPLICAS, one
     block of N_STEPS, the gathered statistics and the collectives made in
     the block and in the gather; a world of 1 also runs the unsharded
     reference (replicate + run_block_replicated + gather_replica_stats
-    without a mesh). Saved to out/w<world>_r<rank>.pt."""
+    without a mesh). On a card also each block's kernel launches and the
+    dispatch, and rank 0's _card_checks. Saved to out/w<world>_r<rank>.pt."""
     dist.init_process_group("gloo", init_method=init, world_size=world,
                             rank=rank, timeout=INIT_TIMEOUT)
     try:
         counts = _count_collectives()
-        mesh = make_mesh(world, device="cpu")
+        mesh = make_mesh(world, device=device)
         saved = {}
         for shape in SHAPES:
-            sysm = _load(decks, shape)
+            sysm = _load(decks, shape, mesh.device)
             spec = replicate_spec(mesh, sysm.spec)
             states = shard_replicas(mesh, spec, sysm.state, N_REPLICAS)
             counts.clear()
+            n0 = trace.counters()
             states = run_block_sharded(mesh, spec, states, N_STEPS, False)
+            launches = build.launch_counts(n0)
             in_block = sum(counts.values())
-            stats = gather_replica_stats(states, spec.R, E_TOT, mesh=mesh)
+            stats = [t.cpu() for t in gather_replica_stats(
+                states, spec.R, E_TOT, mesh=mesh)]
             row = {"span": mesh.span(N_REPLICAS),
-                   "state": {f: getattr(states, f) for f in FIELDS},
+                   "state": _fields(states),
                    "stats": stats,
                    "collectives": (in_block,
                                    sum(counts.values()) - in_block)}
@@ -126,8 +164,14 @@ def _rank_main(rank, world, init, decks, out):
                 ref = run_block_replicated(
                     spec, replicate(spec, sysm.state, N_REPLICAS), N_STEPS,
                     False)
-                row["ref"] = {f: getattr(ref, f) for f in FIELDS}
-                row["ref_stats"] = gather_replica_stats(ref, spec.R, E_TOT)
+                row["ref"] = _fields(ref)
+                row["ref_stats"] = [t.cpu() for t in gather_replica_stats(
+                    ref, spec.R, E_TOT)]
+            if device != "cpu":
+                row["launches"] = launches
+                row["dispatch"] = dispatch_report(spec, mesh.device)
+                if rank == 0:
+                    row["checks"] = _card_checks(mesh, spec, states)
             saved[shape] = row
         torch.save(saved, f"{out}/w{world}_r{rank}.pt")
     finally:
@@ -162,6 +206,13 @@ def test_sharded_block_equals_unsharded(mesh_runs, world, shape):
     energies, positions, keys and the rest of the state), and every rank's
     gathered statistics are the unsharded gather_replica_stats exactly."""
     _, runs = mesh_runs
+    assert_sharded_equals_unsharded(runs, world, shape)
+
+
+def assert_sharded_equals_unsharded(runs, world, shape):
+    """test_sharded_block_equals_unsharded's assertions on the saved
+    ranks ``runs`` ({world: [rank 0's saved results, ...]}, world 1
+    among them)."""
     ref = runs[1][0][shape]
     spans = []
     for rank, saved in enumerate(runs[world]):
@@ -376,5 +427,4 @@ def test_run_ranks_kills_what_outlives_it():
 
 
 if __name__ == "__main__":
-    sys.exit(_rank_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                        sys.argv[4], sys.argv[5]))
+    sys.exit(_rank_main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]))

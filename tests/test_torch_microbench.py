@@ -125,8 +125,7 @@ def _lj_faulty(x, y, z, eps, sig, n_steps, fault):
 @pytest.mark.parametrize("fault", ["no_sr6", "no_rc2", "eps_row0",
                                    "sig_row0", "row_r_mod_fl"])
 def test_gpass_lj_check_rejects_faults(fault):
-    """The LJ-rows check that tests/test_torch_gpu.py and chip_smoke.py
-    make (check_inputs, FQ 0, GPASS_RTOL x gpass_scale) rejects a pass
+    """The LJ-rows check that tests/test_torch_gpu.py makes (check_inputs, FQ 0, GPASS_RTOL x gpass_scale) rejects a pass
     that drops the -sr6 attraction, skips the RC2 select, reads eps or
     sigma^2 of row 0 only, or takes row r % FL for r // G, by more than
     100 times its bound, at test_torch_gpu.py's shape (G 64, 8 chunks, 10

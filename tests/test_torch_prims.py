@@ -1,6 +1,6 @@
 """The branch-free primitives of csrc/prims.cuh and K7's use of them, on
 the CPU (the primitives themselves run only on the card: the exhaustive
-check is tests/test_torch_gpu.py's and chip_smoke.py's).
+check is tests/test_torch_gpu.py's).
 
   * the inputs K7's plain chain gives each primitive over all 512
     applications of every op, on the JAX tool's plane (linspace(0.1, 3.0)

@@ -5,8 +5,7 @@ port's run_steps_u with the plain energy core, from the same loaded state
 carried over with from_numpy: insertions copy a reservoir molecule as it
 is, accepted insertions pop it, accepted deletions push the molecule back
 (or drop it when the reservoir is full). The kernels' reservoir forms are
-held to these plain versions on the card (tests/test_torch_gpu.py,
-chip_smoke.py phase 7)."""
+held to these plain versions on the card (tests/test_torch_gpu.py)."""
 
 import os
 

@@ -8,7 +8,7 @@ against the kernel's enums with a stub in place of the kernel library.
 The fixtures are loaded with the JAX package and carried over
 (torch_parity.load_both), so the charge table is derived from the JAX
 package's leaves. The kernel itself is held to resync_plain on the card by
-chip_smoke.py and tests/test_torch_gpu.py."""
+tests/test_torch_gpu.py."""
 
 import ctypes
 import dataclasses
@@ -278,9 +278,9 @@ def _transcription(spec, states, t):
 def test_kernel_transcription_matches_plain(tmp_path, name, tiling_B):
     """The transcription of the kernel against resync_plain on its edge
     replicas (no guests, capacity, a charged-site count that is not a
-    multiple of the chunk) and the loaded state, with chip_smoke.py's
-    phase-1 bounds (max|dA| <= 1e-4 max(1, max|A|), E_RECIP within 1e-5
-    relative); the replica without guests holds fw_amp exactly."""
+    multiple of the chunk) and the loaded state, with the card tests'
+    bounds on a reference synthesis (max|dA| <= 1e-4 max(1, max|A|),
+    E_RECIP within 1e-5 relative: tests/test_torch_gpu.py::_amp_check); the replica without guests holds fw_amp exactly."""
     spec, state = _load(name, tmp_path)
     states = edge_replicas(spec, replicate(spec, state, 4), seed=5)
     n_q = (_charged_live(spec, states.n_mol).sum(1)).tolist()

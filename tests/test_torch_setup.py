@@ -35,7 +35,6 @@ def test_import_leaves_jax_out():
             "maniac_tpu_torch.tools.section_split, "
             "maniac_tpu_torch.tools.kernel_times, "
             "maniac_tpu_torch.tools.resync_times, "
-            "maniac_tpu_torch.tools.cli_times, "
             "maniac_tpu_torch.tools.micro_times, "
             "maniac_tpu_torch.kernels.threefry, "
             "maniac_tpu_torch.mc.widom, maniac_tpu_torch.io.checkpoint, "
@@ -52,19 +51,6 @@ def test_import_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    env=env, timeout=120)
-
-
-def test_chip_smoke_refuses_without_a_card():
-    """chip_smoke.py exits non-zero and prints no result line when
-    torch.cuda.is_available() is false."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=120)
-    assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout
 
 
 def _zif(outdir):

@@ -8,7 +8,7 @@ That core is held here to the JAX package's grouped Pallas step core
 (kernels/stepg.py, run in interpret mode with MANIAC_PALLAS=1, as
 tests/test_kernels.py runs it) on the same proposals, and the dispatched
 steps to JAX's mc_step_u chains; the kernel itself is held to the plain
-steps on the card by chip_smoke.py phase 4 and tests/test_torch_gpu.py."""
+steps on the card by tests/test_torch_gpu.py."""
 
 import os
 
