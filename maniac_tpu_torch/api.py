@@ -90,13 +90,16 @@ def load_system(input_file: str, data_file: str, params_file: str,
 
 def _count_loaded(spec: SystemSpec, state: SimState) -> None:
     """Counters of what the load built: ``load.frozen_sites`` (live sites of
-    the frozen types), ``load.far_coefficients`` (the far table's nonzero
+    the frozen types), ``load.frozen_tiles`` (the tiles the footprint
+    kernels sweep them in; 0 without the framework split),
+    ``load.far_coefficients`` (the far table's nonzero
     coefficients), ``load.kspace_modes`` and ``load.commit_modes`` (the
     weighted and the real k-space modes the footprint kernels walk, of the
     spec's (JzP, JxyP) grid) and ``load.active_types``."""
     frozen = sum(int(state.n_mol[0, r]) * spec.A_list[r]
                  for r in range(spec.R) if not spec.active_list[r])
     trace.count("load.frozen_sites", frozen)
+    trace.count("load.frozen_tiles", int(spec.fw_tile_box.shape[0]))
     trace.count("load.far_coefficients", int((spec.far_coef != 0).sum()))
     trace.count("load.kspace_modes", int(spec.k_weighted_modes.shape[0]))
     trace.count("load.commit_modes", int(spec.k_real_modes.shape[0]))

@@ -51,13 +51,15 @@ def _launch(spec, states, uniforms):
 
 
 def form(spec: SystemSpec) -> str:
-    """The template form of csrc/blockg.cu (<TRICLINIC, MULTI, FAR>) a
-    launch for ``spec`` takes, as its counter ``blockg.form.<form>``
+    """The template form of csrc/blockg.cu (<TRICLINIC, MULTI, FAR, TILES>)
+    a launch for ``spec`` takes, as its counter ``blockg.form.<form>``
     names it: the forms' flags joined by ``_`` (``tricl``, ``multi``,
-    ``far``; a triclinic box has no far form), ``single`` for none."""
-    far = (spec.fw_split and not spec.is_triclinic
-           and spec.far_units.shape[0] > 0)
+    ``far``, ``tiles``: a frozen prefix, swept by tiles; a triclinic box
+    has neither, and a far table comes with tiles), ``single`` for
+    none."""
+    tiles = spec.fw_split and spec.fw_tile_box.shape[0] > 0
+    far = tiles and spec.far_units.shape[0] > 0
     flags = [name for name, on in (("tricl", spec.is_triclinic),
                                    ("multi", spec.n_active >= 2),
-                                   ("far", far)) if on]
+                                   ("far", far), ("tiles", tiles)) if on]
     return "_".join(flags) or "single"

@@ -29,7 +29,8 @@
 // removal (_core_xla, _bookkeep, _update_reservoir).
 //
 // Bound on the H100: arithmetic, and the step chain. Per step and replica
-// the pair passes cover 2160 framework sites and the live guests, the
+// the pair passes cover the framework's sites within the move's reach (on
+// the flagship some 2160 framework sites in all) and the live guests, the
 // k-space delta the modes of nonzero weight (2,975 of the flagship's
 // 9,216-mode grid; an accepted move's commit its 6,348 real modes), and
 // the far field (the framework split)
@@ -56,8 +57,9 @@
 // replica's populations, reservoir counts, energies and counters live in
 // shared memory for the block; a triclinic box's 27 image shifts are
 // staged in shared memory once. The
-// kernel is a template on <TRICLINIC, MULTI, FAR>: the forms without a far
-// table compile without the far sweep. One replica a CTA: G replicas a CTA
+// kernel is a template on <TRICLINIC, MULTI, FAR, TILES>: the forms without
+// a far table compile without the far sweep, those without a frozen prefix
+// without its tiles' cull and sweep. One replica a CTA: G replicas a CTA
 // in lockstep, sharing each staged tile of the far table, were measured and
 // lost (G = 2 9% and G = 4 20% slower on the flagship at B = 1024: every
 // barrier waits for the slowest of the CTA's replicas, and at G = 4 one CTA
@@ -76,12 +78,21 @@
 // (on SPC/E water 63 warp-iterations of the delta for 1,152 modes, warp 0
 // 17 of them, against 4-5 each now). Every mode's update is computed as
 // the grid's walk computed it; only the delta's sum takes another order.
-// Framework pairs loop over all frozen sites with minimum image, as the
-// oracle does (blockg's ghost-sorted windows were a TPU layout). erfc is
-// libdevice erfcf (common.cuh). A pair takes no division and, off the
-// frozen prefix, no branch region (common.cuh min_image_axis, pair_terms):
-// the same bits, and on SPC/E water (750 waters, a 30 A box) a 400-step
-// block at B = 1024 50.6 -> 43.6 ms (NVIDIA H100 80GB HBM3, 700 W).
+// Framework pairs: the host cuts the live frozen sites into spatially
+// compact tiles (physics/fwsplit.py FrozenTiles: each tile's bounding box,
+// its sites' positions, charges and LJ entries, shared by every replica),
+// and a step tests every tile's box against its footprint's reach (each
+// side's COM, the largest distance of its atoms from it, the cutoff or
+// rcut2 and a float32 margin) and sweeps only the tiles it keeps, with
+// minimum image (common.cuh frozen_tile_pass; the JAX package's blockg
+// windowed a table sorted along one axis, which keeps some 70% of the
+// graphite slit's sites). A skipped site lies out of reach, where every
+// term is an exact zero, so only the order of the per-thread sums
+// changes. erfc is libdevice erfcf (common.cuh). A pair takes no division
+// and, off the frozen prefix, no branch region (common.cuh min_image_axis,
+// pair_terms): the same bits, and on SPC/E water (750 waters, a 30 A box) a
+// 400-step block at B = 1024 50.6 -> 43.6 ms (NVIDIA H100 80GB HBM3, 700
+// W).
 #include "step_body.cuh"
 
 namespace {
@@ -117,9 +128,10 @@ struct Args : StepArgs {
 
 // 64 registers a thread at most, so that four CTAs share an SM (B = 1024
 // replicas then take two waves, not three). One replica a CTA, replica
-// blockIdx.x. FAR: the spec has a far table (only the forms with one
-// compile the far sweep, so the others keep their registers for the rest).
-template <bool TRICLINIC, bool MULTI, bool FAR>
+// blockIdx.x. FAR: the spec has a far table; TILES: a frozen prefix, swept
+// tile by tile (only the forms with one compile the far sweep, or the
+// tiles' cull and sweep, so the others keep their registers for the rest).
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES>
 __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   extern __shared__ float4 smem_raw[];
   __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
@@ -161,9 +173,9 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   SECTION_MARK(-1);
 
   for (int step = 0; step < a.n_steps; ++step)
-    mc_step<TRICLINIC, MULTI, FAR>(a, img, b, step, ss, far, pos, com, ampre,
-                                   ampim, res_off, res_com, tstep, rstep, pr,
-                                   tid);
+    mc_step<TRICLINIC, MULTI, FAR, TILES>(a, img, b, step, ss, far, pos,
+                                          com, ampre, ampim, res_off,
+                                          res_com, tstep, rstep, pr, tid);
 
   store_counts(a, b, tid, ss, a.nmol, a.res_n, a.energy, a.counters,
                a.extras);
@@ -171,9 +183,9 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
 
 // Launch one form, one replica a CTA, with its dynamic shared memory: the
 // far field's y table and tiles where there is a far table, none elsewhere.
-template <bool TRICLINIC, bool MULTI, bool FAR>
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES>
 int launch_form(const Args& a, cudaStream_t stream) {
-  auto kernel = blockg_kernel<TRICLINIC, MULTI, FAR>;
+  auto kernel = blockg_kernel<TRICLINIC, MULTI, FAR, TILES>;
   const size_t smem = FAR ? sizeof(FarSmem) : 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -205,13 +217,16 @@ extern "C" int blockg_launch(void* const* ptrs, int nptr, const int* ints,
   const bool tricl = ints[SI_TRICLINIC] != 0, multi = a.n_active >= 2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tricl)
-    return multi ? launch_form<true, true, false>(a, st)
-                 : launch_form<true, false, false>(a, st);
+    return multi ? launch_form<true, true, false, false>(a, st)
+                 : launch_form<true, false, false, false>(a, st);
+  if (a.n_fw_tiles == 0)
+    return multi ? launch_form<false, true, false, false>(a, st)
+                 : launch_form<false, false, false, false>(a, st);
   if (a.n_far_tiles == 0)
-    return multi ? launch_form<false, true, false>(a, st)
-                 : launch_form<false, false, false>(a, st);
-  return multi ? launch_form<false, true, true>(a, st)
-               : launch_form<false, false, true>(a, st);
+    return multi ? launch_form<false, true, false, true>(a, st)
+                 : launch_form<false, false, false, true>(a, st);
+  return multi ? launch_form<false, true, true, true>(a, st)
+               : launch_form<false, false, true, true>(a, st);
 }
 
 #ifdef MANIAC_SECTION_CLOCKS
@@ -224,6 +239,19 @@ extern "C" int maniac_section_clocks(long long* out, int n) {
   if (err != cudaSuccess) return (int)err;
   void* dev = nullptr;
   err = cudaGetSymbolAddress(&dev, maniac_section_ticks);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(dev, 0, bytes);
+}
+
+// The instrumented build's frozen tile counts, (SECTION_REPLICAS, 2) int64
+// replica-major (tiles tested, tiles kept), copied into out; then zeroed.
+extern "C" int maniac_tile_counts_read(long long* out, int n) {
+  if (n != SECTION_REPLICAS * 2) return MANIAC_ERR_TABLES;
+  const size_t bytes = sizeof(long long) * n;
+  cudaError_t err = cudaMemcpyFromSymbol(out, maniac_tile_counts, bytes);
+  if (err != cudaSuccess) return (int)err;
+  void* dev = nullptr;
+  err = cudaGetSymbolAddress(&dev, maniac_tile_counts);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemset(dev, 0, bytes);
 }

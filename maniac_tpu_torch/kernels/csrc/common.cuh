@@ -8,16 +8,17 @@
 // keep full f32 accuracy.
 //
 // The footprint energy shared by the whole-block and per-step kernels is
-// here too: the pair pass and the k-space sum per thread (footprint_partials;
-// the sum walks the host's dense list of the modes with weight, not the
-// (JzP, JxyP) grid, whose padding to the TPU's (8, 128) tiles left whole
-// warps without a mode) and the far field of the framework split as a
-// separable contraction over the host's far table (far_sweep, section
-// below): on the H100 it is bound by the FMA pipe and shared-memory reads
-// (4 FMA and one 16-byte read of two atoms' y powers per nonzero
-// coefficient and atom pair), where the per-mode triple product it
-// replaces was bound by index arithmetic and lane-divergent shared reads at
-// some 20 instructions per mode and atom.
+// here too: the pair pass (the frozen prefix tile by tile, only the tiles
+// within the move's reach: frozen_tile_pass) and the k-space sum per thread
+// (footprint_partials; the sum walks the host's dense list of the modes
+// with weight, not the (JzP, JxyP) grid, whose padding to the TPU's (8, 128)
+// tiles left whole warps without a mode) and the far field of the framework
+// split as a separable contraction over the host's far table (far_sweep,
+// section below): on the H100 it is bound by the FMA pipe and shared-memory
+// reads (4 FMA and one 16-byte read of two atoms' y powers per nonzero
+// coefficient and atom pair), where the per-mode triple product it replaces
+// was bound by index arithmetic and lane-divergent shared reads at some 20
+// instructions per mode and atom.
 //
 // Every launcher has a plain C interface: a table of device pointers, a
 // table of ints, a table of floats (each with its length, checked against
@@ -88,10 +89,13 @@ template <bool TRICLINIC>
 struct MinImage {
   const float* L;      // (3,) box lengths
   float t1[3], t2[3];  // per axis, the thresholds (the kernel's float table)
+  __device__ __forceinline__ float axis(int i, float d) const {
+    return min_image_axis(d, L[i], t1[i], t2[i]);
+  }
   __device__ __forceinline__ float r2(float dx, float dy, float dz) const {
-    dx = min_image_axis(dx, L[0], t1[0], t2[0]);
-    dy = min_image_axis(dy, L[1], t1[1], t2[1]);
-    dz = min_image_axis(dz, L[2], t1[2], t2[2]);
+    dx = axis(0, dx);
+    dy = axis(1, dy);
+    dz = axis(2, dz);
     return dx * dx + dy * dy + dz * dz;
   }
 };
@@ -147,6 +151,11 @@ constexpr int MAXF = 2 * MAXA;   // footprint atoms (old | new)
 constexpr int JMAX = 32;         // phase powers j = 0..JMAX-1 per axis
 constexpr int MAXR = 8;          // residue types
 constexpr int NRED = 7;          // reduced partial sums per step
+constexpr int FW_PASS = STEP_THREADS;  // frozen tiles tested a pass
+// the margin on a footprint side's reach (physics/fwsplit.py FW_CULL_EPS),
+// A: some 100 times the float32 rounding of the cull's test and of the pair
+// pass's r2 at the box sizes the minimum image takes
+constexpr float FW_CULL_EPS = 1e-3f;
 
 // Sum of NV values over one replica's STEP_THREADS threads; every one of
 // them gets the totals in out. scratch holds STEP_WARPS * NV floats. Warp
@@ -196,9 +205,21 @@ __device__ __forceinline__ void section_mark(int k) {
     __syncthreads();    \
     section_mark(k);    \
   } while (0)
+// and the frozen tiles each replica's steps tested and kept (frozen_tile_pass)
+static __device__ long long maniac_tile_counts[SECTION_REPLICAS * 2];
+__device__ __forceinline__ void tile_count(int tested, int kept) {
+  const int r = blockIdx.x;
+  if (threadIdx.x != 0 || r >= SECTION_REPLICAS) return;
+  maniac_tile_counts[2 * r] += tested;
+  maniac_tile_counts[2 * r + 1] += kept;
+}
+#define TILE_COUNT(tested, kept) tile_count(tested, kept)
 #else
 #define SECTION_MARK(k) \
   do {                  \
+  } while (0)
+#define TILE_COUNT(tested, kept) \
+  do {                           \
   } while (0)
 #endif
 
@@ -213,7 +234,17 @@ struct Footprint {
   float wf[MAXF];  // far-field weight: q * m
   int far_f[MAXF];     // the far field's atoms: those with wf != 0, in order
   int far_side[MAXF];  // and their sides
+  // the frozen tiles' cull: each side's centre (its COM, the proposal's)
+  // and squared reach of an uncharged and a charged tile (footprint_reach;
+  // -1: no side)
+  float cc[2][3], reach_lj[2], reach_q[2];
   int far_n, ex_a, ex_b, n_sites, acc;
+};
+
+// The frozen tiles a pass of frozen_tile_pass keeps, and its warps' counts.
+struct TileList {
+  int kept[FW_PASS];
+  int warp_n[STEP_WARPS];
 };
 
 // The far field's compact atom list (thread 0, after wf is published).
@@ -252,10 +283,11 @@ __device__ __forceinline__ float2 footprint_mode(
   return make_float2(a1 - a2, b1 + b2);
 }
 
-// Sites a footprint is swept against: the frozen prefix [0, S_frozen),
-// then the guest columns from guest_base up to the live end of the type
-// regions at or above guest_base (S_frozen = guest_base = 0 without the
-// framework split: every type region).
+// Sites a footprint is swept against: the frozen prefix [0, S_frozen)
+// (swept by tiles: frozen_tile_pass), then the guest columns from
+// guest_base up to the live end of the type regions at or above guest_base
+// (S_frozen = guest_base = 0 without the framework split: every type
+// region).
 template <class Args>
 __device__ int footprint_sites(const Args& a, const int* nmol) {
   int live_end = a.guest_base;
@@ -265,8 +297,41 @@ __device__ int footprint_sites(const Args& a, const int* nmol) {
   return a.S_frozen + (live_end - a.guest_base);
 }
 
+// One thread a side, once the footprint and the sides' centres c (their
+// COMs, fp.cc) are published: the side's squared reach for the frozen tiles'
+// cull (-1 where the side has no atom). A pair of the side's atom f and a
+// frozen site adds a term only within cutoff (LJ) or, where both carry
+// charge, within rcut2 (pair_terms), and every atom lies within rho =
+// max_f |p_f - c| of c, so no site farther than cutoff + rho (max(cutoff,
+// rcut2) + rho) from c adds one; FW_CULL_EPS covers the float32 rounding. A
+// position that is not finite gives a NaN reach, which keeps every tile
+// (tile_in_reach). Read after the CTA's next barrier.
+template <class Args>
+__device__ __forceinline__ void footprint_reach(const Args& a, Footprint& fp,
+                                                int side) {
+  const float* c = fp.cc[side];
+  float rho2 = 0.f;
+  bool present = false, charged = false;
+  for (int k = 0; k < a.A_act; ++k) {
+    const int f = side * a.A_act + k;
+    if (!fp.m[f]) continue;
+    const float dx = fp.p[f][0] - c[0], dy = fp.p[f][1] - c[1];
+    const float dz = fp.p[f][2] - c[2];
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    rho2 = (r2 > rho2 || r2 != r2) ? r2 : rho2;  // a NaN stays
+    present = true;
+    charged = charged || fp.q[f] != 0.f;
+  }
+  const float rho = sqrtf(rho2);
+  const float lj = a.cutoff + rho + FW_CULL_EPS;
+  const float q = (charged ? fmaxf(a.cutoff, a.rcut2) : a.cutoff) + rho
+                  + FW_CULL_EPS;
+  fp.reach_lj[side] = present ? lj * lj : -1.f;
+  fp.reach_q[side] = present ? q * q : -1.f;
+}
+
 // Phase powers of every footprint atom, up to the larger of the main and
-// far-field grid orders per axis (threads 0 .. 6 A_act - 1).
+// far-field grid orders per axis (threads 0 .. 6 A_act - 1, at most 48).
 template <class Args>
 __device__ __forceinline__ void footprint_phase_tables(
     const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX], int tid) {
@@ -320,28 +385,29 @@ __device__ __forceinline__ void pair_terms(
   }
 }
 
-// The pairs of one live site s with the footprint, into part: atom k of
+// The pairs of one live site with the footprint, into part: atom k of
 // the old side (f = k) and of the new side (f = A + k) in one iteration,
 // two independent pairs where both sides move (a translation, a rotation,
 // a swap), else the one (warp-uniform: the footprint is the CTA's). Each
 // partial still takes its side's atoms in order. The sides share their LJ
-// classes but in a swap, so the site's LJ row entries are read once a
-// class, sig2 only where eps is not 0.
+// classes but in a swap, so the site's LJ entries (column s of eps and
+// sig2, rows of S entries a class) are read once a class, sig2 only where
+// eps is not 0.
 template <bool FROZEN, class Args, class Image>
 __device__ __forceinline__ void site_pairs(
-    const Args& a, const Footprint& fp, const Image& img, int s, float x,
-    float y, float z, float qs, float cut_sq, float rc2_sq,
-    float (&part)[NRED]) {
-  const int S = a.S, A = a.A_act;
+    const Args& a, const Footprint& fp, const Image& img, const float* eps,
+    const float* sig2, int S, int s, float x, float y, float z, float qs,
+    float cut_sq, float rc2_sq, float (&part)[NRED]) {
+  const int A = a.A_act;
   for (int k = 0; k < A; ++k) {
     const bool m0 = fp.m[k], m1 = fp.m[A + k];
     if (!m0 && !m1) continue;
     const int c0 = fp.cls[k], c1 = fp.cls[A + k];
     const bool same = m0 && c1 == c0;
-    const float e0 = m0 ? a.eps_site[c0 * S + s] : 0.f;
-    const float e1 = !m1 ? 0.f : same ? e0 : a.eps_site[c1 * S + s];
-    const float g0 = e0 != 0.f ? a.sig2_site[c0 * S + s] : 0.f;
-    const float g1 = e1 == 0.f ? 0.f : same ? g0 : a.sig2_site[c1 * S + s];
+    const float e0 = m0 ? eps[c0 * S + s] : 0.f;
+    const float e1 = !m1 ? 0.f : same ? e0 : eps[c1 * S + s];
+    const float g0 = e0 != 0.f ? sig2[c0 * S + s] : 0.f;
+    const float g1 = e1 == 0.f ? 0.f : same ? g0 : sig2[c1 * S + s];
     if (m0 && m1) {
       pair_terms<0, FROZEN>(a, fp, img, k, x, y, z, qs, e0, g0, cut_sq,
                             rc2_sq, part);
@@ -357,35 +423,109 @@ __device__ __forceinline__ void site_pairs(
   }
 }
 
+// Whether frozen tile t lies within the reach of a present side of the
+// footprint (footprint_reach): per axis, the distance from the side's
+// centre to the tile's box through the boundary, max(0, |image of c - t| -
+// h); the box holds its sites, so a site within reach lies in a tile
+// within reach (physics/fwsplit.py tiles_in_reach is its copy).
+template <class Args, class Image>
+__device__ __forceinline__ bool tile_in_reach(const Args& a,
+                                              const Footprint& fp,
+                                              const Image& img, int t) {
+  const float4 c = a.fw_box[2 * t], h = a.fw_box[2 * t + 1];
+  bool keep = false;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const float dx = fmaxf(fabsf(img.axis(0, fp.cc[side][0] - c.x)) - h.x,
+                           0.f);
+    const float dy = fmaxf(fabsf(img.axis(1, fp.cc[side][1] - c.y)) - h.y,
+                           0.f);
+    const float dz = fmaxf(fabsf(img.axis(2, fp.cc[side][2] - c.z)) - h.z,
+                           0.f);
+    const float reach = c.w != 0.f ? fp.reach_q[side] : fp.reach_lj[side];
+    keep = keep || !(dx * dx + dy * dy + dz * dz >= reach);
+  }
+  return keep;
+}
+
+// The frozen prefix's pairs with the footprint, into part: in passes of
+// FW_PASS tiles, every thread tests one tile (tile_in_reach), a warp ballot
+// and the warps' counts in order compact the kept tiles into tl.kept (the
+// same list every run), and the threads then take the kept tiles' slots,
+// thread t slots t, t + 256, ..., site_pairs on the table's position,
+// charge and LJ entries (a pad slot adds exact zeros). Skipped sites are
+// out of reach, where every term is an exact zero. Synchronizes the CTA.
+template <class Args, class Image>
+__device__ __forceinline__ void frozen_tile_pass(
+    const Args& a, const Footprint& fp, const Image& img, TileList& tl,
+    int tid, float cut_sq, float rc2_sq, float (&part)[NRED]) {
+  const int lane = tid & 31, warp = tid >> 5, sh = a.fw_tile_shift;
+  const int ns = a.n_fw_tiles << sh;
+  for (int t0 = 0; t0 < a.n_fw_tiles; t0 += FW_PASS) {
+    const int t = t0 + tid;
+    const bool keep = t < a.n_fw_tiles && tile_in_reach(a, fp, img, t);
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) tl.warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int base = 0, n = 0;
+    for (int w = 0; w < STEP_WARPS; ++w) {
+      const int c = tl.warp_n[w];
+      base += w < warp ? c : 0;
+      n += c;
+    }
+    if (keep) tl.kept[base + __popc(ballot & ((1u << lane) - 1u))] = t;
+    TILE_COUNT(min(FW_PASS, a.n_fw_tiles - t0), n);
+    __syncthreads();
+    for (int j = tid; j < (n << sh); j += STEP_THREADS) {
+      const int slot = (tl.kept[j >> sh] << sh) | (j & ((1 << sh) - 1));
+      const float4 p = a.fw_pq[slot];
+      site_pairs<true>(a, fp, img, a.fw_eps, a.fw_sig2, ns, slot, p.x, p.y,
+                       p.z, p.w, cut_sq, rc2_sq, part);
+    }
+  }
+}
+
 // This thread's partial sums of the step's energy terms other than the far
 // field, part = [lj_old, lj_new, coul_old, coul_new, 0, 0, d_recip]: the
 // pair pass over the live sites (LJ cut at cutoff; real-space Coulomb
 // erfc(alpha2 r)/r cut at rcut2 on frozen sites, erfc(alpha r)/r elsewhere,
 // cut at gg_rcut when gg_cut) and the k-space sum sum_k w_k (2 A.d + |d|^2).
 // far_sweep adds part[4], part[5]. pos, ampre, ampim are this replica's; img
-// is the box's minimum image (MinImage).
-template <class Args, class Image>
+// is the box's minimum image (MinImage); TILES: the spec has a frozen
+// prefix, swept by tiles (tl their list; never on a triclinic box).
+template <bool TILES, class Args, class Image>
 __device__ __forceinline__ void footprint_partials(
     const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX],
     const int* nmol, const float* pos, const float* ampre,
-    const float* ampim, const Image& img, int tid, float (&part)[NRED]) {
+    const float* ampim, const Image& img, TileList& tl, int tid,
+    float (&part)[NRED]) {
   const int S = a.S, F = 2 * a.A_act;
   const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
 #pragma unroll
   for (int i = 0; i < NRED; ++i) part[i] = 0.f;
 
-  // pair pass: frozen prefix, then the live guest columns
-  for (int j = tid; j < fp.n_sites; j += STEP_THREADS) {
+  // pair pass: the frozen tiles within reach (TILES), then the live sites
+  // from j = S_frozen on (the guest columns). Without tiles S_frozen is 0
+  // and the loop is the one the kernels ran before the tiles, its frozen
+  // branch included, which never runs there: the no-split forms keep their
+  // code, where the loop without it made ptxas spill 48 bytes in K3's
+  // two-species form and cost it 6% (PERF.md, section 6).
+  if constexpr (TILES)
+    frozen_tile_pass(a, fp, img, tl, tid, cut_sq, rc2_sq, part);
+  for (int j = tid + (TILES ? a.S_frozen : 0); j < fp.n_sites;
+       j += STEP_THREADS) {
     const int s = j < a.S_frozen ? j : a.guest_base + (j - a.S_frozen);
     if (a.site_midx[s] >= nmol[a.site_type[s]]) continue;  // inactive
     const int mol = a.site_mol[s];
     if (mol == fp.ex_a || mol == fp.ex_b) continue;
     const float x = pos[s], y = pos[S + s], z = pos[2 * S + s];
     const float qs = a.site_q[s];
-    if (s < a.S_frozen)
-      site_pairs<true>(a, fp, img, s, x, y, z, qs, cut_sq, rc2_sq, part);
+    if (!TILES && s < a.S_frozen)
+      site_pairs<true>(a, fp, img, a.eps_site, a.sig2_site, S, s, x, y, z,
+                       qs, cut_sq, rc2_sq, part);
     else
-      site_pairs<false>(a, fp, img, s, x, y, z, qs, cut_sq, rc2_sq, part);
+      site_pairs<false>(a, fp, img, a.eps_site, a.sig2_site, S, s, x, y, z,
+                        qs, cut_sq, rc2_sq, part);
   }
 
   SECTION_MARK(2);  // pair pass

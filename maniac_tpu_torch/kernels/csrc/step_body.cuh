@@ -7,12 +7,13 @@
 // _propose, f32 as in the JAX package) and publishes the old/new footprints
 // (<= 2 x 8 atoms, each atom with its own side's charge and LJ class row)
 // in shared memory; all threads build the footprint phase-power tables,
-// sweep the live sites and the k-space modes with per-thread partial sums,
-// contract the far table (common.cuh far_sweep) and make one block
-// reduction; thread 0 decides and commits positions, COMs, populations,
-// energies, counters and the reservoir rows (commit_reservoir); on
-// acceptance every thread recomputes the delta of its own modes of the real
-// mode list and adds it to the amplitudes. Nothing else is written.
+// sweep the frozen tiles within the footprint's reach, the live guest sites
+// and the k-space modes with per-thread partial sums, contract the far
+// table (common.cuh far_sweep) and make one block reduction; thread 0
+// decides and commits positions, COMs, populations, energies, counters and
+// the reservoir rows (commit_reservoir); on acceptance every thread
+// recomputes the delta of its own modes of the real mode list and adds it
+// to the amplitudes. Nothing else is written.
 //
 // Both kernels take the tables below (StepPtr, StepInt, StepFloat, in this
 // order; kernels/stepg.py::step_tables packs them) and append their own
@@ -79,13 +80,20 @@ enum StepPtr {
   SP_ACT_IDS,        // (n_active,) i32 active type ids
   SP_HINV,           // (3, 3) f32 inverse cell
   SP_IMG,            // (27, 3) f32 lattice image shifts
+  SP_FW_PQ,          // (n_fw_tiles << fw_tile_shift,) float4 the frozen
+                     // tiles' slots: x, y, z, q
+  SP_FW_EPS,         // (C+1, slots) f32 their LJ eps against each class
+  SP_FW_SIG2,        // (C+1, slots) f32 and sigma^2
+  SP_FW_BOX,         // (n_fw_tiles, 2) float4 each tile's centre and charge
+                     // flag, its half-extents
   SP_SHARED
 };
 enum StepInt {
   SI_B, SI_NSTEPS, SI_S, SI_S_FROZEN, SI_GUEST_BASE, SI_R, SI_MTOT,
   SI_A_ACT, SI_N_ACTIVE, SI_JZP, SI_JXYP, SI_KX, SI_KY, SI_KZ, SI_KX2,
   SI_KY2, SI_KZ2, SI_N_FAR_TILES, SI_GG_CUT, SI_HAS_RES, SI_SRES, SI_MRES1,
-  SI_TRICLINIC, SI_N_KW, SI_N_KR, SI_SHARED
+  SI_TRICLINIC, SI_N_KW, SI_N_KR, SI_N_FW_TILES, SI_FW_TILE_SHIFT,
+  SI_SHARED
 };
 enum StepFloat {
   SF_ALPHA, SF_ALPHA2, SF_CUTOFF, SF_RCUT2, SF_GG_RCUT_SQ, SF_TEMP,
@@ -114,9 +122,11 @@ struct StepArgs {
   const int* res_site_base; const int* res_mol_base; const int* res_cap;
   const float* res_H;
   const int* act_ids; const float* Hinv; const float* img;
+  const float4* fw_pq; const float* fw_eps; const float* fw_sig2;
+  const float4* fw_box;
   int B, n_steps, S, S_frozen, guest_base, R, Mtot, A_act, n_active;
   int JzP, JxyP, kx, ky, kz, kx2, ky2, kz2, n_far_tiles, gg_cut;
-  int has_res, Sres, Mres1, n_kw, n_kr;
+  int has_res, Sres, Mres1, n_kw, n_kr, n_fw_tiles, fw_tile_shift;
   float alpha, alpha2, cutoff, rcut2, gg_rcut_sq, temp, volume, fw_d0;
   float coulomb_k, two_pi, prob_cd, small_sq;
   float img_t1[3], img_t2[3];
@@ -174,6 +184,10 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   a.act_ids = static_cast<const int*>(p[SP_ACT_IDS]);
   a.Hinv = static_cast<const float*>(p[SP_HINV]);
   a.img = static_cast<const float*>(p[SP_IMG]);
+  a.fw_pq = static_cast<const float4*>(p[SP_FW_PQ]);
+  a.fw_eps = static_cast<const float*>(p[SP_FW_EPS]);
+  a.fw_sig2 = static_cast<const float*>(p[SP_FW_SIG2]);
+  a.fw_box = static_cast<const float4*>(p[SP_FW_BOX]);
   a.B = n[SI_B];
   a.n_steps = n[SI_NSTEPS];
   a.S = n[SI_S];
@@ -198,6 +212,8 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
   a.Mres1 = n[SI_MRES1];
   a.n_kw = n[SI_N_KW];
   a.n_kr = n[SI_N_KR];
+  a.n_fw_tiles = n[SI_N_FW_TILES];
+  a.fw_tile_shift = n[SI_FW_TILE_SHIFT];
   a.alpha = f[SF_ALPHA];
   a.alpha2 = f[SF_ALPHA2];
   a.cutoff = f[SF_CUTOFF];
@@ -215,11 +231,16 @@ inline bool unpack_step_args(StepArgs& a, void* const* p, const int* n,
     a.img_t2[i] = f[SF_IMG_T2X + i];
   }
   const int kmax = std::max({a.kx, a.ky, a.kz, a.kx2, a.ky2, a.kz2});
+  // a frozen prefix comes with its tiles (tiles of at most 32 sites), a far
+  // table with a frozen prefix, and both only on an orthorhombic box
   return !(a.B < 1 || a.A_act < 1 || a.A_act > MAXA || a.R + 1 > MAXR + 1
            || a.n_active < 1 || a.n_active > a.R || kmax >= JMAX
            || a.JzP < 2 * a.kz + 1 || a.n_far_tiles < 0 || a.n_kw < 0
            || a.n_kw > a.JzP * a.JxyP || a.n_kr < 0
-           || a.n_kr > a.JzP * a.JxyP
+           || a.n_kr > a.JzP * a.JxyP || a.n_fw_tiles < 0
+           || a.fw_tile_shift < 0 || a.fw_tile_shift > 5
+           || (a.S_frozen != 0) != (a.n_fw_tiles != 0)
+           || (a.n_far_tiles != 0 && a.n_fw_tiles == 0)
            || (n[SI_TRICLINIC] && (a.S_frozen != 0 || a.n_far_tiles != 0)));
 }
 
@@ -242,6 +263,7 @@ struct Proposal {
 // (FarSmem) are separate, present only with a far table.
 struct StepSmem {
   Footprint fp;
+  TileList tiles;
   float2 tab[MAXF][3][JMAX];
   float scratch[STEP_WARPS * NRED];
   float red[NRED];
@@ -318,7 +340,7 @@ inline __device__ void uniform_rotation(const float* u, float two_pi,
 // side: t_old is the type of the molecule a translation, rotation, deletion
 // or swap takes out, t_new the type a creation or swap puts in (equal but
 // for a swap).
-template <bool TRICLINIC, bool MULTI, class Args>
+template <bool TRICLINIC, bool MULTI, bool TILES, class Args>
 __device__ void propose(const Args& a, const MinImage<TRICLINIC>& img,
                         int b, int step, const int* nmol, const float* pos,
                         const float* com, const float* res_off,
@@ -506,6 +528,12 @@ __device__ void propose(const Args& a, const MinImage<TRICLINIC>& img,
   fp.ex_b = slot_new;
   fp.n_sites = footprint_sites(a, nmol);
   footprint_far_atoms(fp, A_act);
+  if constexpr (TILES) {
+    for (int i = 0; i < 3; ++i) {
+      fp.cc[0][i] = com_old[i];
+      fp.cc[1][i] = pr.com_new[i];
+    }
+  }
 }
 
 // Thread 0: moves.py::_update_reservoir after the decision. Pop on an
@@ -560,11 +588,12 @@ __device__ void commit_reservoir(const Args& a, const Proposal& pr, bool acc,
 // res_com are the replica's state in device memory, updated in place;
 // populations, reservoir counts, energies, counters and extras are ss's
 // (the caller loads them before and stores them after); far is the far
-// field's shared memory (read only with FAR). pr is thread 0's.
-// Sections of the instrumented build (SECTION_MARK): 0 proposal, 1 phase
-// tables, 2 pair pass, 3 k-space delta, 4 far field, 5 reduction, 6
+// field's shared memory (read only with FAR). pr is thread 0's. TILES: the
+// spec has a frozen prefix, swept tile by tile (the forms with a far table
+// have one). Sections of the instrumented build (SECTION_MARK): 0 proposal,
+// 1 phase tables, 2 pair pass, 3 k-space delta, 4 far field, 5 reduction, 6
 // decision and commits, 7 amplitude commit.
-template <bool TRICLINIC, bool MULTI, bool FAR, class Args>
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES, class Args>
 __device__ __forceinline__ void mc_step(
     const Args& a, const MinImage<TRICLINIC>& img, int b, int step,
     StepSmem& ss, FarSmem* far, float* pos, float* com, float* ampre,
@@ -578,18 +607,25 @@ __device__ __forceinline__ void mc_step(
   int* extras = ss.extras;
 
   if (tid == 0)
-    propose<TRICLINIC, MULTI>(a, img, b, step, nmol, pos, com, res_off,
-                              ss.res_n, tstep, rstep, pr, fp);
+    propose<TRICLINIC, MULTI, TILES>(a, img, b, step, nmol, pos, com,
+                                     res_off, ss.res_n, tstep, rstep, pr,
+                                     fp);
   __syncthreads();
   SECTION_MARK(0);
 
   footprint_phase_tables(a, fp, ss.tab, tid);
+  // the sides' reach for the frozen tiles' cull, by two threads of warp 2,
+  // which the phase tables leave idle
+  if constexpr (TILES) {
+    if ((tid >> 1) == 32) footprint_reach(a, fp, tid & 1);
+  }
   __syncthreads();
 
   float part[NRED];
   if constexpr (FAR) far_ytab_fill(a, fp, ss.tab, far->ytab, tid);
   SECTION_MARK(1);
-  footprint_partials(a, fp, ss.tab, nmol, pos, ampre, ampim, img, tid, part);
+  footprint_partials<TILES>(a, fp, ss.tab, nmol, pos, ampre, ampim, img,
+                            ss.tiles, tid, part);
   SECTION_MARK(3);
   if constexpr (FAR) {
     if (fp.far_n > 0)

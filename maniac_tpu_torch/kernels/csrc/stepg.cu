@@ -27,9 +27,9 @@
 // CTA ends, so the next launch reads them; positions, COMs, amplitudes and
 // the reservoir rows are read and written where they are, and a step writes
 // only what it changes (no copy of positions or amplitudes). The kernel is a
-// template on <TRICLINIC, MULTI, FAR> as blockg.cu is, with its 64-register
-// bound; the far field's shared memory (FarSmem, 25 KB) is static here,
-// under the 48 KB a launch takes without an attribute call.
+// template on <TRICLINIC, MULTI, FAR, TILES> as blockg.cu is, with its
+// 64-register bound; the far field's shared memory (FarSmem, 25 KB) is
+// static here, under the 48 KB a launch takes without an attribute call.
 #include "step_body.cuh"
 
 namespace {
@@ -44,7 +44,7 @@ struct Args : StepArgs {
 
 // One replica a CTA, replica blockIdx.x; 64 registers a thread at most, as
 // blockg.cu (four CTAs an SM).
-template <bool TRICLINIC, bool MULTI, bool FAR>
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES>
 __global__ void __launch_bounds__(STEP_THREADS, 4) stepg_kernel(Args a) {
   __shared__ float shifts[TRICLINIC ? 3 * NIMG : 1];
   __shared__ StepSmem ss;
@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(STEP_THREADS, 4) stepg_kernel(Args a) {
   Proposal pr;
   __syncthreads();
 
-  mc_step<TRICLINIC, MULTI, FAR>(
+  mc_step<TRICLINIC, MULTI, FAR, TILES>(
       a, img, b, a.step, ss, far, a.pos + (size_t)b * 3 * a.S,
       a.com + (size_t)b * 3 * M1, a.ampre + (size_t)b * K,
       a.ampim + (size_t)b * K, a.res_off + (size_t)b * 3 * a.Sres,
@@ -71,9 +71,10 @@ __global__ void __launch_bounds__(STEP_THREADS, 4) stepg_kernel(Args a) {
                a.extras);
 }
 
-template <bool TRICLINIC, bool MULTI, bool FAR>
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES>
 int launch_form(const Args& a, cudaStream_t stream) {
-  stepg_kernel<TRICLINIC, MULTI, FAR><<<a.B, STEP_THREADS, 0, stream>>>(a);
+  stepg_kernel<TRICLINIC, MULTI, FAR, TILES>
+      <<<a.B, STEP_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -94,11 +95,14 @@ extern "C" int stepg_launch(void* const* ptrs, int nptr, const int* ints,
   const bool tricl = ints[SI_TRICLINIC] != 0, multi = a.n_active >= 2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tricl)
-    return multi ? launch_form<true, true, false>(a, st)
-                 : launch_form<true, false, false>(a, st);
+    return multi ? launch_form<true, true, false, false>(a, st)
+                 : launch_form<true, false, false, false>(a, st);
+  if (a.n_fw_tiles == 0)
+    return multi ? launch_form<false, true, false, false>(a, st)
+                 : launch_form<false, false, false, false>(a, st);
   if (a.n_far_tiles == 0)
-    return multi ? launch_form<false, true, false>(a, st)
-                 : launch_form<false, false, false>(a, st);
-  return multi ? launch_form<false, true, true>(a, st)
-               : launch_form<false, false, true>(a, st);
+    return multi ? launch_form<false, true, false, true>(a, st)
+                 : launch_form<false, false, false, true>(a, st);
+  return multi ? launch_form<false, true, true, true>(a, st)
+               : launch_form<false, false, true, true>(a, st);
 }

@@ -76,29 +76,39 @@ def step_tables(spec: SystemSpec, states: SimState, uniforms,
     res_tables = [spec.res_type_site_base, spec.res_type_mol_base,
                   spec.res_cap, spec.res_H]
     box_tables = [spec.active_type_ids, spec.Hinv, spec.image_shifts]
-    for t in tables + res_tables + box_tables:
+    tile_tables = [spec.fw_tile_pq, spec.fw_tile_eps, spec.fw_tile_sig2,
+                   spec.fw_tile_box]
+    for t in tables + res_tables + box_tables + tile_tables:
         if t.device != dev or not t.is_contiguous():
             raise ValueError("spec tables must be contiguous on the state's "
                              "device")
     ptrs = [t.data_ptr() for t in (
         uniforms, *[getattr(work, k) for k in STATE_KEYS], work.trans_step,
         work.rot_step, *tables, *[getattr(work, k) for k in RES_KEYS],
-        *res_tables, *box_tables)]
-    # the framework split's arguments; without it no frozen prefix and an
-    # empty far table, so every live site takes erfc(alpha r)/r
+        *res_tables, *box_tables, *tile_tables)]
+    # the framework split's arguments; without it no frozen prefix, no
+    # frozen tiles and an empty far table, so every live site takes
+    # erfc(alpha r)/r
     if spec.fw_split:
         fw, kmax2 = [spec.S_frozen, spec.guest_base], spec.kmax2_xyz
         fw_d0, n_far_tiles = (spec.host_scalars["fw_d0"],
                               int(spec.far_units.shape[0]))
+        n_tiles = int(spec.fw_tile_box.shape[0])
+        tile = int(spec.fw_tile_pq.shape[0]) // max(n_tiles, 1)
+        if tile & (tile - 1) or not 0 < tile <= 32:
+            raise ValueError(f"frozen tiles of {tile} sites (the kernels "
+                             f"take a power of two up to 32)")
     else:
         fw, kmax2, fw_d0, n_far_tiles = [0, 0], (0, 0, 0), 0.0, 0
+        n_tiles, tile = 0, 1
     sc = spec.host_scalars
     thresholds = [image_thresholds(L) for L in spec.host_box]
     ints = [B, n_steps, spec.S, *fw, spec.R, spec.Mtot, spec.A_act,
             spec.n_active, JzP, JxyP, *spec.kmax_xyz, *kmax2, n_far_tiles,
             int(spec.gg_cut), int(spec.has_reservoir), Sres, Mres1,
             int(spec.is_triclinic), int(spec.k_weighted_modes.shape[0]),
-            int(spec.k_real_modes.shape[0])]
+            int(spec.k_real_modes.shape[0]), n_tiles,
+            tile.bit_length() - 1]
     floats = [sc["alpha"], sc["alpha2"], sc["cutoff"], sc["rcut2"],
               spec.gg_rcut * spec.gg_rcut, sc["temp_K"], sc["volume"],
               fw_d0, COULOMB_K, TWOPI, PROB_CREATE_DELETE, SMALL * SMALL,

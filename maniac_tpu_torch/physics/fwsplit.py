@@ -20,9 +20,10 @@ lattice-summed over the static framework, is a periodic harmonic field
 
 whose Fourier coefficients decay like e^{-k^2/4a2^2} and are PRECOMPUTED
 here once (the framework structure factor A_fw is constant). Per move the
-engine evaluates the short part over a small spatial window of a
-sort-axis-ordered, ghost-padded framework table, and D(r) at the footprint
-atoms with the same separable-phase MXU machinery as the main dense k-grid.
+engine evaluates the short part over the frozen sites within reach of the
+footprint (the kernels sweep the spatially compact tiles of FrozenTiles that
+a move can reach, tiles_in_reach) and D(r) at the footprint atoms from the
+far table (FarTable).
 
 Because both the short-pass cutoff and the D-series are part of the SPEC,
 every path (XLA oracle, Pallas kernels, full recompute) computes the SAME
@@ -49,7 +50,8 @@ from ..constants import COULOMB_K, ERFC_DECAY as _ERFC_DECAY, PI, TWOPI
 #: tests/test_fwsplit.py, and the measured error headroom vs this
 #: tolerance is recorded in docs/performance.md)
 _TOL2 = 1e-7
-#: extra window slack for f32 COM rounding and block quantization
+#: the JAX package's window slack (f32 COM rounding and block quantization),
+#: kept for its eligibility rule (build_fwsplit)
 _SLACK = 0.75
 
 
@@ -60,17 +62,6 @@ class FwSplitSetup:
     # frozen-prefix layout
     S_frozen: int = 0
     guest_base: int = 0
-    axis: int = 2
-    # ghost framework tables (sorted along `axis`, periodic images padded)
-    SG: int = 0
-    pq_g: np.ndarray | None = None      # (4, SG): x, y, z, q rows
-    eps_g: np.ndarray | None = None     # (R*R*8, SG) grouped-LJ-row layout
-    sig2_g: np.ndarray | None = None    # (R*R*8, SG)
-    blockmax: np.ndarray | None = None  # (SG//128,) max sort-coord per block
-    WL: int = 0                         # LJ window width (cols)
-    WC: int = 0                         # Coulomb window width (cols)
-    rcw_lj: float = 0.0                 # LJ half-window (A)
-    rcw_c: float = 0.0                  # Coulomb half-window (A)
     # split parameters
     alpha2: float = 0.0
     rcut2: float = 0.0
@@ -182,6 +173,135 @@ def build_far_table(c2_re, c2_im, col_jx, col_jy, ky2: int,
     return FarTable(coef=coef, rows=meta, units=units)
 
 
+# ---- the frozen tiles: the kernels' layout of the frozen prefix -------------
+#: sites a tile, a power of two (the kernels read the table's own size)
+FW_TILE = 16
+#: the kernels' margin on a side's reach, A (csrc/common.cuh FW_CULL_EPS): it
+#: covers the float32 rounding of the test and of the pair pass, some 1e-5 A
+#: at the box sizes the minimum image takes
+FW_CULL_EPS = 1e-3
+#: tiles are cut on coordinates rounded to this many decimals, so that
+#: positions equal to float64 rounding give the same tiles
+_TILE_DECIMALS = 6
+
+
+def live_frozen_sites(type_site_base, A_list, n_mol, frozen_types):
+    """(n,) int64 site indices of the live molecules of the frozen types,
+    type by type in site order (an empty type's dead slot is left out)."""
+    cols = [np.arange(int(type_site_base[r]),
+                      int(type_site_base[r]) + int(n_mol[r]) * int(A_list[r]))
+            for r in frozen_types]
+    return (np.concatenate(cols) if cols else np.zeros(0)).astype(np.int64)
+
+
+@dataclass
+class FrozenTiles:
+    """The live frozen sites in spatially compact tiles of FW_TILE sites,
+    which the footprint kernels sweep in place of the frozen prefix
+    (csrc/common.cuh frozen_tile_pass), a step only the tiles within its
+    reach (tiles_in_reach). Slot k * FW_TILE + i holds site i of tile k, in
+    site order; the last tile's free slots are pads (site -1 at the tile's
+    first site, no charge, eps and sigma^2 0), which add exact zeros."""
+    site: np.ndarray   # (n_slots,) int32 site index, -1 on a pad
+    pq: np.ndarray     # (n_slots, 4) x, y, z, q
+    eps: np.ndarray    # (C+1, n_slots) LJ eps against each class
+    sig2: np.ndarray   # (C+1, n_slots) sigma^2 against each class
+    box: np.ndarray    # (n_tiles, 2, 4): centre x, y, z and 1 where a site
+    #                    is charged (else 0); half-extents x, y, z and 0
+
+
+def build_frozen_tiles(pos, cols, site_q, eps_site, sig2_site,
+                       lengths) -> FrozenTiles:
+    """The tiles of FW_TILE sites of the sites ``cols`` (pos (S, 3),
+    site_q (S,), eps_site and sig2_site (C+1, S), lengths the box's). Cut
+    by recursive bisection: a group that needs m = ceil(n / FW_TILE) tiles
+    is split across its widest
+    axis, in that coordinate's order, after floor(m / 2) tiles' worth of
+    sites, until it fills one tile and spans under half the box on every
+    axis (so a dense framework's tiles are all full but the last; a sparse
+    one's are cut further). A tile's box is the bounding box of its
+    sites."""
+    pos = np.asarray(pos, dtype=np.float64)
+    site_q = np.asarray(site_q, dtype=np.float64)
+    eps_site = np.asarray(eps_site, dtype=np.float64)
+    sig2_site = np.asarray(sig2_site, dtype=np.float64)
+    cols = np.asarray(cols, dtype=np.int64)
+    key = np.round(pos[cols], _TILE_DECIMALS)
+    half = np.asarray(lengths, dtype=np.float64) / 2
+    tile = FW_TILE
+    groups, stack = [], [np.arange(cols.size)] if cols.size else []
+    while stack:
+        idx = stack.pop()
+        ext = key[idx].max(0) - key[idx].min(0)
+        m = -(-idx.size // tile)
+        if m == 1 and (ext < half).all():
+            groups.append(cols[np.sort(idx)])
+            continue
+        ax = int(np.argmax(ext))
+        idx = idx[np.argsort(key[idx, ax], kind="stable")]
+        cut = (m // 2) * tile if m > 1 else idx.size // 2
+        stack += [idx[cut:], idx[:cut]]      # the lower half first
+    n_slots = len(groups) * tile
+    site = np.full(n_slots, -1, dtype=np.int32)
+    pq = np.zeros((n_slots, 4))
+    eps = np.zeros((eps_site.shape[0], n_slots))
+    sig2 = np.zeros_like(eps)
+    box = np.zeros((len(groups), 2, 4))
+    for k, s in enumerate(groups):
+        at = slice(k * tile, k * tile + s.size)
+        site[at] = s
+        pq[k * tile:(k + 1) * tile, :3] = pos[s[0]]
+        pq[at, :3], pq[at, 3] = pos[s], site_q[s]
+        eps[:, at], sig2[:, at] = eps_site[:, s], sig2_site[:, s]
+        lo, hi = pos[s].min(0), pos[s].max(0)
+        box[k, 0, :3], box[k, 1, :3] = (lo + hi) / 2, (hi - lo) / 2
+        box[k, 0, 3] = float((site_q[s] != 0).any())
+    return FrozenTiles(site=site, pq=pq, eps=eps, sig2=sig2, box=box)
+
+
+def side_reach(p, q, centre, cutoff: float, rcut2: float):
+    """(LJ, charged) squared reach in float32 of one footprint side, as
+    csrc/common.cuh footprint_reach computes it: p (A, 3) the side's
+    present atoms, q (A,) their charges, centre its COM. The LJ reach is
+    cutoff + rho + FW_CULL_EPS, rho the largest distance of an atom from the
+    centre; where an atom is charged, the reach of a charged tile takes
+    max(cutoff, rcut2) in place of the cutoff. No atom: (-1, -1)."""
+    f32 = np.float32
+    p = np.asarray(p, dtype=f32).reshape(-1, 3)
+    if p.shape[0] == 0:
+        return f32(-1), f32(-1)
+    d = p - np.asarray(centre, dtype=f32)
+    rho = np.sqrt(((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                   + d[:, 2] * d[:, 2]).max())
+    cut = f32(cutoff)
+    r_q = max(cut, f32(rcut2)) if (np.asarray(q) != 0).any() else cut
+    lj = (cut + rho) + f32(FW_CULL_EPS)
+    ch = (r_q + rho) + f32(FW_CULL_EPS)
+    return lj * lj, ch * ch
+
+
+def tiles_in_reach(box, sides, lengths) -> np.ndarray:
+    """(n_tiles,) bool, the kernels' test in float32 (csrc/common.cuh
+    tile_in_reach): tile box (n_tiles, 2, 4) as FrozenTiles.box, sides a
+    list of (centre (3,), LJ reach^2, charged reach^2) of the present
+    sides. Per axis the distance from the centre c to the tile's box
+    (centre t, half-extent h) through the boundary is d = max(0, |w| - h),
+    w = (c - t) - L rint((c - t) / L); the tile is kept where d.d is under
+    the squared reach of some side (its charged reach on a charged tile)."""
+    f32 = np.float32
+    box = np.asarray(box, dtype=f32)
+    L = np.asarray(lengths, dtype=f32)
+    keep = np.zeros(box.shape[0], dtype=bool)
+    for centre, lj, ch in sides:
+        dx = np.asarray(centre, dtype=f32) - box[:, 0, :3]
+        w = dx - L * np.rint(dx / L)
+        d = np.maximum(np.abs(w) - box[:, 1, :3], f32(0))
+        d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+        reach = np.where(box[:, 0, 3] != 0, f32(ch), f32(lj))
+        keep |= ~(d2 >= reach)
+    return keep
+
+
 def _amps_on_grid(phase, q, kmaxs, shape, yb: int = 0):
     """sum_s q_s e^{i 2 pi n.frac_s} on a dense half-space grid laid out
     (JzP, JxyP) with cols jx*JyB + jy (JyB=Jy: the ewald.py convention;
@@ -207,9 +327,7 @@ def _amps_on_grid(phase, q, kmaxs, shape, yb: int = 0):
 def build_fwsplit(box, alpha: float, cutoff: float, *,
                   kmax_xyz, amp_shape,
                   R: int, active_list, A_list, cap_list, n_mol_init,
-                  type_site_base, site_q, site_cls, pos0, eps_cls, sig_cls,
-                  class_base, lj_idx, Lmax: int, active_ids,
-                  mol_radius: float,
+                  type_site_base, site_q, pos0, mol_radius: float,
                   enabled: str = "auto", alpha2: float = 0.0,
                   rcut2: float = 0.0) -> FwSplitSetup:
     """Build the static-framework split tables (host-side numpy).
@@ -240,13 +358,9 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     guest_base = _round_up(S_frozen, 128)
 
     # live frozen site columns (dead capacity slots of empty inactive types
-    # are excluded here once and for all - the ghost table IS the live set)
-    cols = []
-    for r in frozen_types:
-        for mi in range(int(n_mol_init[r])):
-            s0 = type_site_base[r] + mi * A_list[r]
-            cols.extend(range(s0, s0 + A_list[r]))
-    cols = np.asarray(cols, dtype=np.int64)
+    # are excluded here once and for all)
+    cols = live_frozen_sites(type_site_base, A_list, n_mol_init,
+                             frozen_types)
     if cols.size == 0:
         return FwSplitSetup(False, "no live frozen sites")
 
@@ -268,74 +382,21 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     if a2 <= float(alpha):
         return FwSplitSetup(False, "alpha2 <= alpha (split pointless)")
 
-    rcw_c = rc2 + mol_radius + _SLACK
-    rcw_lj = float(cutoff) + mol_radius + _SLACK
-    band = max(rcw_c, rcw_lj)
+    # the JAX package's eligibility (its blockg windowed the frozen table
+    # along the longest axis, a band this wide on each side of a move),
+    # kept so that both packages split the same systems
+    band = max(rc2, float(cutoff)) + mol_radius + _SLACK
     if 2.0 * band >= L_ax:
         return FwSplitSetup(False, "window would span the whole box")
 
-    # ---- ghost-padded sorted framework table ---------------------------
-    p = pos0[cols]                                     # (Nf, 3)
-    # wrap the sort coordinate into [lo, hi) so ghosts are well defined
-    c_ax = lo_ax + np.mod(p[:, axis] - lo_ax, L_ax)
-    p = p.copy()
-    p[:, axis] = c_ax
-    lo_ghost = c_ax >= hi_ax - band                    # copy shifted -L
-    hi_ghost = c_ax <= lo_ax + band                    # copy shifted +L
-    shift = np.zeros(3)
-    shift[axis] = L_ax
-    pos_all = np.concatenate([p[lo_ghost] - shift, p, p[hi_ghost] + shift])
-    src = np.concatenate([cols[lo_ghost], cols, cols[hi_ghost]])
-    order = np.argsort(pos_all[:, axis], kind="stable")
-    pos_all = pos_all[order]
-    src = src[order]
-
-    NG = pos_all.shape[0]
-    SG = _round_up(NG, 128)
-    # rows x, y, z, q in ONE table: the kernel's dynamic window slice must
-    # be multi-row (single-row slices at lane offsets hit an unsupported
-    # Mosaic broadcast layout)
-    pq_g = np.zeros((4, SG))
-    # pad columns: far away on the sort axis (never inside a window and
-    # r^2 is huge), zero charge, zero eps
-    pq_g[axis, NG:] = hi_ax + band + 1.0e6
-    pq_g[:3, :NG] = pos_all.T
-    pq_g[3, :NG] = site_q[src]
-
-    # grouped-kernel LJ rows vs framework ghost cols: same 8-row (old|new)
-    # ACTIVE-pair block layout as SystemSpec.eps_pair_lj
-    eps_site_fw = eps_cls[:, site_cls[src]]            # (C+1, NG)
-    sig_site_fw = sig_cls[:, site_cls[src]]
-    nA = max(len(active_ids), 1)
-    eps_g = np.zeros((nA * nA * 8, SG))
-    sig2_g = np.zeros((nA * nA * 8, SG))
-    if 2 * Lmax <= 8:
-        for ao, to in enumerate(active_ids):
-            for an, tn in enumerate(active_ids):
-                base = (ao * nA + an) * 8
-                for side, t in ((0, int(to)), (1, int(tn))):
-                    for j, a in enumerate(lj_idx[t][:Lmax]):
-                        row = class_base[t] + a
-                        eps_g[base + side * Lmax + j, :NG] = eps_site_fw[row]
-                        sig2_g[base + side * Lmax + j, :NG] = (
-                            sig_site_fw[row] ** 2)
-
-    nb = SG // 128
-    blockmax = np.full(nb, hi_ax + band + 1.0e6)
-    zg = pq_g[axis]
-    for b in range(nb):
-        blockmax[b] = zg[b * 128:(b + 1) * 128].max()
-
-    # window widths: max over center positions of the column span needed
-    def window_cols(rcw: float) -> int:
-        z0 = np.linspace(lo_ax, hi_ax, 4097)
-        starts = np.searchsorted(blockmax, z0 - rcw, side="right")
-        ends = np.searchsorted(zg[:NG], z0 + rcw, side="right")
-        w = int(np.max(ends - starts * 128))
-        return max(128, _round_up(w, 128))
-
-    WL = min(window_cols(rcw_lj), SG)
-    WC = min(window_cols(rcw_c), SG)
+    # the live frozen sites with the longest axis wrapped into [lo, hi),
+    # in the order of that coordinate: the order in which the JAX package
+    # sums the framework structure factor below
+    p = pos0[cols].copy()
+    p[:, axis] = lo_ax + np.mod(p[:, axis] - lo_ax, L_ax)
+    order = np.argsort(p[:, axis], kind="stable")
+    p, src = p[order], cols[order]
+    inside = (p[:, axis] >= lo_ax) & (p[:, axis] < hi_ax)
 
     # ---- far-field coefficient grid -------------------------------------
     import os
@@ -377,13 +438,9 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     coef = np.where(valid, form * ghat, 0.0) * COULOMB_K / box.volume
 
     # framework structure factor on the grid (separable, exact f64)
-    frac = (pos_all @ recip_rows.T)                    # (NG', 3) = n.frac
-    qf = site_q[src][:NG]
-    # ghosts duplicate their originals only OUTSIDE the base cell; the
-    # structure factor must count each PHYSICAL site once -> originals only
-    is_orig = (pos_all[:, axis] >= lo_ax) & (pos_all[:, axis] < hi_ax)
-    phase = np.exp(2j * PI * frac[is_orig])            # (Nf, 3)
-    qs = qf[is_orig]
+    frac = p[inside] @ recip_rows.T                    # (Nf, 3) = n.frac
+    phase = np.exp(2j * PI * frac)                     # (Nf, 3)
+    qs = site_q[src[inside]]
     A2_re, A2_im = _amps_on_grid(phase, qs, tuple(int(k) for k in kmax2),
                                  (Jz2P, Jxy2P), yb=JyB)
 
@@ -409,9 +466,7 @@ def build_fwsplit(box, alpha: float, cutoff: float, *,
     d0 = COULOMB_K * PI * (1.0 / alpha ** 2 - 1.0 / a2 ** 2) * Q_fw / box.volume
 
     return FwSplitSetup(
-        True, "", S_frozen=S_frozen, guest_base=guest_base, axis=axis,
-        SG=SG, pq_g=pq_g, eps_g=eps_g, sig2_g=sig2_g,
-        blockmax=blockmax, WL=WL, WC=WC, rcw_lj=rcw_lj, rcw_c=rcw_c,
+        True, "", S_frozen=S_frozen, guest_base=guest_base,
         alpha2=a2, rcut2=rc2, d0=d0,
         kmax2=tuple(int(k) for k in kmax2), amp2_shape=(Jz2P, Jxy2P),
         c2_re=c2_re, c2_im=c2_im, ex2_sel=ex2, ey2_sel=ey2,

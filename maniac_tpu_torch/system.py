@@ -29,6 +29,10 @@ Differences from the JAX data model:
 * The far table (``far_coef``, ``far_rows``, ``far_units``) is derived from
   the far-field coefficients: their nonzero entries laid out for the
   footprint kernels' separable contraction (physics/fwsplit.py FarTable).
+* The frozen tiles (``fw_tile_*``) are derived from the frozen prefix of
+  the loaded positions: its live sites in spatially compact tiles, which
+  the footprint kernels sweep only within a move's reach (physics/fwsplit.py
+  FrozenTiles). The state's frozen prefix stays as loaded.
 * The charge table (``q_regions``, ``q_offsets``, ``q_mixed_types``) is
   derived from ``site_q``: the charged atoms of the molecules of each type
   the resync kernel covers (those at or above ``guest_base`` with the
@@ -57,7 +61,8 @@ from .ewald import EwaldSetup
 from .geometry import image_shifts
 from .io.deck import InputDeck
 from .io.lammps_data import ParsedSystem
-from .physics.fwsplit import build_far_table
+from .physics.fwsplit import (build_far_table, build_frozen_tiles,
+                              live_frozen_sites)
 from .utils import trace
 from .utils.threefry import prng_key
 
@@ -150,6 +155,15 @@ class SystemSpec:
     far_coef: torch.Tensor        # (n_tiles, 8, FAR_TCH, 32, 2)
     far_rows: torch.Tensor        # (n_groups * 32, 4) int32
     far_units: torch.Tensor       # (n_tiles, 8, 4) int32
+    # the frozen tiles the footprint kernels sweep in place of the frozen
+    # prefix (physics/fwsplit.py FrozenTiles; empty without the split): per
+    # slot its site (-1 on a pad), x, y, z, q and LJ entries against each
+    # class; per tile its box's centre, charge flag and half-extents
+    fw_tile_site: torch.Tensor    # (n_slots,) int32
+    fw_tile_pq: torch.Tensor      # (n_slots, 4)
+    fw_tile_eps: torch.Tensor     # (C+1, n_slots)
+    fw_tile_sig2: torch.Tensor    # (C+1, n_slots)
+    fw_tile_box: torch.Tensor     # (n_tiles, 2, 4)
     # the charge table (_charge_table): per type the resync covers (site
     # base, atoms per molecule, charged atoms per molecule, first entry of
     # q_offsets, type), and the charged atoms' offsets within a molecule,
@@ -397,6 +411,19 @@ def _image_reach(leaves: dict, pos, com, n_mol, res_offset) -> tuple:
     return tuple(float(x) for x in hi_all - lo_all)
 
 
+def _frozen_tiles(leaves: dict, pos, n_mol):
+    """The frozen tiles (physics/fwsplit.py build_frozen_tiles) of the
+    live frozen sites at ``pos`` (3, S) with populations ``n_mol``; none
+    without the framework split."""
+    frozen = [r for r, on in enumerate(leaves["active_list"]) if not on]
+    cols = (live_frozen_sites(leaves["type_site_base"], leaves["A_list"],
+                              n_mol, frozen)
+            if leaves["fw_split"] else np.zeros(0, dtype=np.int64))
+    return build_frozen_tiles(np.asarray(pos, dtype=np.float64).T, cols,
+                              leaves["site_q"], leaves["eps_site"],
+                              leaves["sig2_site"], leaves["box_diag"])
+
+
 def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
     """Assemble a host (float64 / int32) SystemSpec from numpy arrays and
     meta values keyed by field name; ``pos`` (3, S) and ``n_mol`` (R + 1,)
@@ -404,8 +431,10 @@ def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
     kw = {}
     derived = ("k_col_jx", "k_col_jy", "k2_col_jx", "k2_col_jy",
                "k_weighted_modes", "k_weighted_w", "k_real_modes",
-               "far_coef", "far_rows", "far_units", "q_regions", "q_offsets",
-               "q_mixed_types", "fw_pair_energy", "type_intra_energy")
+               "far_coef", "far_rows", "far_units", "fw_tile_site",
+               "fw_tile_pq", "fw_tile_eps", "fw_tile_sig2", "fw_tile_box",
+               "q_regions", "q_offsets", "q_mixed_types", "fw_pair_energy",
+               "type_intra_energy")
     for f in dataclasses.fields(SystemSpec):
         if f.name not in _META_FIELDS and f.name not in derived:
             kw[f.name] = _host_tensor(leaves[f.name])
@@ -424,6 +453,9 @@ def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
                           leaves["kmax2_xyz"][2])
     for name in ("coef", "rows", "units"):
         kw[f"far_{name}"] = _host_tensor(getattr(far, name))
+    tiles = _frozen_tiles(leaves, pos, n_mol)
+    for name in ("site", "pq", "eps", "sig2", "box"):
+        kw[f"fw_tile_{name}"] = _host_tensor(getattr(tiles, name))
     regions, offsets, kw["q_mixed_types"] = _charge_table(
         leaves["site_q"], leaves["site_base_list"], leaves["A_list"],
         leaves["cap_list"],
@@ -622,12 +654,6 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
     sig2_site = sig_site * sig_site
 
     # ---- static-framework split (physics/fwsplit.py) --------------------
-    lj_idx = []
-    for r in range(R):
-        A = min(A_list[r], A_act)
-        lj_idx.append([a for a in range(A)
-                       if np.any(eps_cls[class_base[r] + a] != 0.0)])
-    Lmax = max([len(lj_idx[r]) for r in range(R) if active[r]] + [1])
     mol_rad = 0.0
     for r in range(R):
         if not active[r]:
@@ -657,10 +683,7 @@ def build_spec_and_state(deck: InputDeck, parsed: ParsedSystem,
             amp_shape=tuple(ewald.grid2_shape),
             R=R, active_list=active, A_list=A_list, cap_list=cap_list,
             n_mol_init=parsed.n_mol, type_site_base=type_site_base,
-            site_q=site_q, site_cls=site_cls, pos0=pos0,
-            eps_cls=eps_cls, sig_cls=sig_cls, class_base=class_base,
-            lj_idx=lj_idx, Lmax=Lmax, active_ids=active_ids,
-            mol_radius=mol_rad, enabled=fw_mode,
+            site_q=site_q, pos0=pos0, mol_radius=mol_rad, enabled=fw_mode,
             alpha2=getattr(deck, "fw_alpha2", 0.0),
             rcut2=getattr(deck, "fw_rcut2", 0.0))
     if fw_mode == "on" and not fws.enabled:

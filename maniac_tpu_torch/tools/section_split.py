@@ -14,10 +14,12 @@ path's shape (``--replicas`` replicas, ``--steps`` steps) after one warm-up
 block, and prints each section's share of the ticks summed over the
 replicas, beside the instrumented call's time and the production kernel's
 time on the same inputs (the barriers the instrumented build adds cost time
-of their own). ``--deck DIR`` splits a written deck instead (DIR's
-input.maniac, topology.data and parameters.inc, loaded at ``--capacity``
-molecules a type), such as the benchmark's graphite slit as its writer
-leaves it:
+of their own), and with a frozen prefix ``frozen.kept_share``: the share of
+the frozen tiles its steps tested that they kept and swept (csrc/common.cuh
+frozen_tile_pass, counted by the same build). ``--deck DIR`` splits a
+written deck instead (DIR's input.maniac, topology.data and
+parameters.inc, loaded at ``--capacity`` molecules a type), such as the
+benchmark's graphite slit as its writer leaves it:
 
     python -c "from portbench import run; run.write_files(
         run.read_json(run.PKG / 'configs/flue_slit.json'), 1, 'slit')"
@@ -76,8 +78,9 @@ def _load(system, dev):
 
 
 def section_split(sysm, replicas: int, steps: int, seed: int = 1234):
-    """(shares by section, instrumented ms, production ms) of one block of
-    the loaded system ``sysm`` (on the card)."""
+    """(shares by section, instrumented ms, production ms, frozen tiles
+    kept over tested, None without a frozen prefix) of one block of the
+    loaded system ``sysm`` (on the card)."""
     from .. import replicate, run_block_replicated
     from ..kernels import build
     from ..kernels.blockg import run_block_kernel
@@ -91,14 +94,17 @@ def section_split(sysm, replicas: int, steps: int, seed: int = 1234):
     states, u = draw_uniforms(spec, states, steps)
     ms_prod = cuda_ms(lambda: run_block_kernel(spec, states, u), 1)
     ticks = np.zeros((SECTION_REPLICAS, len(SECTIONS)), dtype=np.int64)
+    tiles = np.zeros((SECTION_REPLICAS, 2), dtype=np.int64)
     with build.variant(DEFINES) as lib:
-        lib.maniac_section_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        for fn in (lib.maniac_section_clocks, lib.maniac_tile_counts_read):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
 
         def read():
-            err = lib.maniac_section_clocks(ticks.ctypes.data, ticks.size)
-            if err != 0:
-                raise RuntimeError(f"maniac_section_clocks failed: error "
-                                   f"{err}")
+            for name, out in (("maniac_section_clocks", ticks),
+                              ("maniac_tile_counts_read", tiles)):
+                err = getattr(lib, name)(out.ctypes.data, out.size)
+                if err != 0:
+                    raise RuntimeError(f"{name} failed: error {err}")
             return ticks[:replicas].sum(axis=0)
 
         run_block_kernel(spec, states, u)        # warm-up
@@ -111,7 +117,9 @@ def section_split(sysm, replicas: int, steps: int, seed: int = 1234):
         end.record()
         torch.cuda.synchronize()
         total = read()
-    return total / total.sum(), start.elapsed_time(end), ms_prod
+    tested, kept = tiles[:replicas].sum(axis=0)
+    share = float(kept) / float(tested) if tested else None
+    return total / total.sum(), start.elapsed_time(end), ms_prod, share
 
 
 def main(argv=None) -> int:
@@ -134,7 +142,8 @@ def main(argv=None) -> int:
         name, sysm = args.system, _load(args.system, dev)
     else:
         name, sysm = args.deck, _load_deck(args.deck, args.capacity, dev)
-    shares, ms_inst, ms_prod = section_split(sysm, args.replicas, args.steps)
+    shares, ms_inst, ms_prod, kept = section_split(sysm, args.replicas,
+                                                   args.steps)
     label = f"{torch.cuda.get_device_name(0)}, {card_label()}"
     print(f"section_split {name}: B={args.replicas} x {args.steps} "
           f"steps; instrumented {ms_inst:.3f} ms, production "
@@ -142,6 +151,9 @@ def main(argv=None) -> int:
     for section, share in zip(SECTIONS, shares):
         print(f"section_split {name}: {section} {100 * share:.1f}% "
               f"({share * ms_inst:.3f} ms of the instrumented call)")
+    if kept is not None:
+        print(f"section_split {name}: frozen.kept_share {kept:.4f} (of "
+              f"{int(sysm.spec.fw_tile_box.shape[0])} frozen tiles a step)")
     return 0
 
 

@@ -6,7 +6,10 @@ graphite's published geometry; the port's float64 energies of the written
 full-width configuration against portbench/oracle.py; a small-width
 variant through the harness's run.run, judged correct; and the swap and
 insertion bookkeeping against a float64 recompute. On the card (``gpu``):
-the block kernel against the plain block on the full configuration.
+the block kernel against the plain block on the full configuration, the
+block and step kernels against the plain steps where a 6.5 A cutoff leaves
+most frozen tiles out of a move's reach, and the instrumented build's
+share of the tiles kept.
 
 The file imports no jax, so its card test runs without the suite's
 conftest:
@@ -31,6 +34,7 @@ from maniac_tpu_torch import load_system, replicate
 from maniac_tpu_torch.constants import TYPE_CREATION, TYPE_SWAP
 from maniac_tpu_torch.kernels.blockg import run_block_kernel
 from maniac_tpu_torch.kernels.resync import resync_plain
+from maniac_tpu_torch.kernels.stepg import run_steps_kernel
 from maniac_tpu_torch.mc.driver import draw_uniforms, drift_report, steps_plain
 from maniac_tpu_torch.parallel.replicas import run_block_uniforms
 from maniac_tpu_torch.physics.energy import (full_intra_energy,
@@ -41,6 +45,8 @@ from maniac_tpu_torch.utils.logger import NullLogger
 from portbench import compare, run
 from portbench.oracle import Oracle
 from portbench.writers import graphite_slit, residues
+
+from frozen_tiles import kept_share
 
 torch.set_num_threads(1)
 
@@ -294,9 +300,9 @@ def test_resync_sets_the_terms_a_population_fixes(tmp_path, layers):
 @pytest.mark.gpu
 def test_block_kernel_matches_plain_on_the_full_configuration(tmp_path):
     """K2 in its frozen-prefix two-species form (blockg_kernel<false, true,
-    false>) against the plain block on the full configuration, B = 8 x 50
-    steps in float32: identical decisions (populations, counters, extras),
-    positions within 1e-4 A and running energies within 5 K
+    false, true>) against the plain block on the full configuration, B = 8
+    x 50 steps in float32: identical decisions (populations, counters,
+    extras), positions within 1e-4 A and running energies within 5 K
     (tests/test_torch_gpu.py's bounds)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -312,3 +318,48 @@ def test_block_kernel_matches_plain_on_the_full_configuration(tmp_path):
     assert int(k.counters[:, 1].sum()) > 0
     assert float((k.pos - p.pos).abs().max()) <= 1e-4
     assert float((k.energy - p.energy).abs().max()) <= 5.0
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_where_most_tiles_are_culled(tmp_path):
+    """The full slab at a 6.5 A cutoff (rcut2 6.5 A; a shorter one takes
+    a k-grid past the kernels' order 31), where a move reaches under half
+    of the 112 frozen tiles (some 14% at the loaded guests, tiles_in_reach):
+    K2 and K3 against the plain steps on the same uniforms, B = 8
+    x 50 steps in float32, with the bounds of the test above: identical
+    decisions, positions within 1e-4 A, running energies within 5 K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg = copy.deepcopy(CONFIG)
+    cfg["writer_args"]["cutoff_A"] = 6.5
+    sysm, _ = _load(cfg, tmp_path, torch.float32, device=dev)
+    spec = sysm.spec
+    assert spec.fw_split and float(spec.rcut2) == 6.5
+    assert spec.fw_tile_box.shape[0] == 112
+    assert 0.0 < kept_share(spec, sysm.state) < 0.5
+    states = replicate(spec, sysm.state, 8)
+    states, u = draw_uniforms(spec, states, 50)
+    p = steps_plain(spec, states, u)
+    for k in (run_block_kernel(spec, states, u),
+              run_steps_kernel(spec, states, u)):
+        for name in ("n_mol", "counters", "extras"):
+            assert torch.equal(getattr(k, name), getattr(p, name)), name
+        assert int(k.counters[:, 1].sum()) > 0
+        assert float((k.pos - p.pos).abs().max()) <= 1e-4
+        assert float((k.energy - p.energy).abs().max()) <= 5.0
+
+
+@pytest.mark.gpu
+def test_instrumented_build_reads_the_kept_share_on_the_slit(tmp_path):
+    """tools/section_split on the full configuration, B = 64 x 50 steps:
+    its instrumented build counts the frozen tiles each step tested and
+    kept, and frozen.kept_share lies strictly between 0 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from maniac_tpu_torch.tools.section_split import section_split
+    sysm, _ = _load(CONFIG, tmp_path, torch.float32,
+                    device=torch.device("cuda"))
+    shares, _, _, kept = section_split(sysm, 64, 50)
+    assert kept is not None and 0.0 < kept < 1.0, kept
+    assert abs(float(shares.sum()) - 1.0) < 1e-9

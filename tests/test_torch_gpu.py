@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from box_lengths import BOX_SYSTEMS, box_lengths
+from frozen_tiles import kept_share
 from zero_uniform import creation_rows
 from maniac_tpu_torch import (bench, load_system, replicate,
                               run_block_replicated)
@@ -411,6 +412,32 @@ def test_step_kernel_matches_plain(tmp_path, make):
     k = _assert_steps_parity(spec, states,
                              _draw(spec, 8, 40, 9), 0)
     assert int(k.counters[:, 1].sum()) > 0
+
+
+@pytest.mark.parametrize("n_cells", [6, 8], ids=["flagship", "two_passes"])
+def test_frozen_tile_cull_matches_plain(tmp_path, n_cells):
+    """K2 and K3 on make_zif_like frameworks, where a move reaches under
+    half of the frozen tiles (tiles_in_reach at the loaded guests), against
+    the plain steps on the same uniforms: K2's 60 steps at B = 8 with
+    _assert_block_parity's bounds, K3's one step and then 40 with
+    _assert_steps_parity's, no replica diverged. bench.py's flagship (some
+    2,160 sites in a 34 A box, 135 tiles), and 8 cells a side (5,120 sites,
+    320 tiles), which the kernels test in two passes of FW_PASS = 256."""
+    dev = _device()
+    if n_cells == 6:
+        sysm = _bench_cell("flagship")
+    else:
+        make_zif_like(str(tmp_path), n_cells=n_cells, a=5.66, n_water=32,
+                      fugacity=30.0)
+        sysm = _load(str(tmp_path), dev, 64)
+    spec = sysm.spec
+    assert spec.fw_split and spec.far_units.shape[0] > 0
+    assert (spec.fw_tile_box.shape[0] > 256) == (n_cells == 8)
+    assert 0.0 < kept_share(spec, sysm.state) < 0.5
+    states = replicate(spec, sysm.state, 8)
+    k = _assert_block_parity(spec, states, _draw(spec, 8, 60, 31))
+    assert int(k.counters[:, 1].sum()) > 0
+    _step_parity(spec, states, 32)
 
 
 def test_resync_single_chain_matches_plain(tmp_path):
@@ -958,7 +985,7 @@ def _bench_config(name, d, dev, seed=2 ** 33 + 11):
                        device=dev, seed=seed)
 
 
-BENCH_FORMS = {"spce750": "single", "flue_slit": "multi"}
+BENCH_FORMS = {"spce750": "single", "flue_slit": "multi_tiles"}
 
 
 @pytest.mark.parametrize("name", sorted(BENCH_FORMS))

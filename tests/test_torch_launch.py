@@ -303,6 +303,38 @@ def test_kernels_take_the_mode_lists(stub, system, kernel, request):
         assert t.data_ptr() not in ptrs
 
 
+@pytest.mark.parametrize("system", ["zif32", "water32"])
+@pytest.mark.parametrize("kernel", ["block", "step"])
+def test_kernels_take_the_frozen_tiles(stub, system, kernel, request):
+    """Both step kernels get the spec's frozen tiles (the slots' positions
+    and charges, their LJ entries, the tiles' boxes), the tile count as
+    csrc/step_body.cuh's SI_N_FW_TILES and the log2 of a tile's sites as
+    SI_FW_TILE_SHIFT: a frozen prefix comes with its tiles of FW_TILE
+    sites, a water box with none."""
+    from maniac_tpu_torch.physics.fwsplit import FW_TILE
+    sysm = request.getfixturevalue(system)
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, 2)
+    _, u = draw_uniforms(spec, states, 2)
+    if kernel == "block":
+        blockg._launch(spec, states, u)
+    else:
+        stepg._run(spec, states, u)
+    ptrs, ints, _ = _unpack(stub.calls[-1])
+    sh = _shared()
+    for key, t in (("SP_FW_PQ", spec.fw_tile_pq),
+                   ("SP_FW_EPS", spec.fw_tile_eps),
+                   ("SP_FW_SIG2", spec.fw_tile_sig2),
+                   ("SP_FW_BOX", spec.fw_tile_box)):
+        assert ptrs[sh[key]] == t.data_ptr(), key
+    n_tiles = spec.fw_tile_box.shape[0]
+    assert ints[sh["SI_N_FW_TILES"]] == n_tiles
+    assert (n_tiles > 0) == (ints[sh["SI_S_FROZEN"]] > 0) == spec.fw_split
+    if spec.fw_split:
+        assert 1 << ints[sh["SI_FW_TILE_SHIFT"]] == FW_TILE
+        assert spec.fw_tile_pq.shape == (n_tiles * FW_TILE, 4)
+
+
 def _step_calls(stub, spec, states, n_steps, seed):
     """run_steps_kernel's launches (stepg._run on CPU tensors) of one
     n_steps block: (the returned state, the uniforms, the unpacked tables

@@ -162,15 +162,16 @@ def _load_config(name: str, outdir: Path):
                        compute_initial_energy=False)
 
 
-@pytest.mark.parametrize("config,split,frozen,far,modes,active", [
-    ("flue_slit", True, 1792, 0, (1073, 2470), 2),
-    ("spce750", False, 0, 0, (1152, 2601), 1)])
+@pytest.mark.parametrize("config,split,frozen,tiles,far,modes,active", [
+    ("flue_slit", True, 1792, 112, 0, (1073, 2470), 2),
+    ("spce750", False, 0, 0, 0, (1152, 2601), 1)])
 def test_load_records_the_split_and_counts_what_it_built(
-        tmp_path, config, split, frozen, far, modes, active):
+        tmp_path, config, split, frozen, tiles, far, modes, active):
     """The framework split's build is a ``load.fwsplit`` span under
     ``load.build`` where there is a frozen type to build it from (the
     graphite slit) and no span where there is none (bulk water); the load
-    counts its live frozen sites, the far table's nonzero coefficients, the
+    counts its live frozen sites and the tiles the kernels sweep them in
+    (1,792 C in tiles of 16), the far table's nonzero coefficients, the
     weighted and the real k-space modes the kernels walk, and its active
     types."""
     trace.enable(True)
@@ -183,23 +184,25 @@ def test_load_records_the_split_and_counts_what_it_built(
     assert [n for n, _ in pairs].count("load.fwsplit") == int(split)
     assert {k: v for k, v in trace.counters().items()
             if k.startswith("load.")} == {
-        "load.frozen_sites": frozen, "load.far_coefficients": far,
+        "load.frozen_sites": frozen, "load.frozen_tiles": tiles,
+        "load.far_coefficients": far,
         "load.kspace_modes": modes[0], "load.commit_modes": modes[1],
         "load.active_types": active}
 
 
 def test_block_launch_counts_its_form(tmp_path, monkeypatch):
     """Each launch of the block kernel adds one to ``launch.blockg`` and
-    one to the counter of its template form: ``blockg.form.multi`` on
-    the graphite slit (a frozen prefix, two species, no far table), once a
-    block; with the launcher stubbed, so on the CPU."""
+    one to the counter of its template form: ``blockg.form.multi_tiles``
+    on the graphite slit (a frozen prefix, swept by tiles, two species, no
+    far table), once a block; with the launcher stubbed, so on the
+    CPU."""
     calls = []
     monkeypatch.setattr(build, "launch",
                         lambda name, *a: (calls.append(name),
                                           trace.count("launch.blockg")))
     sysm = _load_config("flue_slit", tmp_path)
     spec = sysm.spec
-    assert blockg.form(spec) == "multi"
+    assert blockg.form(spec) == "multi_tiles"
     states = replicate(spec, sysm.state, 2)
     before = trace.counters()
     for _ in range(3):
@@ -207,10 +210,10 @@ def test_block_launch_counts_its_form(tmp_path, monkeypatch):
         blockg._launch(spec, states, u)
     assert calls == ["blockg_launch"] * 3
     assert trace.since(before) == {"launch.blockg": 3,
-                                   "blockg.form.multi": 3}
+                                   "blockg.form.multi_tiles": 3}
     # outside the ``launch.`` prefix, so that portbench's launch_host_us
     # counts each launch once
-    t = _hand_made([], {"launch.blockg": 3, "blockg.form.multi": 3,
+    t = _hand_made([], {"launch.blockg": 3, "blockg.form.multi_tiles": 3,
                         "launch_ns.blockg": 4500})
     assert program_spans.launch_host_us(t) == pytest.approx(1.5, rel=1e-12)
 
