@@ -92,15 +92,24 @@ def _count_loaded(spec: SystemSpec, state: SimState) -> None:
     """Counters of what the load built: ``load.frozen_sites`` (live sites of
     the frozen types), ``load.frozen_tiles`` (the tiles the footprint
     kernels sweep them in; 0 without the framework split),
-    ``load.far_coefficients`` (the far table's nonzero
-    coefficients), ``load.kspace_modes`` and ``load.commit_modes`` (the
+    ``load.frozen_charged_sites`` (those of them with a charge),
+    ``load.far_coefficients`` (the far table's nonzero coefficients),
+    ``load.far_units`` (its work units, which the footprint kernels' far
+    sweep walks), ``load.kspace_modes`` and ``load.commit_modes`` (the
     weighted and the real k-space modes the footprint kernels walk, of the
     spec's (JzP, JxyP) grid) and ``load.active_types``."""
-    frozen = sum(int(state.n_mol[0, r]) * spec.A_list[r]
-                 for r in range(spec.R) if not spec.active_list[r])
+    frozen = charged = 0
+    for r in range(spec.R):
+        if not spec.active_list[r]:
+            n = int(state.n_mol[0, r]) * spec.A_list[r]
+            base = spec.site_base_list[r]
+            frozen += n
+            charged += int((spec.site_q[base:base + n] != 0).sum())
     trace.count("load.frozen_sites", frozen)
+    trace.count("load.frozen_charged_sites", charged)
     trace.count("load.frozen_tiles", int(spec.fw_tile_box.shape[0]))
     trace.count("load.far_coefficients", int((spec.far_coef != 0).sum()))
+    trace.count("load.far_units", int((spec.far_units[..., 2] > 0).sum()))
     trace.count("load.kspace_modes", int(spec.k_weighted_modes.shape[0]))
     trace.count("load.commit_modes", int(spec.k_real_modes.shape[0]))
     trace.count("load.active_types", spec.n_active)

@@ -448,9 +448,12 @@ def _spec_from_leaves(leaves: dict, pos, n_mol) -> SystemSpec:
     kw["k_weighted_modes"] = torch.from_numpy(modes)
     kw["k_weighted_w"] = _host_tensor(weights)
     kw["k_real_modes"] = torch.from_numpy(real)
-    far = build_far_table(leaves["c2_re"], leaves["c2_im"], kw["k2_col_jx"],
-                          kw["k2_col_jy"], leaves["kmax2_xyz"][1],
-                          leaves["kmax2_xyz"][2])
+    # a span only where the split gives a far grid to build the table of
+    with (trace.span("load.far_table") if leaves["fw_split"]
+          else contextlib.nullcontext()):
+        far = build_far_table(leaves["c2_re"], leaves["c2_im"],
+                              kw["k2_col_jx"], kw["k2_col_jy"],
+                              leaves["kmax2_xyz"][1], leaves["kmax2_xyz"][2])
     for name in ("coef", "rows", "units"):
         kw[f"far_{name}"] = _host_tensor(getattr(far, name))
     tiles = _frozen_tiles(leaves, pos, n_mol)

@@ -162,30 +162,38 @@ def _load_config(name: str, outdir: Path):
                        compute_initial_energy=False)
 
 
-@pytest.mark.parametrize("config,split,frozen,tiles,far,modes,active", [
-    ("flue_slit", True, 1792, 112, 0, (1073, 2470), 2),
-    ("spce750", False, 0, 0, 0, (1152, 2601), 1)])
+@pytest.mark.parametrize(
+    "config,split,frozen,charged,tiles,far,units,modes,active", [
+        ("flue_slit", True, 1792, 0, 112, 0, 0, (1073, 2470), 2),
+        ("nacl001_h2o", True, 576, 576, 40, 24964, 112, (1445, 3230), 1),
+        ("spce750", False, 0, 0, 0, 0, 0, (1152, 2601), 1)])
 def test_load_records_the_split_and_counts_what_it_built(
-        tmp_path, config, split, frozen, tiles, far, modes, active):
+        tmp_path, config, split, frozen, charged, tiles, far, units, modes,
+        active):
     """The framework split's build is a ``load.fwsplit`` span under
-    ``load.build`` where there is a frozen type to build it from (the
-    graphite slit) and no span where there is none (bulk water); the load
-    counts its live frozen sites and the tiles the kernels sweep them in
-    (1,792 C in tiles of 16), the far table's nonzero coefficients, the
-    weighted and the real k-space modes the kernels walk, and its active
-    types."""
+    ``load.build``, and the far table's a ``load.far_table`` span beside
+    it, where there is a frozen type to build them from (the graphite
+    slit, the salt slab) and no span where there is none (bulk water); the
+    load counts its live frozen sites, those with a charge (none of the
+    carbon, every ion of the salt), the tiles the kernels sweep them in
+    (1,792 C or 576 ions in tiles of 16), the far table's nonzero
+    coefficients and its work units (none without a charged frozen site),
+    the weighted and the real k-space modes the kernels walk, and its
+    active types."""
     trace.enable(True)
     sysm = _load_config(config, tmp_path)
     got = trace.spans()
     pairs = [(s.name, None if s.parent is None else got[s.parent].name)
              for s in got]
     assert sysm.spec.fw_split is split
-    assert (("load.fwsplit", "load.build") in pairs) is split
-    assert [n for n, _ in pairs].count("load.fwsplit") == int(split)
+    for name in ("load.fwsplit", "load.far_table"):
+        assert ((name, "load.build") in pairs) is split
+        assert [n for n, _ in pairs].count(name) == int(split)
     assert {k: v for k, v in trace.counters().items()
             if k.startswith("load.")} == {
-        "load.frozen_sites": frozen, "load.frozen_tiles": tiles,
-        "load.far_coefficients": far,
+        "load.frozen_sites": frozen, "load.frozen_charged_sites": charged,
+        "load.frozen_tiles": tiles, "load.far_coefficients": far,
+        "load.far_units": units,
         "load.kspace_modes": modes[0], "load.commit_modes": modes[1],
         "load.active_types": active}
 
