@@ -6,9 +6,11 @@ with a plain C interface (each kernel has an ``extern "C"`` launcher that
 returns its ``cudaError_t``), loaded with ctypes. ``launch`` keeps one
 ``_Launcher`` per launcher, whose argument tables are allocated once and
 refilled in place, and reads the current stream's raw handle after
-checking that the tensors lie on the current device. It counts each
-launch the launcher accepted in the counter ``launch.<launcher>``
-(utils/trace.py; the launcher's name without ``_launch``) and, with
+checking that the tensors lie on the current device. It counts the
+kernel launches of each call the launcher accepted in the counter
+``launch.<launcher>`` (utils/trace.py; the launcher's name without
+``_launch``; one a call but for the step kernel's, which queues a
+block's launches) and, with
 tracing on, adds the host ns from the argument tables to the launcher's
 return to ``launch_ns.<launcher>``. The build
 runs at first use, goes into ``kernels/_build/`` (git-ignored) and is keyed
@@ -228,12 +230,16 @@ def launch_counts(before: dict | None = None) -> dict:
             for n in short}
 
 
-def launch(name: str, ptrs, ints, floats, device) -> None:
+def launch(name: str, ptrs, ints, floats, device, launches: int = 1
+           ) -> None:
     """Call launcher ``name`` on the current CUDA stream with its pointer,
     int and float tables; ``device`` is the device of the tensors behind
     ``ptrs``, which must be the current CUDA device (current_stream raises
-    otherwise). Raise if the launcher reports an error (a refused launch
-    never runs, and synchronize() would not report it)."""
+    otherwise). ``launches`` is the kernel launches the call queues (the
+    step kernel's launcher queues one a step of a block), which
+    ``launch.<launcher>`` counts. Raise if the launcher reports an error
+    (a refused launch never runs, and synchronize() would not report
+    it)."""
     key = (name, _defines)
     fn = _launchers.get(key)
     if fn is None:
@@ -247,4 +253,4 @@ def launch(name: str, ptrs, ints, floats, device) -> None:
         raise RuntimeError(f"{name} failed: error {err} ({msg})")
     if timed:
         trace.count(fn.timer, time.perf_counter_ns() - t0)
-    trace.count(fn.counter)
+    trace.count(fn.counter, launches)

@@ -173,9 +173,9 @@ __global__ void __launch_bounds__(THREADS, 4) blockg_kernel(Args a) {
   SECTION_MARK(-1);
 
   for (int step = 0; step < a.n_steps; ++step)
-    mc_step<TRICLINIC, MULTI, FAR, TILES>(a, img, b, step, ss, far, pos,
-                                          com, ampre, ampim, res_off,
-                                          res_com, tstep, rstep, pr, tid);
+    mc_step<TRICLINIC, MULTI, FAR, TILES, 1>(a, img, b, 0, step, ss, far,
+                                             pos, com, ampre, ampim, res_off,
+                                             res_com, tstep, rstep, pr, tid);
 
   store_counts(a, b, tid, ss, a.nmol, a.res_n, a.energy, a.counters,
                a.extras);

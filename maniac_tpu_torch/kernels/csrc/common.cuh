@@ -141,7 +141,11 @@ __device__ __forceinline__ void stage_image_shifts(const float* img,
 // ---------------------------------------------------------------------------
 // The energy of one MC step's footprint, shared by the whole-block kernel
 // (blockg.cu) and the per-step kernel (stepg.cu): one replica a CTA of
-// STEP_THREADS threads. tid below is the thread's index.
+// STEP_THREADS threads, or (stepg.cu at few replicas) a thread-block
+// cluster of CL such CTAs. tid below is the thread's index in its CTA,
+// rank the CTA's rank in its cluster (0 where CL is 1): the loops over
+// sites and modes take cluster thread rank * STEP_THREADS + tid in strides
+// of CL * STEP_THREADS, and with CL = 1 they are the one-CTA loops.
 // ---------------------------------------------------------------------------
 
 constexpr int STEP_THREADS = 256;
@@ -178,6 +182,17 @@ __device__ void block_sum(float (&v)[NV], int tid, float* scratch,
     out[tid] = s;
   }
   __syncthreads();
+}
+
+// The split barrier of a thread-block cluster: arrive (release: this CTA's
+// shared-memory writes before it are visible to the cluster after the
+// wait) and wait (acquire) for every CTA of the cluster to arrive. Every
+// thread of every CTA calls both, in turn.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Section clocks of an instrumented build: tools/section_split.py builds
@@ -452,13 +467,15 @@ __device__ __forceinline__ bool tile_in_reach(const Args& a,
 // FW_PASS tiles, every thread tests one tile (tile_in_reach), a warp ballot
 // and the warps' counts in order compact the kept tiles into tl.kept (the
 // same list every run), and the threads then take the kept tiles' slots,
-// thread t slots t, t + 256, ..., site_pairs on the table's position,
-// charge and LJ entries (a pad slot adds exact zeros). Skipped sites are
-// out of reach, where every term is an exact zero. Synchronizes the CTA.
-template <class Args, class Image>
+// cluster thread t slots t, t + CL 256, ..., site_pairs on the table's
+// position, charge and LJ entries (a pad slot adds exact zeros). Every CTA
+// of a cluster culls all the tiles itself, into its own list (the same
+// list). Skipped sites are out of reach, where every term is an exact zero.
+// Synchronizes the CTA.
+template <int CL, class Args, class Image>
 __device__ __forceinline__ void frozen_tile_pass(
     const Args& a, const Footprint& fp, const Image& img, TileList& tl,
-    int tid, float cut_sq, float rc2_sq, float (&part)[NRED]) {
+    int tid, int rank, float cut_sq, float rc2_sq, float (&part)[NRED]) {
   const int lane = tid & 31, warp = tid >> 5, sh = a.fw_tile_shift;
   const int ns = a.n_fw_tiles << sh;
   for (int t0 = 0; t0 < a.n_fw_tiles; t0 += FW_PASS) {
@@ -476,7 +493,8 @@ __device__ __forceinline__ void frozen_tile_pass(
     if (keep) tl.kept[base + __popc(ballot & ((1u << lane) - 1u))] = t;
     TILE_COUNT(min(FW_PASS, a.n_fw_tiles - t0), n);
     __syncthreads();
-    for (int j = tid; j < (n << sh); j += STEP_THREADS) {
+    for (int j = rank * STEP_THREADS + tid; j < (n << sh);
+         j += CL * STEP_THREADS) {
       const int slot = (tl.kept[j >> sh] << sh) | (j & ((1 << sh) - 1));
       const float4 p = a.fw_pq[slot];
       site_pairs<true>(a, fp, img, a.fw_eps, a.fw_sig2, ns, slot, p.x, p.y,
@@ -492,14 +510,17 @@ __device__ __forceinline__ void frozen_tile_pass(
 // cut at gg_rcut when gg_cut) and the k-space sum sum_k w_k (2 A.d + |d|^2).
 // far_sweep adds part[4], part[5]. pos, ampre, ampim are this replica's; img
 // is the box's minimum image (MinImage); TILES: the spec has a frozen
-// prefix, swept by tiles (tl their list; never on a triclinic box).
-template <bool TILES, class Args, class Image>
+// prefix, swept by tiles (tl their list; never on a triclinic box). In a
+// cluster of CL CTAs each CTA's threads take their share of the sites and
+// modes (the cluster's threads, rank * STEP_THREADS + tid).
+template <bool TILES, int CL, class Args, class Image>
 __device__ __forceinline__ void footprint_partials(
     const Args& a, const Footprint& fp, float2 (*tab)[3][JMAX],
     const int* nmol, const float* pos, const float* ampre,
-    const float* ampim, const Image& img, TileList& tl, int tid,
+    const float* ampim, const Image& img, TileList& tl, int tid, int rank,
     float (&part)[NRED]) {
   const int S = a.S, F = 2 * a.A_act;
+  const int ct = rank * STEP_THREADS + tid;  // the thread in its cluster
   const float cut_sq = a.cutoff * a.cutoff, rc2_sq = a.rcut2 * a.rcut2;
 #pragma unroll
   for (int i = 0; i < NRED; ++i) part[i] = 0.f;
@@ -511,9 +532,9 @@ __device__ __forceinline__ void footprint_partials(
   // code, where the loop without it made ptxas spill 48 bytes in K3's
   // two-species form and cost it 6% (PERF.md, section 6).
   if constexpr (TILES)
-    frozen_tile_pass(a, fp, img, tl, tid, cut_sq, rc2_sq, part);
-  for (int j = tid + (TILES ? a.S_frozen : 0); j < fp.n_sites;
-       j += STEP_THREADS) {
+    frozen_tile_pass<CL>(a, fp, img, tl, tid, rank, cut_sq, rc2_sq, part);
+  for (int j = ct + (TILES ? a.S_frozen : 0); j < fp.n_sites;
+       j += CL * STEP_THREADS) {
     const int s = j < a.S_frozen ? j : a.guest_base + (j - a.S_frozen);
     if (a.site_midx[s] >= nmol[a.site_type[s]]) continue;  // inactive
     const int mol = a.site_mol[s];
@@ -532,7 +553,7 @@ __device__ __forceinline__ void footprint_partials(
 
   // k-space: sum_k w_k (2 A.d + |d|^2) over the host's list of the modes
   // with weight (m, jx, jy, jz), dense, so every warp takes its share
-  for (int i = tid; i < a.n_kw; i += STEP_THREADS) {
+  for (int i = ct; i < a.n_kw; i += CL * STEP_THREADS) {
     const int4 k = a.kmodes[i];
     const float w = a.kmode_w[i];
     const float2 d = footprint_mode(tab, fp.wk, 0, F, k.y, k.z, k.w);
@@ -628,12 +649,19 @@ __device__ __forceinline__ void far_unit(float (&acc)[2 * FAR_PASS],
 // part[4 + side] += this thread's share of the far field of the replica's
 // footprint (fp, tab, ytab), in npass = ceil(far_n / FAR_PASS) sweeps of the
 // table. Every thread of the CTA calls it; it synchronizes the CTA. tiles
-// holds two staged tiles (2 FAR_TILE4 float4).
-template <class Args>
+// holds two staged tiles (2 FAR_TILE4 float4). In a cluster of CL CTAs,
+// CTA rank r sweeps the tiles [r n / CL, (r + 1) n / CL) of the n, and a
+// row cut by its range's ends is taken up from the unit's row base and
+// closed there: Re(T x^jx z^jz) is linear in T, so the row's parts add up
+// to the row.
+template <int CL, class Args>
 __device__ void far_sweep(const Args& a, int npass, float4* tiles,
                           const Footprint& fp, float2 (*tab)[3][JMAX],
-                          const float4* ytab, int tid, float (&part)[NRED]) {
+                          const float4* ytab, int tid, int rank,
+                          float (&part)[NRED]) {
   const int lane = tid & 31, warp = tid >> 5, n_tiles = a.n_far_tiles;
+  const int k_lo = CL == 1 ? 0 : rank * n_tiles / CL;
+  const int k_hi = CL == 1 ? n_tiles : (rank + 1) * n_tiles / CL;
   for (int pass = 0; pass < npass; ++pass) {
     const int k0 = pass * FAR_PASS;
     const int nk = min(FAR_PASS, fp.far_n - k0);
@@ -642,12 +670,14 @@ __device__ void far_sweep(const Args& a, int npass, float4* tiles,
 #pragma unroll
     for (int i = 0; i < 2 * FAR_PASS; ++i) acc[i] = 0.f;
     int jz = 0, jx = 0, yb = 0;
-    for (int i = tid; i < FAR_TILE4; i += STEP_THREADS)
-      cp_async16(tiles + i, a.far_coef + i);
+    if (CL == 1 || k_lo < k_hi) {
+      for (int i = tid; i < FAR_TILE4; i += STEP_THREADS)
+        cp_async16(tiles + i, a.far_coef + (size_t)k_lo * FAR_TILE4 + i);
+    }
     cp_async_commit();
-    for (int k = 0; k < n_tiles; ++k) {
-      if (k + 1 < n_tiles) {
-        float4* dst = tiles + ((k + 1) & 1) * FAR_TILE4;
+    for (int k = k_lo; k < k_hi; ++k) {
+      if (k + 1 < k_hi) {
+        float4* dst = tiles + ((k + 1 - k_lo) & 1) * FAR_TILE4;
         const float4* src = a.far_coef + (size_t)(k + 1) * FAR_TILE4;
         for (int i = tid; i < FAR_TILE4; i += STEP_THREADS)
           cp_async16(dst + i, src + i);
@@ -657,7 +687,7 @@ __device__ void far_sweep(const Args& a, int npass, float4* tiles,
       __syncthreads();  // tile k is in, and so is ytab
       const int4 u = a.far_units[k * FAR_WARPS + warp];
       if (u.z > 0) {
-        if (u.w & FAR_FIRST) {
+        if ((u.w & FAR_FIRST) || (CL > 1 && k == k_lo)) {
           const int4 r = a.far_rows[u.x + lane];
           jz = r.x;
           jx = r.y;
@@ -666,7 +696,7 @@ __device__ void far_sweep(const Args& a, int npass, float4* tiles,
           for (int i = 0; i < 2 * FAR_PASS; ++i) acc[i] = 0.f;
         }
         const float2* c = reinterpret_cast<const float2*>(
-                              tiles + (k & 1) * FAR_TILE4)
+                              tiles + ((k - k_lo) & 1) * FAR_TILE4)
                           + warp * FAR_TCH * FAR_LANES + lane;
         const float4* y = ytab + k0 / 2;
         const int yi = yb + u.y;
@@ -676,7 +706,8 @@ __device__ void far_sweep(const Args& a, int npass, float4* tiles,
           case 3: far_unit<3>(acc, c, y, yi, u.z); break;
           default: far_unit<4>(acc, c, y, yi, u.z); break;
         }
-        if (u.w & FAR_LAST) {  // close the rows: Re(T x^jx z^jz) by side
+        // close the rows: Re(T x^jx z^jz) by side
+        if ((u.w & FAR_LAST) || (CL > 1 && k == k_hi - 1)) {
 #pragma unroll
           for (int q = 0; q < FAR_PASS; ++q) {
             if (q >= nk) break;

@@ -15,6 +15,14 @@
 // recomputes the delta of its own modes of the real mode list and adds it
 // to the amplitudes. Nothing else is written.
 //
+// The per-step kernel may run one replica's step on a thread-block cluster
+// of CL CTAs (mc_step's CL; 1 in the whole-block kernel): thread 0 of every
+// CTA makes the same proposal from the same state and uniform row, the
+// CTAs split the pair pass, the k-space delta, the far sweep and the
+// amplitude commit, every CTA sums the CTAs' block sums through distributed
+// shared memory in rank order (cluster_sum), so every CTA takes the same
+// decision, and only rank 0 writes positions, COMs and the reservoir rows.
+//
 // Both kernels take the tables below (StepPtr, StepInt, StepFloat, in this
 // order; kernels/stepg.py::step_tables packs them) and append their own
 // entries after SP_SHARED and SI_SHARED; their Args derive from StepArgs,
@@ -25,6 +33,8 @@
 #pragma once
 
 #include <algorithm>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -583,22 +593,49 @@ __device__ void commit_reservoir(const Args& a, const Proposal& pr, bool acc,
   extras[1] += acc && pr.remove_like && full;
 }
 
+// The cluster's totals of the CTAs' block sums (CL > 1): once every CTA of
+// the cluster has its own in ss.red, thread i < NRED of every CTA adds
+// entry i of ranks 0, 1, ..., CL - 1 in that order into ss.scratch[i] (the
+// same bits in every CTA). It arrives at the cluster barrier once this
+// CTA's reads are done; mc_step waits there before it returns, so that no
+// CTA leaves while another still reads its shared memory. Synchronizes the
+// CTA.
+template <int CL>
+__device__ __forceinline__ void cluster_sum(StepSmem& ss, int tid) {
+  cluster_arrive();
+  cluster_wait();
+  if (tid < NRED) {
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    float* own = &ss.red[tid];
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < CL; ++r) s += *cluster.map_shared_rank(own, r);
+    ss.scratch[tid] = s;
+  }
+  cluster_arrive();
+  __syncthreads();
+}
+
 // One MC step of replica b on uniform row `step`, by every thread of the
-// CTA (it synchronizes the CTA). pos, com, ampre, ampim, res_off and
-// res_com are the replica's state in device memory, updated in place;
-// populations, reservoir counts, energies, counters and extras are ss's
-// (the caller loads them before and stores them after); far is the far
-// field's shared memory (read only with FAR). pr is thread 0's. TILES: the
-// spec has a frozen prefix, swept tile by tile (the forms with a far table
-// have one). Sections of the instrumented build (SECTION_MARK): 0 proposal,
-// 1 phase tables, 2 pair pass, 3 k-space delta, 4 far field, 5 reduction, 6
-// decision and commits, 7 amplitude commit.
-template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES, class Args>
+// CTA (it synchronizes the CTA), or by the CL CTAs of a cluster, this one
+// of rank `rank` (it then synchronizes the cluster). pos, com, ampre,
+// ampim, res_off and res_com are the replica's state in device memory,
+// updated in place; populations, reservoir counts, energies, counters and
+// extras are ss's (the caller loads them before and stores them after;
+// in a cluster, rank 0's); far is the far field's shared memory (read only
+// with FAR). pr is thread 0's. TILES: the spec has a frozen prefix, swept
+// tile by tile (the forms with a far table have one). Sections of the
+// instrumented build (SECTION_MARK): 0 proposal, 1 phase tables, 2 pair
+// pass, 3 k-space delta, 4 far field, 5 reduction, 6 decision and commits,
+// 7 amplitude commit.
+template <bool TRICLINIC, bool MULTI, bool FAR, bool TILES, int CL,
+          class Args>
 __device__ __forceinline__ void mc_step(
-    const Args& a, const MinImage<TRICLINIC>& img, int b, int step,
-    StepSmem& ss, FarSmem* far, float* pos, float* com, float* ampre,
-    float* ampim, float* res_off, float* res_com, float tstep, float rstep,
-    Proposal& pr, int tid) {
+    const Args& a, const MinImage<TRICLINIC>& img, int b, int rank,
+    int step, StepSmem& ss, FarSmem* far, float* pos, float* com,
+    float* ampre, float* ampim, float* res_off, float* res_com, float tstep,
+    float rstep, Proposal& pr, int tid) {
   Footprint& fp = ss.fp;
   const int S = a.S, M1 = a.Mtot + 1, F = 2 * a.A_act;
   int* nmol = ss.nmol;
@@ -624,20 +661,22 @@ __device__ __forceinline__ void mc_step(
   float part[NRED];
   if constexpr (FAR) far_ytab_fill(a, fp, ss.tab, far->ytab, tid);
   SECTION_MARK(1);
-  footprint_partials<TILES>(a, fp, ss.tab, nmol, pos, ampre, ampim, img,
-                            ss.tiles, tid, part);
+  footprint_partials<TILES, CL>(a, fp, ss.tab, nmol, pos, ampre, ampim,
+                                img, ss.tiles, tid, rank, part);
   SECTION_MARK(3);
   if constexpr (FAR) {
     if (fp.far_n > 0)
-      far_sweep(a, (fp.far_n + FAR_PASS - 1) / FAR_PASS, far->tiles, fp,
-                ss.tab, far->ytab, tid, part);
+      far_sweep<CL>(a, (fp.far_n + FAR_PASS - 1) / FAR_PASS, far->tiles,
+                    fp, ss.tab, far->ytab, tid, rank, part);
   }
   SECTION_MARK(4);
   block_sum<NRED>(part, tid, ss.scratch, ss.red);
+  if constexpr (CL > 1) cluster_sum<CL>(ss, tid);
   SECTION_MARK(5);
 
   if (tid == 0) {
-    const float* red = ss.red;
+    const float* red = CL > 1 ? ss.scratch : ss.red;
+    const bool lead = CL == 1 || rank == 0;  // writes the state in memory
     const float e_lj0 = red[0], e_lj1 = red[1];
     const float e_coul0 = red[2] * a.coulomb_k
                           + (red[4] + a.fw_d0 * pr.sw[0]);
@@ -656,22 +695,22 @@ __device__ __forceinline__ void mc_step(
 
     // compaction first (t_old's last molecule moves into the freed
     // slot), then the written molecule: new rows win where both apply
-    if (acc && pr.remove_like) {
+    if (lead && acc && pr.remove_like) {
       for (int k = 0; k < pr.A_old; ++k)
         for (int i = 0; i < 3; ++i)
           pos[i * S + pr.site_start_old + k] = pr.last[k][i];
       for (int i = 0; i < 3; ++i)
         com[i * M1 + pr.mol_slot_old] = pr.com_last[i];
     }
-    if (acc && pr.w_new) {
+    if (lead && acc && pr.w_new) {
       for (int k = 0; k < pr.A_new; ++k)
         for (int i = 0; i < 3; ++i)
           pos[i * S + pr.site_start_new + k] = pr.P_new[k][i];
       for (int i = 0; i < 3; ++i)
         com[i * M1 + pr.slot_new] = pr.com_new[i];
     }
-    if (a.has_res) commit_reservoir(a, pr, acc, res_off, res_com, ss.res_n,
-                                    extras);
+    if (lead && a.has_res)
+      commit_reservoir(a, pr, acc, res_off, res_com, ss.res_n, extras);
     nmol[pr.t_new] += acc && pr.insert_like;
     nmol[pr.t_old] -= acc && pr.remove_like;
     // the deltas of an accepted move only (a select, not a 0/1 product:
@@ -694,9 +733,10 @@ __device__ __forceinline__ void mc_step(
 
   // amp += d on every real mode (recomputed, not stored), the host's list
   // of them (pad modes are never touched): each mode's update is the same
-  // whichever thread makes it
+  // whichever thread makes it (in a cluster, each CTA commits its share)
   if (fp.acc) {
-    for (int i = tid; i < a.n_kr; i += STEP_THREADS) {
+    for (int i = rank * STEP_THREADS + tid; i < a.n_kr;
+         i += CL * STEP_THREADS) {
       const int4 k = a.rmodes[i];
       const float2 d = footprint_mode(ss.tab, fp.wk, 0, F, k.y, k.z, k.w);
       ampre[k.x] += d.x;
@@ -704,6 +744,7 @@ __device__ __forceinline__ void mc_step(
     }
   }
   __syncthreads();
+  if constexpr (CL > 1) cluster_wait();  // cluster_sum's reads are done
   SECTION_MARK(7);
 }
 

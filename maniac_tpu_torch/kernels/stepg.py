@@ -6,9 +6,12 @@ mc_step_core_grouped (kernel ``_stepg_kernel``) together with the proposal
 and the bookkeeping mc_step_u runs around it (kernels.step_gate_failure is
 the gate); on a triclinic box it also takes the core the JAX package leaves
 to XLA there. For a CUDA state it clones the state once and launches
-csrc/stepg.cu once per step on the clone, in place; for a CPU state it runs
+csrc/stepg.cu once per step on the clone, in place (one launcher call
+queues the block's launches); for a CPU state it runs
 its plain version, mc/driver.py::steps_plain (the torch loop of
-mc/moves.py::mc_step_u with the plain energy core). ``step_core_plain``
+mc/moves.py::mc_step_u with the plain energy core). At few replicas
+(``cluster_size``) a replica's step runs on a thread-block cluster of
+``CLUSTER`` CTAs, one CTA a replica above. ``step_core_plain``
 (mc/moves.py::_core_plain) is that core, which the parity tests hold to
 the JAX package's Pallas step core.
 
@@ -36,6 +39,20 @@ step_core_plain = _core_plain
 STATE_KEYS = ("pos", "com", "amp_re", "amp_im", "n_mol", "energy",
               "counters", "extras")
 RES_KEYS = ("res_offset", "res_com", "res_n")
+
+# csrc/stepg.cu's CLUSTER: the CTAs a replica's step takes at up to
+# CLUSTER_MAX_B replicas in the run, the most at which the cluster form's
+# step took clearly less device time than the one-CTA form's on the H100
+# (tools/kernel_times --forms; PERF.md section 6)
+CLUSTER, CLUSTER_MAX_B = 8, 64
+
+
+def cluster_size(B: int) -> int:
+    """The CTAs a replica's step takes in a run of B replicas
+    (csrc/stepg.cu SI_CLUSTER): a cluster of CLUSTER where B <=
+    CLUSTER_MAX_B, so that a lone chain's step spreads over CLUSTER SMs,
+    else one CTA a replica."""
+    return CLUSTER if B <= CLUSTER_MAX_B else 1
 
 
 def step_tables(spec: SystemSpec, states: SimState, uniforms,
@@ -116,21 +133,29 @@ def step_tables(spec: SystemSpec, states: SimState, uniforms,
     return ptrs, ints, floats
 
 
-def run_steps_kernel(spec: SystemSpec, states: SimState,
-                     uniforms) -> SimState:
+def run_steps_kernel(spec: SystemSpec, states: SimState, uniforms,
+                     n_replicas: int | None = None) -> SimState:
     """Run uniforms.shape[1] MC steps for every replica; uniforms are
-    replica-major (B, n_steps, 21) in the spec dtype. The caller's states
-    are never written."""
+    replica-major (B, n_steps, 21) in the spec dtype. ``n_replicas`` is
+    the run's replicas in all where ``states`` is one rank's slice of them
+    (parallel/mesh.py; B by default): the kernel's form (cluster_size)
+    follows it, so that a sharded run adds its sums as the unsharded one
+    does. The caller's states are never written."""
     if states.pos.device.type == "cpu":
         return steps_plain(spec, states, uniforms)
     with trace.span("kernels.stepg"):
-        return _run(spec, states, uniforms)
+        return _run(spec, states, uniforms, n_replicas)
 
 
-def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
-    """Check the inputs once, clone the state once and launch csrc/stepg.cu
-    once per step on the clone (the tables are the same for every step of
-    the block but for the step index)."""
+def _run(spec: SystemSpec, states: SimState, uniforms,
+         n_replicas: int | None = None, *,
+         _cluster: int | None = None) -> SimState:
+    """Check the inputs once, clone the state once and call csrc/stepg.cu
+    once, which queues a launch a step on the clone, each launch counted
+    as ``launch.stepg`` and ``stepg.cluster.<CTAs a replica>``.
+    ``_cluster`` pins the CTAs a replica (1 or CLUSTER) in place of
+    cluster_size's choice, for the tests that hold one form to the
+    other."""
     failure = step_gate_failure(spec) or image_failure(spec)
     if failure is not None:
         raise ValueError(f"the step kernel does not take this spec: "
@@ -146,10 +171,13 @@ def _run(spec: SystemSpec, states: SimState, uniforms) -> SimState:
     keys = STATE_KEYS + (RES_KEYS if spec.has_reservoir else ())
     work = states.replace(**{k: getattr(states, k).clone() for k in keys})
     ptrs, ints, floats = step_tables(spec, states, uniforms, work)
-    # stepg.cu's own ints after the shared ones: SI_STEP, SI_ACT_STRIDE
-    si_step = len(ints)
-    ints += [0, act_stride]
-    for step in range(uniforms.shape[1]):
-        ints[si_step] = step
-        build.launch("stepg_launch", ptrs, ints, floats, work.pos.device)
+    cl = _cluster or cluster_size(n_replicas or states.B)
+    # stepg.cu's own ints after the shared ones: SI_STEP, SI_ACT_STRIDE,
+    # SI_CLUSTER, SI_LAUNCHES
+    n_steps = uniforms.shape[1]
+    ints += [0, act_stride, cl, n_steps]
+    if n_steps:
+        build.launch("stepg_launch", ptrs, ints, floats, work.pos.device,
+                     launches=n_steps)
+        trace.count(f"stepg.cluster.{cl}", n_steps)
     return work

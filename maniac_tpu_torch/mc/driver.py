@@ -69,19 +69,22 @@ def draw_uniforms(spec: SystemSpec, state: SimState, n_steps: int):
 
 
 def run_steps_u(spec: SystemSpec, state: SimState, uniforms,
-                core=None) -> SimState:
+                core=None, n_replicas: int | None = None) -> SimState:
     """n_steps MC steps from explicit uniforms (B, n_steps, 21): the
     per-step path of a block. ``core`` None dispatches: a spec inside
     kernels.step_gate_failure goes to kernels/stepg.py::run_steps_kernel
     (on the card one launch a step; on the CPU the loop below with
     _core_plain), any other runs the loop with _core_plain. A core passed
-    (_core_plain) pins the torch loop of mc_step_u."""
+    (_core_plain) pins the torch loop of mc_step_u. ``n_replicas`` is the
+    run's replicas in all where ``state`` is one rank's slice of them
+    (parallel/mesh.py; B by default), from which the step kernel takes its
+    form."""
     with trace.span("mc.steps"):
         if core is None:
             from ..kernels import step_gate_failure
             if step_gate_failure(spec) is None:
                 from ..kernels.stepg import run_steps_kernel
-                return run_steps_kernel(spec, state, uniforms)
+                return run_steps_kernel(spec, state, uniforms, n_replicas)
             core = _core_plain
         for i in range(uniforms.shape[1]):
             state = mc_step_u(spec, state, uniforms[:, i], core)
@@ -112,9 +115,52 @@ def block_body(spec: SystemSpec, state: SimState, n_steps: int,
 
 def resync(spec: SystemSpec, state: SimState) -> SimState:
     """Recompute the energy and the structure factors from positions (the
-    command line's per-block refresh of an f32 single chain)."""
+    command line's per-block refresh of an f32 single chain). On the card
+    initialize_state's kernels replay as one CUDA graph (_RefreshGraph),
+    captured once for the spec and the state's layout and kept in
+    spec.graphs."""
     with trace.span("mc.refresh"):
-        return initialize_state(spec, state)
+        if not state.pos.is_cuda:
+            return initialize_state(spec, state)
+        layout = ("refresh",) + tuple(
+            (t.shape, t.dtype, t.device) for t in (state.pos, state.n_mol))
+        graph = spec.graphs.get(layout)
+        if graph is None:
+            graph = spec.graphs[layout] = _RefreshGraph(spec, state)
+            trace.count("refresh.graph_captures")
+        return graph.run(state)
+
+
+class _RefreshGraph:
+    """initialize_state's kernels for one spec and one state layout,
+    captured once as a CUDA graph: run() copies the state's positions and
+    populations (all that system_energy reads of a state) into the graph's
+    inputs, replays it and returns the state with copies of its energies
+    and amplitudes. The same kernels in the same order as the eager call,
+    queued by one launch: eagerly the benchmark's chain queues some 700 a
+    block, whose host time set the pace of its block (PERF.md, section
+    5)."""
+
+    def __init__(self, spec: SystemSpec, state: SimState):
+        self.pos, self.n_mol = state.pos.clone(), state.n_mol.clone()
+        inputs = state.replace(pos=self.pos, n_mol=self.n_mol)
+        # a warm-up on a side stream before the capture, as
+        # torch.cuda.graphs asks
+        side = torch.cuda.Stream(self.pos.device)
+        side.wait_stream(torch.cuda.current_stream(self.pos.device))
+        with torch.cuda.stream(side):
+            system_energy(spec, inputs)
+        torch.cuda.current_stream(self.pos.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = system_energy(spec, inputs)
+
+    def run(self, state: SimState) -> SimState:
+        self.pos.copy_(state.pos)
+        self.n_mol.copy_(state.n_mol)
+        self.graph.replay()
+        e, amp_re, amp_im = (t.clone() for t in self.out)
+        return state.replace(amp_re=amp_re, amp_im=amp_im, energy=e)
 
 
 def resync_amplitudes_body(spec: SystemSpec, state: SimState) -> SimState:

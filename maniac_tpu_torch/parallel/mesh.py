@@ -118,12 +118,15 @@ def run_block_sharded(mesh: Mesh, spec: SystemSpec, states: SimState,
                       n_steps: int, recalibrate: bool,
                       resync: bool = False) -> SimState:
     """One block of this rank's replicas: run_block_replicated on the
-    local slice, with no collective (the chains are independent)."""
+    local slice, with no collective (the chains are independent). The
+    step kernel takes its form from the run's replicas in all, as the
+    unsharded run does, so that its sums add in the same order."""
     if states.pos.device != mesh.device or spec.device != mesh.device:
         raise ValueError(f"run_block_sharded: the states ({states.pos.device})"
                          f" and the spec ({spec.device}) must be on the "
                          f"rank's device {mesh.device}")
-    return run_block_replicated(spec, states, n_steps, recalibrate, resync)
+    return run_block_replicated(spec, states, n_steps, recalibrate, resync,
+                                n_replicas=states.B * mesh.world)
 
 
 def _gather_rows(mesh: Mesh, rows: torch.Tensor) -> torch.Tensor:

@@ -48,15 +48,18 @@ def perturb_activity(spec: SystemSpec, activities) -> SystemSpec:
 
 
 def run_block_uniforms(spec: SystemSpec, states: SimState, uniforms,
-                       recalibrate: bool, resync: bool = False) -> SimState:
+                       recalibrate: bool, resync: bool = False,
+                       n_replicas: int | None = None) -> SimState:
     """One block over all replicas from explicit uniforms (B, n_steps, 21):
     the MC steps, the step-size recalibration and (resync=True) the
-    amplitude resynthesis."""
+    amplitude resynthesis. ``n_replicas``: the run's replicas in all where
+    ``states`` is one rank's slice (mc/driver.py::run_steps_u)."""
     from ..kernels.blockg import run_block_kernel
-    block = (run_block_kernel if block_gate_failure(spec) is None
-             else run_steps_u)
     with trace.span("mc.block"):
-        out = block(spec, states, uniforms)
+        if block_gate_failure(spec) is None:
+            out = run_block_kernel(spec, states, uniforms)
+        else:
+            out = run_steps_u(spec, states, uniforms, n_replicas=n_replicas)
         if recalibrate:
             with trace.span("mc.recalibrate"):
                 out = _recalibrate(out, recalibrate)
@@ -64,11 +67,13 @@ def run_block_uniforms(spec: SystemSpec, states: SimState, uniforms,
 
 
 def run_block_replicated(spec: SystemSpec, states: SimState, n_steps: int,
-                         recalibrate: bool, resync: bool = False) -> SimState:
+                         recalibrate: bool, resync: bool = False,
+                         n_replicas: int | None = None) -> SimState:
     """One block over all replicas with uniforms drawn from their keys
-    (draw_uniforms)."""
+    (draw_uniforms); ``n_replicas`` as in run_block_uniforms."""
     states, u = draw_uniforms(spec, states, n_steps)
-    return run_block_uniforms(spec, states, u, recalibrate, resync)
+    return run_block_uniforms(spec, states, u, recalibrate, resync,
+                              n_replicas)
 
 
 def run_block_sweep_uniforms(spec: SystemSpec, states: SimState, uniforms,

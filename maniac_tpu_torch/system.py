@@ -239,6 +239,13 @@ class SystemSpec:
             "fw_d0")}
 
     @functools.cached_property
+    def graphs(self) -> dict:
+        """CUDA graphs captured for this spec (mc/driver.resync's refresh,
+        by state layout): they and their memory live as long as the spec,
+        and a spec made from it (dataclasses.replace) starts with none."""
+        return {}
+
+    @functools.cached_property
     def host_box(self) -> tuple:
         """The box lengths (box_diag) as Python floats, read back once."""
         return tuple(float(x) for x in self.box_diag.cpu())

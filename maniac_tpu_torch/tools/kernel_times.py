@@ -1,7 +1,7 @@
 """Times of the per-step path (K3's steps) and the one-hot kernel (K5) on the
 card, so that two trees of the package are timed alike.
 
-    python -m maniac_tpu_torch.tools.kernel_times [--seed 1234]
+    python -m maniac_tpu_torch.tools.kernel_times [--seed 1234] [--forms]
 
 Steps: ``mc/driver.run_steps_u`` (the dispatched per-step path: whatever
 the tree runs for an MC step of a spec outside the block kernel's gate) on
@@ -22,7 +22,10 @@ all), and from torch.profiler over one call: the device activities
 (8, 256) x (256, 8) operands, both host-paced, as the target compares
 whole calls: 100 calls each, K5, then its plain version, then
 torch.matmul; and 2 x 1000 calls of K5 and torch.matmul in turns, the
-smaller time of each.
+smaller time of each. ``--forms`` times K3's two forms instead
+(``form_times``): one CTA a replica and a cluster of ``CLUSTER``, each
+device-paced, on the step's shape of the benchmark's spce750 and on the
+flagship, at each of FORM_REPLICAS replicas.
 
 The file imports only what the package has had since K5 was ported, so a
 copy of it in an earlier tree times that tree the same way.
@@ -74,6 +77,9 @@ def device_ms(fn, reps: int) -> float:
 STEPS_TIMED = 20
 ISOTHERM_FUGACITIES = (1.0, 3.0, 10.0, 30.0, 100.0, 300.0, 1000.0, 3000.0)
 ISOTHERM_REPLICAS = 128
+# the replica counts K3's two forms are timed at (--forms): either side of
+# kernels/stepg.py's CLUSTER_MAX_B and up to the isotherm's 1024
+FORM_REPLICAS = (1, 2, 8, 16, 17, 24, 32, 64, 128, 1024)
 
 
 def profile_steps(fn, n_steps: int) -> tuple[float, float]:
@@ -164,6 +170,32 @@ def step_times(seed: int = 1234, reps: int = 3) -> dict:
     return out
 
 
+def form_times(seed: int = 1234, reps: int = 3) -> dict:
+    """{(system, B): {CTAs a replica: device-paced ms a step}} of K3's two
+    forms (kernels/stepg._run pinned to 1 and CLUSTER CTAs a replica) on
+    STEPS_TIMED steps of B replicas of tools/section_split's spce750 and
+    zif (the flagship), for each B of FORM_REPLICAS."""
+    from .. import replicate
+    from ..kernels.stepg import CLUSTER, _run
+    from ..mc.driver import draw_uniforms
+    from ..utils.threefry import prng_key
+    from .section_split import _load
+    dev = torch.device("cuda", 0)
+    out = {}
+    for system in ("spce750", "zif"):
+        sysm = _load(system, dev)
+        spec = sysm.spec
+        state = sysm.state.replace(key=prng_key(seed, dev)[None])
+        for B in FORM_REPLICAS:
+            states = replicate(spec, state, B)
+            _, u = draw_uniforms(spec, states, STEPS_TIMED)
+            out[(system, B)] = {
+                cl: device_ms(lambda: _run(spec, states, u, _cluster=cl),
+                              reps) / STEPS_TIMED
+                for cl in (1, CLUSTER)}
+    return out
+
+
 def k5_times() -> dict:
     """{"100 calls": (K5 ms, plain ms, torch.matmul ms), "2 x 1000 in
     turns": ((K5 ms, torch.matmul ms) of each turn)} on the probe's
@@ -186,10 +218,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kernel_times",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--forms", action="store_true",
+                    help="time K3's two forms (form_times) and nothing else")
     args = ap.parse_args(argv)
     if not require_cuda("kernel_times"):
         return 1
     label = f"{torch.cuda.get_device_name(0)}, {card_label()}"
+    if args.forms:
+        for (system, B), t in form_times(args.seed).items():
+            print(f"kernel_times: K3 {system} B={B}: " + ", ".join(
+                f"{cl} CTA{'s' * (cl > 1)} a replica {ms:.5f} ms"
+                for cl, ms in t.items())
+                + f" a step, device-paced ({STEPS_TIMED} steps a call; "
+                f"{label})")
+        return 0
     k5 = k5_times()
     k5_ms, plain_ms, mm_ms = k5["100 calls"]
     print(f"kernel_times: K5 100 calls: {k5_ms:.4f} ms, plain {plain_ms:.4f} "

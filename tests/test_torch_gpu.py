@@ -7,6 +7,7 @@ without the suite's conftest:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -36,9 +37,10 @@ from maniac_tpu_torch.kernels.vpu import (CPASS_RTOL, PRIM_DOMAINS, PRIMS,
                                           vpu_chain, vpu_chain_plain)
 from maniac_tpu_torch.kernels.threefry import (split_uniform,
                                                split_uniform_plain)
-from maniac_tpu_torch.mc.driver import (draw_uniforms, drift_report,
-                                        resync_amplitudes, sentinel_check,
-                                        sentinel_passed, steps_plain)
+from maniac_tpu_torch.mc.driver import (block_body_u, draw_uniforms,
+                                        drift_report, resync_amplitudes,
+                                        sentinel_check, sentinel_passed,
+                                        steps_plain)
 from maniac_tpu_torch.parallel.replicas import (perturb_activity,
                                                 run_block_sweep,
                                                 run_block_uniforms)
@@ -1016,6 +1018,128 @@ def test_kernels_match_plain_on_the_benchmark_configs(tmp_path, name):
         assert int(k.counters[:, 0, 4].sum()) > 0
     ks = _assert_steps_parity(spec, states, _draw(spec, 8, 40, 22), 0)
     assert int(ks.counters[:, 1].sum()) > 0
+
+
+def _cluster_case(name, d, dev):
+    """A loaded system of each of K3's forms: the benchmark's three
+    configurations (the no-split, frozen-tiles and far_tiles forms) and the
+    triclinic box."""
+    if name == "tricl":
+        _tricl(str(d))
+        return _load(str(d), dev, 16)
+    return _bench_config(name, d, dev)
+
+
+CLUSTER_FORMS = {"spce750": "single", "flue_slit": "multi_tiles",
+                 "nacl001_h2o": "far_tiles", "tricl": "tricl"}
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_FORMS))
+def test_step_kernel_cluster_matches_one_cta(tmp_path, name):
+    """K3's cluster form (a replica's step on stepg.CLUSTER CTAs) against
+    its one-CTA form, pinned through stepg._run's private keyword, at B =
+    1 on the same state and uniforms for 400 steps: each step runs both
+    forms from the one-CTA chain's state, and at most one of the 400 steps
+    takes another decision (a near tie: the sums are taken in another
+    order); on the others the energies agree within 1e-5 relative,
+    positions, COMs and reservoir rows within POS_TOL and amplitudes
+    within AMP_TOL max(1, max|A|), as _assert_steps_parity's. Each launch
+    counts as its form's stepg.cluster.<CTAs>."""
+    from maniac_tpu_torch.kernels import blockg, stepg
+    dev = _device()
+    sysm = _cluster_case(name, tmp_path, dev)
+    spec = sysm.spec
+    assert blockg.form(spec) == CLUSTER_FORMS[name]
+    one = replicate(spec, sysm.state, 1)
+    u = _draw(spec, 1, 400, 51)
+    n0 = trace.counters()
+    diverged, accepted = 0, 0
+    for k in range(u.shape[1]):
+        uk = u[:, k:k + 1].contiguous()
+        c = stepg._run(spec, one, uk, _cluster=stepg.CLUSTER)
+        o = stepg._run(spec, one, uk, _cluster=1)
+        same = (torch.equal(c.n_mol, o.n_mol)
+                and torch.equal(c.counters, o.counters)
+                and torch.equal(c.extras, o.extras)
+                and torch.equal(c.res_n, o.res_n))
+        if not same:
+            diverged += 1
+        else:
+            gap = (c.energy - o.energy).abs()
+            assert bool((gap <= 1e-5 * o.energy.abs().clamp_min(1.0)).all())
+            for field in ("pos", "com", "res_offset", "res_com"):
+                diff = getattr(c, field) - getattr(o, field)
+                assert float(diff.abs().max()) <= POS_TOL, field
+            scale = max(1.0, float(torch.maximum(o.amp_re.abs(),
+                                                 o.amp_im.abs()).max()))
+            for field in ("amp_re", "amp_im"):
+                diff = getattr(c, field) - getattr(o, field)
+                assert float(diff.abs().max()) <= AMP_TOL * scale, field
+        accepted += int((o.counters[:, 1] - one.counters[:, 1]).sum())
+        one = o
+    assert diverged <= 1
+    assert accepted > 0
+    moved = trace.since(n0)
+    assert moved[f"stepg.cluster.{stepg.CLUSTER}"] == 400
+    assert moved["stepg.cluster.1"] == 400
+    assert build.launch_counts(n0)["stepg"] == 800
+
+
+@pytest.mark.parametrize("B", [1, 16])
+def test_step_kernel_cluster_ctas_run_on_distinct_sms(tmp_path, B):
+    """Each cluster's stepg.CLUSTER CTAs run on as many SMs (%smid, from
+    the library built with -DMANIAC_CLUSTER_SMID), at B = 1 and at 16, the
+    most replicas whose clusters of 8 fit the H100's 132 SMs at once."""
+    from maniac_tpu_torch.kernels import stepg
+    dev = _device()
+    _water(str(tmp_path))
+    sysm = _load(str(tmp_path), dev, 16)
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, B)
+    smid = np.full(1024, -1, dtype=np.int32)
+    with build.variant(("MANIAC_CLUSTER_SMID",)) as lib:
+        lib.maniac_cluster_smids.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        stepg._run(spec, states, _draw(spec, B, 1, 52),
+                   _cluster=stepg.CLUSTER)
+        torch.cuda.synchronize()
+        assert lib.maniac_cluster_smids(smid.ctypes.data, smid.size) == 0
+    per_replica = smid[:B * stepg.CLUSTER].reshape(B, stepg.CLUSTER)
+    assert bool((per_replica >= 0).all())
+    for row in per_replica:
+        assert len(set(row.tolist())) == stepg.CLUSTER, row
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_FORMS))
+def test_refresh_graph_matches_the_eager_refresh(tmp_path, name):
+    """driver.resync on the card (initialize_state's kernels replayed as
+    one CUDA graph) against initialize_state called eagerly, at B = 1
+    after each of two 50-step blocks, so that the second replay reads
+    moved positions: energies within 1e-6 relative, amplitudes within
+    AMP_TOL max(1, max|A|), the rest of the state the block's own. The
+    graph is captured once for the spec and its layout."""
+    from maniac_tpu_torch.mc import driver
+    dev = _device()
+    sysm = _cluster_case(name, tmp_path, dev)
+    spec = sysm.spec
+    st = replicate(spec, sysm.state, 1)
+    n0 = trace.counters()
+    energies = []
+    for seed in (61, 62):
+        st = block_body_u(spec, st, _draw(spec, 1, 50, seed), False)
+        g, e = driver.resync(spec, st), driver.initialize_state(spec, st)
+        gap = (g.energy - e.energy).abs()
+        assert bool((gap <= 1e-6 * e.energy.abs().clamp_min(1.0)).all())
+        scale = max(1.0, float(torch.maximum(e.amp_re.abs(),
+                                             e.amp_im.abs()).max()))
+        for field in ("amp_re", "amp_im"):
+            diff = getattr(g, field) - getattr(e, field)
+            assert float(diff.abs().max()) <= AMP_TOL * scale, field
+        for field in ("pos", "com", "n_mol", "counters", "key"):
+            assert getattr(g, field) is getattr(st, field), field
+        energies.append(g.energy.clone())
+        st = g
+    assert not torch.equal(energies[0], energies[1])
+    assert trace.since(n0).get("refresh.graph_captures") == 1
 
 
 def _padded_walk_spec(spec):

@@ -284,6 +284,24 @@ def test_launcher_on_the_card_prints_one_process_lines(tmp_path):
                              out).groups() == (str(blocks),) * 2, out
 
 
+def _card_mesh_runs(tmp_path, n_replicas):
+    """tests/test_torch_mesh.py's ranks on cuda:0 in f32 over gloo at
+    ``n_replicas`` in all, worlds of 1 and 2 at once: {world: [rank 0's
+    saved results, ...]}."""
+    decks, out = str(tmp_path / "decks"), str(tmp_path / "out")
+    mesh_tests._write_decks(decks)
+    os.makedirs(out)
+    worlds = (1, 2)
+    argvs = [[sys.executable, mesh_tests.__file__, str(r), str(w),
+              f"file://{tmp_path}/rendezvous_{w}", decks, out, "cuda:0",
+              str(n_replicas)]
+             for w in worlds for r in range(w)]
+    ranks = run_ranks(argvs, TIMEOUT, env=mesh_tests._env())
+    assert all(rc == 0 for rc, _ in ranks), ranks
+    return {w: [torch.load(f"{out}/w{w}_r{r}.pt") for r in range(w)]
+            for w in worlds}
+
+
 def test_mesh_ranks_share_the_card_bit_for_bit(tmp_path):
     """tests/test_torch_mesh.py's ranks on cuda:0 in f32 over gloo, worlds
     of 1 and 2 at once: every rank's replicas after one sharded block are
@@ -295,19 +313,9 @@ def test_mesh_ranks_share_the_card_bit_for_bit(tmp_path):
     the resync launches K1 once and holds to the plain resync
     (_amp_check)."""
     _device()
-    decks, out = str(tmp_path / "decks"), str(tmp_path / "out")
-    mesh_tests._write_decks(decks)
-    os.makedirs(out)
-    worlds = (1, 2)
-    argvs = [[sys.executable, mesh_tests.__file__, str(r), str(w),
-              f"file://{tmp_path}/rendezvous_{w}", decks, out, "cuda:0"]
-             for w in worlds for r in range(w)]
-    ranks = run_ranks(argvs, TIMEOUT, env=mesh_tests._env())
-    assert all(rc == 0 for rc, _ in ranks), ranks
-    runs = {w: [torch.load(f"{out}/w{w}_r{r}.pt") for r in range(w)]
-            for w in worlds}
+    runs = _card_mesh_runs(tmp_path, mesh_tests.N_REPLICAS)
     for shape in mesh_tests.SHAPES:
-        for w in worlds:
+        for w in runs:
             mesh_tests.assert_sharded_equals_unsharded(runs, w, shape)
             for saved in runs[w]:
                 row = saved[shape]
@@ -323,6 +331,26 @@ def test_mesh_ranks_share_the_card_bit_for_bit(tmp_path):
         assert checks["resync_launches"] == 1, shape
         k, p = (SimState(**f) for f in checks["resync"])
         _amp_check(*_recip(k), *_recip(p))
+
+
+def test_mesh_ranks_take_the_whole_runs_step_form(tmp_path):
+    """The mesh's ranks at twice kernels/stepg.py's CLUSTER_MAX_B replicas
+    in all, so that a rank of the world of 2 holds CLUSTER_MAX_B, where
+    K3 would take clusters on its own: every rank's replicas are still its
+    slice of the unsharded run bit for bit (K3 takes the form of the
+    run's count, one CTA a replica, on the shapes K2 does not take)."""
+    from maniac_tpu_torch.kernels import stepg
+    _device()
+    n_replicas = 2 * stepg.CLUSTER_MAX_B
+    assert stepg.cluster_size(n_replicas) != stepg.cluster_size(
+        n_replicas // 2)
+    runs = _card_mesh_runs(tmp_path, n_replicas)
+    on_k3 = 0
+    for shape in mesh_tests.SHAPES:
+        for w in runs:
+            mesh_tests.assert_sharded_equals_unsharded(runs, w, shape)
+        on_k3 += runs[2][0][shape]["launches"]["stepg"] > 0
+    assert on_k3 > 0
 
 
 @pytest.mark.parametrize("path", ["block", "plain"])

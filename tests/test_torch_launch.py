@@ -17,12 +17,13 @@ import pytest
 import torch
 
 from maniac_tpu_torch import load_system, replicate
+from maniac_tpu_torch import kernels
 from maniac_tpu_torch.kernels import (blockg, build, gpass, image_thresholds,
                                       stepg, vpu)
 from maniac_tpu_torch.mc.driver import draw_uniforms
 from maniac_tpu_torch.parallel.replicas import perturb_activity
 from maniac_tpu_torch.systems import (make_water_box, make_water_reservoir,
-                                      make_zif_like)
+                                      make_zif_like, tiny_system)
 from maniac_tpu_torch.utils import trace
 from maniac_tpu_torch.utils.threefry import prng_key, uniform
 
@@ -336,32 +337,33 @@ def test_kernels_take_the_frozen_tiles(stub, system, kernel, request):
 
 
 def _step_calls(stub, spec, states, n_steps, seed):
-    """run_steps_kernel's launches (stepg._run on CPU tensors) of one
-    n_steps block: (the returned state, the uniforms, the unpacked tables
-    of each launch, (csrc/step_body.cuh's shared entries, csrc/stepg.cu's
-    own ints))."""
+    """run_steps_kernel's launcher calls (stepg._run on CPU tensors) of one
+    n_steps block, one call that queues n_steps launches: (the returned
+    state, the uniforms, the unpacked tables of each call,
+    (csrc/step_body.cuh's shared entries, csrc/stepg.cu's own ints))."""
     u = uniform(prng_key(seed), (states.B, n_steps, 21), spec.dtype)
     n0, calls0 = trace.counters(), len(stub.calls)
     out = stepg._run(spec, states, u)
     calls = [_unpack(c) for c in stub.calls[calls0:]]
-    assert build.launch_counts(n0)["stepg"] == n_steps == len(calls)
+    assert build.launch_counts(n0)["stepg"] == n_steps and len(calls) == 1
     assert all(c[0] == "stepg_launch" for c in stub.calls[calls0:])
     return out, u, calls, (_shared(), _enum("stepg.cu", "StepgInt"))
 
 
 def test_step_tables_match_the_kernel(stub, zif32):
     """run_steps_kernel's tables against csrc/step_body.cuh's and
-    stepg.cu's enums: lengths, the block's uniform pointer, the step index
-    0..n-1 in order, one activity table (stride 0), the far table's
-    pointers and tile count."""
+    stepg.cu's enums: lengths, the block's uniform pointer, the launches
+    of steps 0..n-1 (the first step and the count), one activity table
+    (stride 0), the far table's pointers and tile count."""
     spec = zif32.spec
     states = replicate(spec, zif32.state, 4)
     _, u, calls, (sh, si) = _step_calls(stub, spec, states, 3, 2)
-    for k, (ptrs, ints, floats) in enumerate(calls):
+    for ptrs, ints, floats in calls:
         assert (len(ptrs), len(ints), len(floats)) == (
             sh["SP_SHARED"], si["SI_COUNT"], sh["SF_COUNT"])
         assert ptrs[sh["SP_U"]] == u.data_ptr()
-        assert ints[si["SI_STEP"]] == k and ints[sh["SI_NSTEPS"]] == 3
+        assert ints[si["SI_STEP"]] == 0 and ints[si["SI_LAUNCHES"]] == 3
+        assert ints[sh["SI_NSTEPS"]] == 3
         assert ints[sh["SI_B"]] == 4 and ints[si["SI_ACT_STRIDE"]] == 0
         assert ptrs[sh["SP_TYPE_ACTIVITY"]] == spec.type_activity.data_ptr()
         assert ptrs[sh["SP_FAR_COEF"]] == spec.far_coef.data_ptr()
@@ -388,8 +390,8 @@ def test_step_tables_sweep_activity_stride(stub, zif32):
 @pytest.mark.parametrize("system", ["zif32", "resv32"])
 def test_step_kernel_launches_on_one_clone(stub, system, request):
     """Every launch of a block updates one working copy: the state
-    pointers differ from the input state's and stay the same across the
-    block, the returned state is that copy (equal to the input, since the
+    pointers differ from the input state's, the returned state is that
+    copy (equal to the input, since the
     stub writes nothing), and the input state's tensors are unchanged; the
     reservoir is cloned only where there is one."""
     sysm = request.getfixturevalue(system)
@@ -414,6 +416,90 @@ def test_step_kernel_launches_on_one_clone(stub, system, request):
     for k, v in vars(states).items():
         assert torch.equal(v, before[k]), k
         assert torch.equal(getattr(out, k), before[k]), k
+
+
+def _cluster_launches(stub, sysm, B, n_steps, **pin):
+    """((SI_CLUSTER, SI_LAUNCHES) of each launcher call of one n_steps
+    block at B replicas, the stepg.cluster.* counters that moved)."""
+    spec = sysm.spec
+    states = replicate(spec, sysm.state, B)
+    u = uniform(prng_key(5), (B, n_steps, 21), spec.dtype)
+    si = _enum("stepg.cu", "StepgInt")
+    n0, calls0 = trace.counters(), len(stub.calls)
+    stepg._run(spec, states, u, **pin)
+    moved = {k: v for k, v in trace.since(n0).items()
+             if k.startswith("stepg.cluster.")}
+    return [tuple(_unpack(c)[1][si[k]] for k in ("SI_CLUSTER", "SI_LAUNCHES"))
+            for c in stub.calls[calls0:]], moved
+
+
+@pytest.mark.parametrize("B,cl", [
+    (1, stepg.CLUSTER), (stepg.CLUSTER_MAX_B, stepg.CLUSTER),
+    (stepg.CLUSTER_MAX_B + 1, 1), (1024, 1)])
+def test_step_kernel_takes_a_cluster_at_few_replicas(stub, water32, B, cl):
+    """K3 runs a replica's step on a cluster of stepg.CLUSTER CTAs up to
+    CLUSTER_MAX_B replicas and on one CTA above: the block's one launcher
+    call passes that count as csrc/stepg.cu's SI_CLUSTER, and each of its
+    launches counts once as stepg.cluster.<count>."""
+    assert stepg.cluster_size(B) == cl
+    sent, moved = _cluster_launches(stub, water32, B, 3)
+    assert sent == [(cl, 3)]
+    assert moved == {f"stepg.cluster.{cl}": 3}
+
+
+@pytest.fixture
+def flagship32(tmp_path):
+    """systems.tiny_system's flagship in f32: K3 takes it, K2 does not."""
+    tiny_system(str(tmp_path), "flagship")
+    sysm = _load_cpu(tmp_path, 16)
+    assert kernels.block_gate_failure(sysm.spec) is not None
+    assert kernels.step_gate_failure(sysm.spec) is None
+    return sysm
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_sharded_steps_take_the_whole_runs_form(stub, flagship32,
+                                                monkeypatch, world):
+    """A rank of a mesh runs K3 in the form of the run's replicas in all,
+    not of its own slice: CLUSTER_MAX_B replicas a rank take clusters in a
+    world of 1 and one CTA a replica in a world of 2 (twice CLUSTER_MAX_B
+    in all), as the unsharded run of each does, so that the sums add in
+    the same order on both sides (parallel/mesh.py)."""
+    from maniac_tpu_torch.parallel.mesh import Mesh, run_block_sharded
+    spec = flagship32.spec
+    local = stepg.CLUSTER_MAX_B
+    states = replicate(spec, flagship32.state, local)
+    # the kernel's wrapper on the CPU state, as on the card
+    monkeypatch.setattr(stepg, "run_steps_kernel",
+                        lambda spec, st, u, n=None: stepg._run(spec, st, u, n))
+    mesh = Mesh(None, 0, world, torch.device("cpu"))
+    si = _enum("stepg.cu", "StepgInt")
+    n0, calls0 = trace.counters(), len(stub.calls)
+    run_block_sharded(mesh, spec, states, 2, False)
+    sent = [_unpack(c)[1][si["SI_CLUSTER"]] for c in stub.calls[calls0:]]
+    cl = stepg.cluster_size(local * world)
+    assert cl == (stepg.CLUSTER if world == 1 else 1)
+    assert sent == [cl]
+    assert trace.since(n0)[f"stepg.cluster.{cl}"] == 2
+
+
+def test_step_kernel_cluster_entry_and_size_match_the_kernel(stub,
+                                                             water32):
+    """SI_CLUSTER and SI_LAUNCHES follow SI_STEP and SI_ACT_STRIDE after
+    the shared ints, the wrapper's CLUSTER is csrc/stepg.cu's, its
+    CLUSTER_MAX_B one of the replica counts tools/kernel_times times the
+    two forms at, and the private pin takes the one-CTA form at B = 1."""
+    sh, si = _shared(), _enum("stepg.cu", "StepgInt")
+    assert [si[k] - sh["SI_SHARED"] for k in (
+        "SI_STEP", "SI_ACT_STRIDE", "SI_CLUSTER", "SI_LAUNCHES",
+        "SI_COUNT")] == [0, 1, 2, 3, 4]
+    text = (CSRC / "stepg.cu").read_text()
+    assert re.search(r"constexpr int CLUSTER = (\d+);", text).group(1) == \
+        str(stepg.CLUSTER)
+    from maniac_tpu_torch.tools.kernel_times import FORM_REPLICAS
+    assert stepg.CLUSTER_MAX_B in FORM_REPLICAS
+    sent, moved = _cluster_launches(stub, water32, 1, 2, _cluster=1)
+    assert sent == [(1, 2)] and moved == {"stepg.cluster.1": 2}
 
 
 def test_launch_cost_tables_match_the_kernels():

@@ -5,8 +5,9 @@ gloo: one process a rank, the replica axis split over the ranks.
 The ranks of every world size are spawned once, all at a time, in a
 module-scoped fixture (this file run as a program is one rank: ``python
 tests/test_torch_mesh.py <rank> <world> <init URL> <decks> <out>
-[device]``, the device cpu, or cuda:0 for tests/test_torch_gpu_runs.py's
-ranks sharing a card); the parametrised cases assert on what they saved.
+[device [replicas]]``, the device cpu, or cuda:0 for
+tests/test_torch_gpu_runs.py's ranks sharing a card); the parametrised
+cases assert on what they saved.
 Every multi-process case has its own timeout. JAX is imported only by the
 case that runs it, so that a rank imports torch alone.
 """
@@ -131,8 +132,9 @@ def _card_checks(mesh, spec, states):
     return out
 
 
-def _rank_main(rank, world, init, decks, out, device="cpu"):
-    """One rank: every shape sharded over the world at N_REPLICAS, one
+def _rank_main(rank, world, init, decks, out, device="cpu",
+               n_replicas=N_REPLICAS):
+    """One rank: every shape sharded over the world at ``n_replicas``, one
     block of N_STEPS, the gathered statistics and the collectives made in
     the block and in the gather; a world of 1 also runs the unsharded
     reference (replicate + run_block_replicated + gather_replica_stats
@@ -147,7 +149,7 @@ def _rank_main(rank, world, init, decks, out, device="cpu"):
         for shape in SHAPES:
             sysm = _load(decks, shape, mesh.device)
             spec = replicate_spec(mesh, sysm.spec)
-            states = shard_replicas(mesh, spec, sysm.state, N_REPLICAS)
+            states = shard_replicas(mesh, spec, sysm.state, n_replicas)
             counts.clear()
             n0 = trace.counters()
             states = run_block_sharded(mesh, spec, states, N_STEPS, False)
@@ -155,14 +157,14 @@ def _rank_main(rank, world, init, decks, out, device="cpu"):
             in_block = sum(counts.values())
             stats = [t.cpu() for t in gather_replica_stats(
                 states, spec.R, E_TOT, mesh=mesh)]
-            row = {"span": mesh.span(N_REPLICAS),
+            row = {"span": mesh.span(n_replicas),
                    "state": _fields(states),
                    "stats": stats,
                    "collectives": (in_block,
                                    sum(counts.values()) - in_block)}
             if world == 1:
                 ref = run_block_replicated(
-                    spec, replicate(spec, sysm.state, N_REPLICAS), N_STEPS,
+                    spec, replicate(spec, sysm.state, n_replicas), N_STEPS,
                     False)
                 row["ref"] = _fields(ref)
                 row["ref_stats"] = [t.cpu() for t in gather_replica_stats(
@@ -214,6 +216,7 @@ def assert_sharded_equals_unsharded(runs, world, shape):
     ranks ``runs`` ({world: [rank 0's saved results, ...]}, world 1
     among them)."""
     ref = runs[1][0][shape]
+    n_replicas = ref["ref"]["key"].shape[0]
     spans = []
     for rank, saved in enumerate(runs[world]):
         got = saved[shape]
@@ -224,10 +227,10 @@ def assert_sharded_equals_unsharded(runs, world, shape):
                 (world, rank, f)
         for a, b in zip(got["stats"], ref["ref_stats"]):
             assert torch.equal(a, b), (world, rank)
-    n = N_REPLICAS // world
+    n = n_replicas // world
     assert spans == [(r * n, (r + 1) * n) for r in range(world)]
     # the chains differ: each replica has its own key
-    assert len({tuple(k) for k in ref["ref"]["key"].tolist()}) == N_REPLICAS
+    assert len({tuple(k) for k in ref["ref"]["key"].tolist()}) == n_replicas
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -427,4 +430,5 @@ def test_run_ranks_kills_what_outlives_it():
 
 
 if __name__ == "__main__":
-    sys.exit(_rank_main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]))
+    sys.exit(_rank_main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:7],
+                        *map(int, sys.argv[7:])))

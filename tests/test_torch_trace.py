@@ -124,6 +124,42 @@ def test_spans_nest_under_their_callers(deck):
             assert p.start <= s.start and s.end <= p.end
 
 
+def test_refresh_off_the_card_runs_eagerly(deck):
+    """On the CPU the chain's refresh (mc/driver.resync) is
+    initialize_state called eagerly, bit for bit, each call's own
+    energy.system span under mc.refresh, and no CUDA graph is captured
+    (the card replays one: tests/test_torch_gpu.py)."""
+    from maniac_tpu_torch.mc.driver import initialize_state
+    sysm = _load(deck)
+    st, u = draw_uniforms(sysm.spec, sysm.state, 5)
+    st = block_body_u(sysm.spec, st, u, False)
+    trace.enable(True)
+    got = [resync(sysm.spec, st) for _ in range(2)]
+    want = initialize_state(sysm.spec, st)
+    for g in got:
+        for field in ("energy", "amp_re", "amp_im"):
+            assert torch.equal(getattr(g, field), getattr(want, field))
+    names = [s.name for s in trace.spans()]
+    assert names.count("mc.refresh") == 2
+    assert names.count("energy.system") == 3
+    assert "refresh.graph_captures" not in trace.counters()
+    assert sysm.spec.graphs == {}
+
+
+def test_graphs_live_on_their_spec(deck):
+    """The CUDA graphs a spec keeps (SystemSpec.graphs, where the card's
+    refresh keeps its graph) belong to that spec alone: one dict for the
+    life of the spec, and a spec made from it by dataclasses.replace
+    starts with its own, empty."""
+    import dataclasses
+    spec = _load(deck).spec
+    spec.graphs["layout"] = "graph"
+    assert spec.graphs is spec.graphs
+    assert spec.graphs == {"layout": "graph"}
+    assert dataclasses.replace(spec).graphs == {}
+    assert spec.graphs == {"layout": "graph"}
+
+
 def test_profiled_spans_are_the_profile_ranges(deck):
     """On, inside a profile: every span is a record_function range of the
     profile, of the same name and in the same order, nested as the spans
